@@ -6,8 +6,11 @@ val, length``, the operator names, and per-member loss / score / birth — and
 is rebuilt here into this package's ``Node`` trees (through its own
 ``unflatten_tree``), ``PopMember``, ``Population`` and ``HallOfFame``. The
 reverse direction, ``flat_arrays``, turns this package's trees into the same
-plain arrays. Tests use both so the two packages compute on identical
-inputs.
+plain arrays. The device engine's state crosses the same way:
+``evo_state_from_arrays`` builds this package's ``EvoState`` from the
+fields of the JAX package's (its PRNG key is dropped: this package keeps a
+``torch.Generator`` beside the state), and ``evo_state_arrays`` goes back.
+Tests use these so the two packages compute on identical inputs.
 """
 
 from __future__ import annotations
@@ -32,6 +35,9 @@ __all__ = [
     "members_from_arrays",
     "population_from_arrays",
     "hall_of_fame_from_arrays",
+    "EVO_FIELDS",
+    "evo_state_from_arrays",
+    "evo_state_arrays",
 ]
 
 #: the FlatTrees fields, in order
@@ -105,3 +111,61 @@ def hall_of_fame_from_arrays(src, loss, score, options, birth=None) -> HallOfFam
     hof = HallOfFame(options.maxsize)
     hof.update_many(members_from_arrays(src, loss, score, options, birth), options)
     return hof
+
+
+#: the EvoState fields that cross between the packages (all but the JAX
+#: state's ``key``), in order; ``bs_tree`` is the 7-tuple of tree fields
+EVO_FIELDS = (
+    "kind", "op", "lhs", "rhs", "feat", "val", "length", "loss", "score", "birth",
+    "freq", "bs_loss", "bs_tree", "bs_exists", "step", "num_evals", "iteration",
+)
+
+
+def evo_state_from_arrays(src: Any, device="cpu"):
+    """This package's EvoState from a mapping or any object carrying
+    ``EVO_FIELDS`` (a JAX-package EvoState qualifies). Integer fields become
+    int32, ``freq`` float32, ``num_evals`` float64; values, losses and
+    scores keep their float dtype."""
+    import torch
+
+    from .ops.evolve import EvoState
+
+    def get(name):
+        return src[name] if isinstance(src, Mapping) else getattr(src, name)
+
+    def t(a, dtype=None):
+        a = np.asarray(a)
+        out = torch.from_numpy(np.array(a)).to(device)
+        return out if dtype is None else out.to(dtype)
+
+    ints = ("kind", "op", "lhs", "rhs", "feat", "length", "birth", "step", "iteration")
+    out = {}
+    for name in EVO_FIELDS:
+        if name == "bs_tree":
+            bt = [np.asarray(a) for a in get(name)]
+            out[name] = tuple(
+                t(a, None if k == 5 else torch.int32) for k, a in enumerate(bt)
+            )
+        elif name in ints:
+            out[name] = t(get(name), torch.int32)
+        elif name == "bs_exists":
+            out[name] = t(get(name), torch.bool)
+        elif name == "freq":
+            out[name] = t(get(name), torch.float32)
+        elif name == "num_evals":
+            out[name] = t(get(name), torch.float64)
+        else:
+            out[name] = t(get(name))
+    return EvoState(**out)
+
+
+def evo_state_arrays(state) -> dict:
+    """The EvoState's fields as numpy arrays (``bs_tree`` as a tuple), the
+    inverse of ``evo_state_from_arrays``."""
+    out = {}
+    for name in EVO_FIELDS:
+        v = getattr(state, name)
+        out[name] = (
+            tuple(np.asarray(a.cpu()) for a in v) if name == "bs_tree" else np.asarray(v.cpu())
+        )
+    return out

@@ -1,0 +1,894 @@
+"""Driver for the device-resident evolution engine (scheduler="device").
+
+Counterpart of ``symbolicregression_jl_tpu/models/device_search.py``,
+single process and single card. The host builds the configuration, uploads
+the dataset and the initial populations once, runs each iteration's legs on
+the device, reads back ONE packed tensor per iteration for the hall of fame
+and the stop conditions, and decodes the final populations at the end.
+Everything else — tournament, mutation, crossover, accept, replacement,
+frequencies, migration — runs on the device (ops/evolve.py).
+
+An iteration is three legs, each counted by the dispatch hook: "evolve"
+(``ncycles`` batched events, then migration), "const_opt" (a lockstep
+batched BFGS over K members x S restarts), "finalize" (under batching only)
+and "readback" (one packed tensor). Where the JAX package compiles the
+chain into one program, the port runs it eagerly: the evolve leg makes no
+host sync (no ``.item()``, no boolean-mask indexing, no Python branch on a
+tensor), so the host only enqueues work. Constant optimization syncs at
+most once per line-search step and once per BFGS iteration, to stop where
+the JAX package's ``while_loop``s stop.
+
+Kernels: on f32 with built-in operators and a built-in real loss
+(``loss_kernel_eligible``), every scoring call goes through B1
+(``fused_loss``) and every gradient of constant optimization through B2
+(``fused_loss_grad``, via ``DiffLoss``); otherwise (f64, user callables)
+both are their plain versions (``plain_losses``). Packing happens on the
+device from the state tensors. The TPU's bucket ladders are gone: the
+kernels loop to each tree's own length.
+
+The pipelined readback (``Options.async_readback``, on by default here)
+copies iteration i's packed tensor into pinned host memory without
+blocking and consumes iteration i-1's while the card runs iteration i, so
+the hall of fame, the simplify pool and the stop conditions lag one
+iteration (the JAX package's documented staleness).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+import time
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from ..analysis.ir_verify import debug_checks_enabled
+from ..dataset import Dataset
+from ..ops.evolve import (
+    EvoConfig,
+    EvoContext,
+    EvoState,
+    _complexity_members,
+    _score_of,
+    init_state,
+    merge_best_seen,
+    migrate_from_pool,
+    run_iteration_fused,
+)
+from ..ops.flat import (
+    KIND_BINARY, KIND_CONST, KIND_UNARY, KIND_VAR, FlatTrees, flatten_trees,
+    unflatten_tree,
+)
+from ..ops.interp_cuda import (
+    DiffLoss, fused_loss, loss_kernel_eligible, plain_losses, unpack_programs_fused,
+)
+from ..ops.treeops import Tree
+from ..options import Options, _not_ported
+from .hall_of_fame import HallOfFame
+from .pop_member import PopMember
+from .population import Population
+
+__all__ = [
+    "device_search_one_output", "device_mode_supported", "build_evo_config",
+    "ScoreData", "EngineScorer", "pack_batch", "fleet_search", "FleetLaneSpec",
+]
+
+
+def device_mode_supported(options: Options) -> str | None:
+    """None if the device engine can honor this configuration; else a reason
+    (the JAX package's ``device_mode_supported``; its recorder and graph-node
+    cases raise in Options here)."""
+    if options.loss_function is not None:
+        return (
+            "custom full-objective loss_function (host-callable per-tree "
+            "objectives cannot run inside the engine)"
+        )
+    if np.dtype(options.dtype) not in (np.dtype(np.float32), np.dtype(np.float64)):
+        return f"unsupported engine dtype {np.dtype(options.dtype).name}"
+    return None
+
+
+def build_evo_config(
+    options: Options,
+    n_features: int,
+    baseline_loss: float,
+    use_baseline: bool,
+    niterations: int,
+    n_islands: int | None = None,
+    n_rows: int | None = None,
+) -> EvoConfig:
+    """Translate Options into the engine's static EvoConfig, field for field
+    as the JAX package does."""
+    I = options.populations if n_islands is None else n_islands
+    P = options.population_size
+    mw = options.mutation_weights
+    tn = min(options.tournament_selection_n, P)
+    tw = np.asarray(options.tournament_weights)[:tn]
+    return EvoConfig(
+        n_islands=I,
+        pop_size=P,
+        n_slots=options.max_nodes,
+        maxsize=options.maxsize,
+        maxdepth=options.maxdepth,
+        nfeatures=n_features,
+        n_unary=options.operators.n_unary,
+        n_binary=options.operators.n_binary,
+        tournament_n=tn,
+        tournament_weights=tuple(tw / tw.sum()),
+        mutation_weights=(
+            mw.mutate_constant, mw.mutate_operator, mw.swap_operands, mw.add_node,
+            mw.insert_node, mw.delete_node, mw.randomize, mw.do_nothing,
+        ),
+        crossover_probability=options.crossover_probability,
+        annealing=options.annealing,
+        alpha=options.alpha,
+        parsimony=options.parsimony,
+        use_frequency=options.use_frequency,
+        use_frequency_in_tournament=options.use_frequency_in_tournament,
+        adaptive_parsimony_scaling=options.adaptive_parsimony_scaling,
+        perturbation_factor=options.perturbation_factor,
+        probability_negate_constant=options.probability_negate_constant,
+        baseline_loss=baseline_loss,
+        use_baseline=use_baseline,
+        ncycles=options.ncycles_per_iteration,
+        events_per_cycle=max(1, -(-P // tn)),
+        fraction_replaced=options.fraction_replaced,
+        fraction_replaced_hof=options.fraction_replaced_hof,
+        migration=options.migration,
+        hof_migration=options.hof_migration,
+        topn=min(options.topn, P),
+        niterations=niterations,
+        warmup_maxsize_by=options.warmup_maxsize_by,
+        mutation_attempts=int(options.device_mutation_attempts),
+        bin_caps=tuple(tuple(c) for c in options.op_constraints[0]),
+        una_caps=tuple(options.op_constraints[1]),
+        nested_constraints=tuple(
+            (od, oi, tuple(tuple(inner) for inner in inners))
+            for od, oi, inners in (options.nested_constraints_resolved or ())
+        ),
+        batching=bool(options.batching),
+        eval_fraction=(
+            min(int(options.batch_size), n_rows) / n_rows
+            if options.batching and n_rows
+            else 1.0
+        ),
+        val_dtype=str(np.dtype(options.dtype)),
+        complexity_table=_complexity_table(options, n_features),
+    )
+
+
+def _complexity_table(options: Options, n_features: int):
+    """Static per-node cost tables for the engine's mapped complexity
+    (reference ComplexityMapping, SymbolicRegression.jl
+    src/OptionsStruct.jl:21-113); None -> node count."""
+    cm = options.complexity_mapping
+    if cm is None:
+        return None
+    var = np.asarray(cm["variable"], dtype=np.float64)
+    var_costs = (
+        (float(var),) * max(n_features, 1)
+        if var.ndim == 0
+        else tuple(float(v) for v in var)
+    )
+    return (
+        tuple(float(c) for c in cm["binop"]),
+        tuple(float(c) for c in cm["unaop"]),
+        float(cm["constant"]),
+        var_costs,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Scoring
+# ---------------------------------------------------------------------------
+
+
+class ScoreData(NamedTuple):
+    """The dataset on the engine's device: X [F, R], y [R], w [R] or None in
+    the engine dtype, and the score normalization max(baseline, 0.01) as a
+    0-d tensor."""
+
+    X: torch.Tensor
+    y: torch.Tensor
+    w: torch.Tensor | None
+    norm: torch.Tensor
+
+
+def _make_score_data(dataset: Dataset, dtype, device, norm: float) -> ScoreData:
+    X, y, w = dataset.device_arrays(dtype, device)
+    return ScoreData(X, y, w, torch.tensor(norm, dtype=X.dtype, device=X.device))
+
+
+def pack_batch(batch: Tree, opset) -> tuple[torch.Tensor, torch.Tensor]:
+    """A tree batch -> the kernels' (prog int32 [B, 4N+1], vals [B, N]) on
+    its own device (``pack_programs_fused`` without the host round trip)."""
+    k = batch.kind
+    code = torch.where(
+        k == KIND_VAR, 1,
+        torch.where(
+            k == KIND_UNARY, 2 + batch.op,
+            torch.where(k == KIND_BINARY, 2 + opset.n_unary + batch.op, 0),
+        ),
+    )
+    prog = torch.cat(
+        [code, batch.lhs, batch.rhs, batch.feat, batch.length[:, None]], 1
+    ).to(torch.int32).contiguous()
+    return prog, batch.val.contiguous()
+
+
+class EngineScorer:
+    """Every loss and gradient the engine asks for, with its counts.
+
+    ``use_kernel`` (f32, built-in operators and loss): losses through B1,
+    gradients through one B2 launch each (``DiffLoss``). Otherwise the plain
+    versions (``plain_losses``), on the engine dtype. ``score_calls`` counts loss calls (one B1
+    launch each on the card), ``grad_calls`` gradient calls (one B2 launch
+    each on the card)."""
+
+    def __init__(self, options: Options, use_kernel: bool):
+        self.opset = options.operators
+        self.loss_elem = options.loss
+        self.use_kernel = use_kernel
+        self.score_calls = 0
+        self.grad_calls = 0
+
+    def losses(self, batch: Tree, X, y, w) -> torch.Tensor:
+        return self.packed_losses(*pack_batch(batch, self.opset), X, y, w)
+
+    def packed_losses(self, prog, vals, X, y, w) -> torch.Tensor:
+        """Losses of a packed batch with constants ``vals``."""
+        self.score_calls += 1
+        if self.use_kernel:
+            return fused_loss(prog, vals, X, y, w, self.opset, self.loss_elem)
+        return plain_losses(self._unpacked(prog), vals, X, y, w, self.opset, self.loss_elem)
+
+    def packed_loss_grad(self, prog, vals, X, y, w):
+        """(losses, d losses / d vals) of a packed batch."""
+        self.grad_calls += 1
+        if self.use_kernel:
+            with torch.enable_grad():
+                v = vals.detach().requires_grad_(True)
+                f = DiffLoss.apply(v, prog, X, y, w, self.opset, self.loss_elem)
+                (g,) = torch.autograd.grad(f.sum(), v)
+            return f.detach(), g
+        return plain_losses(self._unpacked(prog), vals, X, y, w, self.opset,
+                            self.loss_elem, with_grad=True)
+
+    def _unpacked(self, prog) -> FlatTrees:
+        p = np.asarray(prog.cpu())
+        return unpack_programs_fused(p, np.zeros((p.shape[0], (p.shape[1] - 1) // 4),
+                                                 np.float32), self.opset)
+
+
+# ---------------------------------------------------------------------------
+# Constant optimization
+# ---------------------------------------------------------------------------
+
+
+def _select_and_jitter(state: EvoState, K: int, S: int, I: int, P: int, ctx: EvoContext):
+    """Pick K distinct members, constant-bearing ones first (priority
+    uniform(0,1) + has_const, top K), and build their restart starts
+    [K, S, N]: the constants themselves, then x(1 + 0.5 randn) jitters
+    (SymbolicRegression.jl src/ConstantOptimization.jl:53-68). Returns
+    (ii, pp, val0, mask, starts)."""
+    has_const = (state.kind == KIND_CONST).any(-1).reshape(-1)
+    prio = ctx.rand(I * P) + has_const.to(torch.float32)
+    flat_idx = torch.argsort(-prio, stable=True)[:K]
+    ii, pp = flat_idx // P, flat_idx % P
+    val0 = state.val[ii, pp]
+    mask = state.kind[ii, pp] == KIND_CONST
+    N = val0.shape[1]
+    jitter = 1.0 + 0.5 * torch.randn((K, S - 1, N), generator=ctx.gen, device=ctx.device,
+                                      dtype=val0.dtype)
+    starts = torch.cat([val0[:, None, :], val0[:, None, :] * jitter], 1)
+    return ii, pp, val0, mask, starts
+
+
+def _accept_and_scatter(state: EvoState, cfg: EvoConfig, ii, pp, mask_k, val0, vals,
+                        fbest, n_evals: float, norm=None, base_loss=None,
+                        ctx: EvoContext | None = None) -> EvoState:
+    """Accept only improvements, scatter the new constants, losses and scores
+    back, reset the birth of improved members (SymbolicRegression.jl
+    src/ConstantOptimization.jl:70-78); fold the tuned members into the
+    best-seen frontier unless batching (there ``fbest`` and ``base_loss``
+    are losses on one minibatch, and finalize rescores on full data)."""
+    old_loss = state.loss[ii, pp]
+    base = old_loss if base_loss is None else base_loss
+    improved = (fbest < base) & mask_k.any(1)
+    new_val = torch.where(improved[:, None], vals, val0)
+    new_loss = torch.where(improved, fbest, old_loss)
+    comp_m = _complexity_members(state, cfg, ctx)[ii, pp]
+    new_score = _score_of(new_loss, comp_m.to(new_loss.dtype), cfg, norm)
+    if not cfg.batching:
+        lengths = state.length[ii, pp]
+        fields = [state.kind[ii, pp], state.op[ii, pp], state.lhs[ii, pp],
+                  state.rhs[ii, pp], state.feat[ii, pp], new_val]
+        state = merge_best_seen(
+            state, cfg, new_loss, torch.isfinite(new_loss) & (lengths >= 1), fields,
+            lengths, comps=comp_m,
+        )
+    return state._replace(
+        val=torch.index_put(state.val, (ii, pp), new_val),
+        loss=torch.index_put(state.loss, (ii, pp), new_loss),
+        score=torch.index_put(state.score, (ii, pp), new_score),
+        birth=torch.index_put(
+            state.birth, (ii, pp), torch.where(improved, state.step, state.birth[ii, pp])
+        ),
+        num_evals=state.num_evals + n_evals,
+    )
+
+
+def make_const_opt_fn(options: Options, cfg: EvoConfig, scorer: EngineScorer,
+                      ctx: EvoContext) -> Callable:
+    """The engine's constant optimization (the JAX package's
+    ``_make_const_opt_fn_pallas``): the whole (member, restart) batch runs
+    one BFGS in lockstep with Armijo backtracking, every value+gradient
+    evaluation one B2 launch and every line-search evaluation one B1 launch.
+
+    Semantics as the JAX package's, including its documented deviation
+    (BFGS for every tree, where the reference uses Newton for one-constant
+    trees). The backtracking loop syncs once per step to stop when every
+    instance satisfies Armijo (the JAX ``while_loop``'s condition); the
+    convergence gate (``optimizer_g_tol``) syncs once per BFGS iteration, and
+    not at all when the gate is 0. Under batching the whole BFGS runs on one
+    fresh row draw, accepts batch against batch and counts evaluations
+    fractionally."""
+    I, P, N = cfg.n_islands, cfg.pop_size, cfg.n_slots
+    K = max(1, int(round(options.optimizer_probability * I * P)))
+    S = 1 + options.optimizer_nrestarts
+    B = K * S
+    iters = int(options.optimizer_iterations)
+    g_tol = float(options.optimizer_g_tol)
+    opset = options.operators
+
+    def const_opt(state: EvoState, data: ScoreData) -> EvoState:
+        X, y, w = data.X, data.y, data.w
+        if cfg.batching:
+            idx = torch.randint(0, X.shape[1], (ctx.batch_rows,), generator=ctx.gen,
+                                device=ctx.device)
+            X, y = X[:, idx].contiguous(), y[idx].contiguous()
+            w = None if w is None else w[idx].contiguous()
+        ii, pp, val0, mask_k, starts = _select_and_jitter(state, K, S, I, P, ctx)
+        members = Tree(*(f[ii, pp] for f in (state.kind, state.op, state.lhs, state.rhs,
+                                              state.feat, state.val, state.length)))
+        prog_k, _ = pack_batch(members, opset)
+        # instance b = tree b // S, restart b % S
+        prog_b = torch.repeat_interleave(prog_k, S, dim=0)
+        mask_b = torch.repeat_interleave(mask_k, S, dim=0)
+        x = starts.reshape(B, N).contiguous()
+
+        def vloss(v):
+            return scorer.packed_losses(prog_b, v.contiguous(), X, y, w)
+
+        def vgrad(v):
+            f, g = scorer.packed_loss_grad(prog_b, v.contiguous(), X, y, w)
+            return f, torch.where(mask_b, g, 0.0)
+
+        eye = torch.eye(N, dtype=x.dtype, device=x.device).expand(B, N, N)
+        f, g = vgrad(x)
+        f0 = f
+        H = eye
+        for _ in range(iters):
+            if g_tol > 0 and bool(g.abs().max() < g_tol):
+                break
+            d = -torch.bmm(H, g[:, :, None])[:, :, 0]
+            d = torch.where(mask_b, d, 0.0)
+            gtd = (g * d).sum(-1)
+            bad = gtd >= 0
+            d = torch.where(bad[:, None], -g, d)
+            gtd = torch.where(bad, -(g * g).sum(-1), gtd)
+            # Armijo backtracking (c1 = 1e-4, halving, <= 12 steps);
+            # satisfied instances keep their step and value
+            alpha = torch.ones((B,), dtype=x.dtype, device=x.device)
+            f_new = vloss(x + d)
+            for _ in range(12):
+                armijo = f_new <= f + 1e-4 * alpha * gtd
+                if bool(armijo.all()):
+                    break
+                alpha = torch.where(armijo, alpha, alpha * 0.5)
+                f_new = torch.where(armijo, f_new, vloss(x + alpha[:, None] * d))
+            ok = torch.isfinite(f_new) & (f_new < f)
+            x_new = torch.where(ok[:, None], x + alpha[:, None] * d, x)
+            f = torch.where(ok, f_new, f)
+            _, g_new = vgrad(x_new)
+            s = x_new - x
+            yk = g_new - g
+            sy = (s * yk).sum(-1)
+            good = sy > 1e-10
+            rho = torch.where(good, 1.0 / torch.where(good, sy, 1.0), 0.0)
+            I_rsy = eye - rho[:, None, None] * (s[:, :, None] * yk[:, None, :])
+            H_new = torch.bmm(torch.bmm(I_rsy, H), I_rsy.transpose(1, 2)) + (
+                rho[:, None, None] * (s[:, :, None] * s[:, None, :])
+            )
+            H = torch.where(good[:, None, None], H_new, H)
+            x, g = x_new, g_new
+        fs = torch.where(torch.isfinite(f), f, torch.inf).reshape(K, S)
+        best = torch.argmin(fs, 1)
+        rows = torch.arange(K, device=x.device)
+        vals = x.reshape(K, S, N)[rows, best]
+        fbest = fs[rows, best]
+        n_ev = float(K * S * 2 * iters)
+        base = None
+        if cfg.batching:
+            # restart 0 starts at val0: its first loss is the member's loss
+            # on this batch
+            base = f0.reshape(K, S)[:, 0]
+            n_ev *= cfg.eval_fraction
+        return _accept_and_scatter(
+            state, cfg, ii, pp, mask_k, val0, vals.to(val0.dtype), fbest.to(val0.dtype),
+            n_ev, norm=data.norm, base_loss=base, ctx=ctx,
+        )
+
+    return const_opt
+
+
+# ---------------------------------------------------------------------------
+# Legs, readback, decode
+# ---------------------------------------------------------------------------
+
+# test seam: when set to a callable, the engine main loop reports each leg
+# it runs by name ("evolve", "const_opt", "finalize", "readback")
+_DISPATCH_HOOK = None
+# test seam: when set, a callable (leg name) -> context manager entered
+# around the leg (chip_smoke.py checks the evolve leg makes no host sync)
+_LEG_WRAP = None
+
+
+def _count_dispatch(name: str):
+    hook = _DISPATCH_HOOK
+    if hook is not None:
+        hook(name)
+
+
+class _LegTimer:
+    """Host seconds per leg, and device milliseconds per leg from CUDA events
+    recorded around it (summed once, at the end of the search)."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.host: dict = {}
+        self.events: dict = {}
+
+    @contextlib.contextmanager
+    def leg(self, name: str):
+        _count_dispatch(name)
+        wrap = _LEG_WRAP(name) if _LEG_WRAP is not None else contextlib.nullcontext()
+        start = end = None
+        if self.cuda:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True
+            )
+            start.record()
+        t0 = time.perf_counter()
+        with wrap:
+            yield
+        self.host[name] = self.host.get(name, 0.0) + time.perf_counter() - t0
+        if self.cuda:
+            end.record()
+            self.events.setdefault(name, []).append((start, end))
+
+    def device_seconds(self) -> dict:
+        if not self.cuda:
+            return {}
+        torch.cuda.synchronize()
+        return {
+            name: sum(a.elapsed_time(b) for a, b in ev) * 1e-3
+            for name, ev in self.events.items()
+        }
+
+
+def _readback_pack(state: EvoState) -> torch.Tensor:
+    """The best-seen frontier and the counters as ONE tensor of the engine
+    dtype (the JAX package's ``_make_readback_fn``)."""
+    vdt = state.bs_loss.dtype
+    parts = [state.bs_loss, state.bs_exists.to(vdt), state.bs_tree[6].to(vdt)]
+    parts += [f.to(vdt).reshape(-1) for f in state.bs_tree[:6]]
+    parts += [state.num_evals.reshape(1).to(vdt), state.step.reshape(1).to(vdt)]
+    return torch.cat(parts)
+
+
+def _decode_readback(buf: np.ndarray, cfg: EvoConfig):
+    S1 = cfg.maxsize + 1
+    N = cfg.n_slots
+    off = 0
+
+    def take(n):
+        nonlocal off
+        out = buf[off: off + n]
+        off += n
+        return out
+
+    bs_loss = take(S1)
+    bs_exists = take(S1) > 0.5
+    bs_len = take(S1).astype(np.int32)
+    fields = [take(S1 * N).reshape(S1, N) for _ in range(6)]
+    num_evals = float(take(1)[0])
+    return bs_loss, bs_exists, bs_len, fields, num_evals
+
+
+class _Readback:
+    """Start the copy of a packed tensor into pinned host memory without
+    blocking (two buffers, used in turn) and hand out a materializer that
+    waits for that copy's CUDA event."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.bufs: list = []
+        self.turn = 0
+
+    def start(self, rb: torch.Tensor) -> Callable[[], np.ndarray]:
+        if not self.cuda:
+            host = rb.numpy().copy()
+            return lambda: host
+        if len(self.bufs) < 2:
+            self.bufs.append(torch.empty(rb.shape, dtype=rb.dtype, pin_memory=True))
+        host = self.bufs[self.turn % len(self.bufs)]
+        self.turn += 1
+        host.copy_(rb, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+
+        def fetch() -> np.ndarray:
+            done.synchronize()
+            return host.numpy().copy()
+
+        return fetch
+
+
+def _bs_to_members(bs_loss, bs_exists, bs_len, fields, cfg: EvoConfig, options):
+    """Decode best-seen rows into host PopMembers."""
+    kind, op, lhs, rhs, feat, val = fields
+    flat = FlatTrees(
+        kind.astype(np.int32), op.astype(np.int32), lhs.astype(np.int32),
+        rhs.astype(np.int32), feat.astype(np.int32), val, np.asarray(bs_len, np.int32),
+    )
+    if debug_checks_enabled(options):
+        from ..analysis import ir_verify
+
+        live = np.asarray(bs_exists) & (np.asarray(bs_len) >= 1)
+        ir_verify.verify_flat_trees(
+            FlatTrees(*(np.asarray(a)[live] for a in flat)), options.operators,
+            allow_empty=False, where="device_search._bs_to_members: ",
+        )
+    members = []
+    for s in range(len(bs_loss)):
+        if not bs_exists[s] or bs_len[s] < 1:
+            continue
+        tree = unflatten_tree(flat, s)
+        loss = float(bs_loss[s])
+        if cfg.complexity_table is None:
+            comp = int(bs_len[s])
+        else:
+            from ..complexity import compute_complexity
+
+            comp = compute_complexity(tree, options)
+        score = float(_score_of(loss, float(comp), cfg))
+        members.append(PopMember(tree, score, loss, complexity=comp))
+    return members
+
+
+def _flat_to_tree(flat: FlatTrees, device, vdt) -> Tree:
+    return Tree(
+        *(torch.from_numpy(np.ascontiguousarray(np.asarray(getattr(flat, f), np.int32)))
+          .to(device) for f in ("kind", "op", "lhs", "rhs", "feat")),
+        torch.from_numpy(np.ascontiguousarray(flat.val)).to(device=device, dtype=vdt),
+        torch.from_numpy(np.asarray(flat.length, np.int32)).to(device),
+    )
+
+
+def _simplified_frontier_pool(members, options, cfg: EvoConfig, score_call, hof, device):
+    """Iteration-boundary simplify (the reference simplifies every member
+    every iteration, SymbolicRegression.jl src/SingleIteration.jl:107-132;
+    the engine has no tree rewriting on the device, so the decoded frontier
+    is simplified on the host, rescored through B1 and re-injected).
+
+    Returns (pool, n_scored): a fixed [maxsize+1]-row migration pool of the
+    strictly simplified, rescored trees (None when nothing simplified), and
+    the evaluations spent. Also folds the rescored members into ``hof``."""
+    from ..complexity import compute_complexity
+    from .simplify import combine_operators, simplify_tree
+
+    cand = []
+    for m in members:
+        t = combine_operators(simplify_tree(m.tree.copy(), options), options)
+        c = compute_complexity(t, options)
+        if c < m.complexity:
+            cand.append((t, c, m.loss))
+    if not cand:
+        return None, 0
+    S1 = cfg.maxsize + 1
+    cand = sorted(cand, key=lambda tc: tc[2])[:S1]
+    trees = [t for t, _, _ in cand]
+    vdt = np.dtype(cfg.val_dtype)
+    flat = flatten_trees(trees + [trees[0]] * (S1 - len(trees)), cfg.n_slots, dtype=vdt)
+    batch = _flat_to_tree(flat, device, getattr(torch, cfg.val_dtype))
+    losses_dev = score_call(batch)
+    losses = np.asarray(losses_dev.cpu()).astype(vdt).copy()
+    losses[len(trees):] = np.inf  # pad rows are never drawn
+    for (t, c, _), loss in zip(cand, losses):
+        if np.isfinite(loss):
+            hof.update(
+                PopMember(t, float(_score_of(float(loss), float(c), cfg)), float(loss),
+                          complexity=int(c)),
+                options,
+            )
+    pool = (*batch, torch.from_numpy(losses).to(device))
+    return pool, len(trees)
+
+
+def _decode_state_populations(state: EvoState, I: int, P: int, cfg: EvoConfig, options):
+    """The live EvoState as host Populations — ONE full readback. Returns
+    (pops, slots, arrays): ``slots`` is (island, member, complexity) per live
+    member, ``arrays`` the decoded (kind, op, lhs, rhs, feat, val, length,
+    loss, score)."""
+    kind, opa, lhs, rhs, feat, val, length = (
+        np.asarray(t.cpu()) for t in (state.kind, state.op, state.lhs, state.rhs,
+                                      state.feat, state.val, state.length)
+    )
+    loss = np.asarray(state.loss.cpu()).astype(np.float64)
+    score = np.asarray(state.score.cpu()).astype(np.float64)
+    if debug_checks_enabled(options):
+        from ..analysis import ir_verify
+
+        ir_verify.verify_flat_trees(
+            FlatTrees(kind.reshape(I * P, -1), opa.reshape(I * P, -1),
+                      lhs.reshape(I * P, -1), rhs.reshape(I * P, -1),
+                      feat.reshape(I * P, -1), val.reshape(I * P, -1),
+                      length.reshape(I * P)),
+            options.operators, where="device_search._decode_state_populations: ",
+        )
+    pops, slots = [], []
+    for i in range(I):
+        flat_i = FlatTrees(kind[i], opa[i], lhs[i], rhs[i], feat[i], val[i], length[i])
+        members = []
+        for p in range(P):
+            if length[i, p] < 1:
+                continue
+            m = PopMember(
+                unflatten_tree(flat_i, p), float(score[i, p]), float(loss[i, p]),
+                complexity=int(length[i, p]) if cfg.complexity_table is None else None,
+            )
+            members.append(m)
+            slots.append((i, p, m.get_complexity(options)))
+        pops.append(Population(members))
+    return pops, slots, (kind, opa, lhs, rhs, feat, val, length, loss, score)
+
+
+def _reject_out_of_slice(options: Options) -> None:
+    reason = device_mode_supported(options)
+    if reason is not None:
+        raise ValueError(
+            f"scheduler='device' cannot honor this configuration ({reason}); "
+            "use scheduler='lockstep'"
+        )
+    if os.environ.get("SR_ENGINE_BLOCK", "") == "1":
+        raise _not_ported("the evolve block (SR_ENGINE_BLOCK=1)",
+                          "A, slice 3: the evolve block B3")
+
+
+# ---------------------------------------------------------------------------
+# The search
+# ---------------------------------------------------------------------------
+
+
+def device_search_one_output(
+    dataset: Dataset,
+    options: Options,
+    niterations: int,
+    rng: np.random.Generator,
+    saved_state=None,
+    verbosity: int = 1,
+    output_file: str | None = None,
+    stdin_reader=None,
+):
+    """Run one output's search on the device engine. Returns SearchResult
+    (the contract of search._search_one_output), with ``engine_stats``:
+    scoring and gradient calls, legs run, and seconds per leg (host clock,
+    and device time from CUDA events on the card)."""
+    from ..search import SearchResult  # late import (module cycle)
+    from ..utils.export_csv import save_hall_of_fame
+    from ..utils.progress import ProgressReporter
+    from ..utils.stdin_reader import StdinReader
+
+    _reject_out_of_slice(options)
+    t_setup = time.perf_counter()
+    device = torch.device(options.device)
+    I, P = options.populations, options.population_size
+    N = options.max_nodes
+    eng_dt = np.dtype(options.dtype)
+    vdt = getattr(torch, eng_dt.name)
+
+    # baseline loss of the constant mean predictor (reference
+    # update_baseline_loss!, SymbolicRegression.jl src/LossFunctions.jl:201-215),
+    # from numpy: it becomes a score constant
+    y = dataset.y.astype(eng_dt)
+    w = None if dataset.weights is None else dataset.weights.astype(eng_dt)
+    elem = np.asarray(
+        options.loss(torch.from_numpy(np.full_like(y, dataset.avg_y)), torch.from_numpy(y)),
+        np.float64,
+    )
+    bl = float((elem * w).sum() / w.sum()) if w is not None else float(elem.mean())
+    use_baseline = bool(np.isfinite(bl))
+    dataset.baseline_loss = bl if use_baseline else 1.0
+    dataset.use_baseline = use_baseline
+
+    cfg = build_evo_config(
+        options, n_features=dataset.n_features, baseline_loss=dataset.baseline_loss,
+        use_baseline=use_baseline, niterations=niterations, n_islands=I, n_rows=dataset.n,
+    )
+    # engine config: the score normalization travels as data.norm
+    ecfg = dataclasses.replace(cfg, baseline_loss=1.0, use_baseline=True)
+    norm_val = dataset.baseline_loss if (use_baseline and dataset.baseline_loss >= 0.01) else 0.01
+    data = _make_score_data(dataset, eng_dt, device, norm_val)
+    use_kernel = loss_kernel_eligible(options.operators, options.loss, eng_dt)
+    scorer = EngineScorer(options, use_kernel)
+
+    def score_call(batch: Tree) -> torch.Tensor:
+        return scorer.losses(batch, data.X, data.y, data.w)
+
+    # --- initial populations (host trees -> device state) -------------------
+    if saved_state is not None:
+        init_trees = [m.tree for pop in saved_state.populations for m in pop.members][: I * P]
+        if len(init_trees) < I * P:
+            init_trees.extend(Population.random_trees(
+                I * P - len(init_trees), options, dataset.n_features, rng))
+    else:
+        init_trees = Population.random_trees(I * P, options, dataset.n_features, rng)
+    # the engine's generator, seeded from the search's numpy stream after the
+    # initial trees (the JAX package's order: same seed, same initial trees)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng.integers(0, 2**31 - 1)))
+    batch_rows = min(int(options.batch_size), dataset.n) if options.batching else 0
+    ctx = EvoContext(ecfg, device, gen, scorer.losses, batch_rows=batch_rows)
+    const_opt = (
+        make_const_opt_fn(options, ecfg, scorer, ctx)
+        if options.should_optimize_constants else None
+    )
+    bflat = flatten_trees(init_trees, N, dtype=eng_dt)
+    batch0 = _flat_to_tree(bflat, device, vdt)
+    losses0 = score_call(batch0)
+    state = init_state(bflat, losses0, ecfg, device)
+    comp = _complexity_members(state, ecfg, ctx).to(vdt)
+    state = state._replace(score=_score_of(state.loss, comp, cfg))  # real baseline
+
+    hof = HallOfFame(options.maxsize)
+    if saved_state is not None:
+        # rescore the saved hall of fame on this dataset (the reference
+        # rescores on warm start, SymbolicRegression.jl
+        # src/SymbolicRegression.jl:727-744)
+        saved_members = [m.copy() for m in saved_state.hall_of_fame.members if m is not None]
+        if saved_members:
+            sflat = flatten_trees([m.tree for m in saved_members], N, dtype=eng_dt)
+            slosses = np.asarray(score_call(_flat_to_tree(sflat, device, vdt)).cpu())
+            for m, loss in zip(saved_members, slosses):
+                m.loss = float(loss)
+                m.score = float(_score_of(m.loss, float(m.get_complexity(options)), cfg))
+                hof.update(m, options)
+
+    async_rb = options.async_readback is not False
+    early_stop = options.early_stop_fn()
+    own_stdin = stdin_reader is None
+    if own_stdin:
+        stdin_reader = StdinReader()
+    reporter = ProgressReporter(niterations, options, use_bar=bool(options.progress),
+                                verbosity=verbosity)
+    timer = _LegTimer(device)
+    readback = _Readback(device)
+    base_evals = float(getattr(saved_state, "num_evals", 0.0) or 0.0) if saved_state else 0.0
+    num_evals = base_evals
+    device_evals = 0.0
+    host_evals = 0.0
+    pending = None
+    setup_seconds = time.perf_counter() - t_setup
+    start_time = time.time()
+    stop_reason = None
+    iterations_run = 0
+
+    def consume(buf: np.ndarray):
+        """Fold one iteration's packed readback into the hall of fame, then
+        inject the simplify pool into the CURRENT device state."""
+        nonlocal state, device_evals, host_evals
+        bs_loss, bs_exists, bs_len, fields, device_evals = _decode_readback(buf, cfg)
+        members = _bs_to_members(bs_loss, bs_exists, bs_len, fields, cfg, options)
+        for m in members:
+            hof.update(m, options)
+        if options.should_simplify:
+            pool, n_scored = _simplified_frontier_pool(
+                members, options, cfg, score_call, hof, device
+            )
+            host_evals += n_scored
+            if pool is not None:
+                state = migrate_from_pool(
+                    state, ctx, pool, float(options.fraction_replaced_hof), data.norm
+                )
+
+    for it in range(niterations):
+        state = run_iteration_fused(state, data, ctx, copt=const_opt, leg=timer.leg)
+        with timer.leg("readback"):
+            fetch = readback.start(_readback_pack(state))
+            if async_rb:
+                prev, pending = pending, fetch
+                if prev is not None:
+                    consume(prev())
+            else:
+                consume(fetch())
+        iterations_run += 1
+        num_evals = base_evals + device_evals + host_evals
+        if output_file and options.save_to_file:
+            save_hall_of_fame(output_file, hof, options, dataset.variable_names,
+                              num_evals=num_evals)
+        reporter.update(hof, num_evals, dataset.variable_names,
+                        force=it == niterations - 1, y_variable_name=dataset.y_variable_name)
+
+        # stop conditions (reference SymbolicRegression.jl
+        # src/SearchUtils.jl:190-212); in the pipelined loop the hall of fame
+        # and num_evals lag one iteration
+        if options.iteration_callback is not None:
+            from ..search import IterationReport
+
+            if options.iteration_callback(IterationReport(
+                iteration=it + 1, niterations=niterations, hall_of_fame=hof,
+                num_evals=float(num_evals), elapsed=time.time() - start_time,
+            )):
+                stop_reason = "callback"
+                break
+        if early_stop is not None and any(
+            early_stop(m.loss, m.get_complexity(options)) for m in hof.pareto_frontier()
+        ):
+            stop_reason = "early_stop"
+            break
+        if (options.timeout_in_seconds is not None
+                and time.time() - start_time > options.timeout_in_seconds):
+            stop_reason = "timeout"
+            break
+        if options.max_evals is not None and num_evals >= options.max_evals:
+            stop_reason = "max_evals"
+            break
+        if stdin_reader.check_for_user_quit():
+            stop_reason = "user_quit"
+            break
+
+    if pending is not None:
+        # drain the pipeline: the last iteration's readback is in flight
+        consume(pending())
+        num_evals = base_evals + device_evals + host_evals
+    iteration_seconds = time.time() - start_time
+    if own_stdin:
+        stdin_reader.close()
+
+    # final population readback: folds the last constant optimization's
+    # improvements (absent from the frontier readbacks) into the hall of fame
+    pops, _, _ = _decode_state_populations(state, I, P, cfg, options)
+    for pop in pops:
+        hof.update_many(pop.members, options)
+    if output_file and options.save_to_file:
+        save_hall_of_fame(output_file, hof, options, dataset.variable_names,
+                          num_evals=num_evals)
+    result = SearchResult(hall_of_fame=hof, populations=pops, dataset=dataset,
+                          options=options, num_evals=num_evals)
+    result.stop_reason = stop_reason
+    result.iteration_seconds = iteration_seconds
+    result.setup_seconds = setup_seconds
+    result.use_kernel = use_kernel
+    result.engine_stats = {
+        "iterations": iterations_run,
+        "score_calls": scorer.score_calls,
+        "grad_calls": scorer.grad_calls,
+        "host_seconds": dict(timer.host),
+        "device_seconds": timer.device_seconds(),
+    }
+    return result
+
+
+class FleetLaneSpec:
+    """One lane of a fleet — not ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        raise _not_ported("FleetLaneSpec", "A, slice 5: fleet")
+
+
+def fleet_search(specs, **kwargs):
+    """N concurrent searches as one batched engine — not ported yet."""
+    raise _not_ported("fleet_search", "A, slice 5: fleet")

@@ -1,21 +1,32 @@
-"""Fused eval + loss (kernel B1): CUDA kernel, plain version, build, launch count.
+"""The fused tree kernels: CUDA kernels, plain versions, build, launch counts.
 
-The hand-written CUDA kernel ``csrc/fused_loss.cu`` replaces the TPU kernel
-``symbolicregression_jl_tpu/ops/interp_pallas.py:258`` (``_make_loss_kernel``
-via ``_loss_pallas``). Per tree it evaluates the packed postorder program on
-every row, applies the elementwise loss, and reduces to
-``loss_sum / w_sum`` — or ``inf`` when any real row's prediction is
-non-finite or ``w_sum == 0``. The source file's header says what bounds it
-on the H100 and what its design does about that.
+Two hand-written CUDA kernels, each with a wrapper, a plain PyTorch version
+in this module and a launch count (``<wrapper>.launches``):
 
-``fused_loss`` is the wrapper. A tensor on the CPU takes the plain PyTorch
-version ``fused_loss_reference`` (the interpreter of ops/interp.py plus the
-same loss and reduction); a CUDA tensor launches the kernel or raises. The
-kernel is built with ``nvcc`` into a shared library with a plain C
-interface, at first use, under ``_build/`` beside the package (listed in
-.gitignore), and bound with ``ctypes``.
+- B1, ``fused_loss`` (``csrc/fused_loss.cu``), replaces the TPU kernel
+  ``symbolicregression_jl_tpu/ops/interp_pallas.py:258``
+  (``_make_loss_kernel`` via ``_loss_pallas``). Per tree it evaluates the
+  packed postorder program on every row, applies the elementwise loss, and
+  reduces to ``loss_sum / w_sum`` — or ``inf`` when any real row's
+  prediction is non-finite or ``w_sum == 0``.
+- B2, ``fused_loss_grad`` (``csrc/fused_loss_grad.cu``), replaces
+  ``interp_pallas.py:725`` (``_make_loss_grad_kernel`` via
+  ``_loss_grad_pallas``): B1's losses plus the gradient of each loss with
+  respect to every constant slot, from a reverse adjoint sweep (0 where the
+  loss is not ok). ``DiffLoss`` is the counterpart of the JAX package's
+  ``pallas_diff_loss`` custom VJP: its forward is B1, and a call that needs
+  the gradient makes one B2 launch instead, whose gradients the backward
+  returns.
 
-Unlike the TPU kernel, rows are masked by index (no 10240-row padding, no
+The source files' headers say what bounds each kernel on the H100 and what
+its design does about that. A tensor on the CPU takes the plain version (the
+interpreter of ops/interp.py plus the same loss and reduction, and for B2
+its reverse sweep and autograd of the loss); a CUDA tensor launches the
+kernel or raises. Each source is built with ``nvcc`` into a shared library
+with a plain C interface, at first use, under ``_build/`` beside the package
+(listed in .gitignore), and bound with ``ctypes``.
+
+Unlike the TPU kernels, rows are masked by index (no 10240-row padding, no
 (8, C) sublane layout) and any batch size P is accepted.
 """
 
@@ -32,32 +43,46 @@ import numpy as np
 import torch
 
 from .flat import KIND_BINARY, KIND_CONST, KIND_UNARY, KIND_VAR, FlatTrees
-from .interp import eval_trees
+from .interp import _forward, _reverse_sweep, make_plan
 from .losses import kernel_loss_spec
 from .operators import OperatorSet, kernel_op_table
 
 __all__ = [
     "fused_loss",
     "fused_loss_reference",
+    "fused_loss_grad",
+    "fused_loss_grad_reference",
+    "plain_losses",
+    "DiffLoss",
     "pack_programs_fused",
     "unpack_programs_fused",
     "loss_kernel_eligible",
     "build",
+    "build_all",
     "BUILD_INFO",
+    "work_counts",
+    "grad_work_counts",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "fused_loss.cu"
+CSRC = _PKG / "csrc"
+#: kernel name -> CUDA source; every source includes the shared header
+SOURCES = {
+    "fused_loss": CSRC / "fused_loss.cu",
+    "fused_loss_grad": CSRC / "fused_loss_grad.cu",
+}
+HEADER = CSRC / "sr_ops.cuh"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-#: what the last build did: library path, seconds, ptxas report
+#: per kernel name, what its build did: library path, seconds, ptxas report
 BUILD_INFO: dict = {}
-_LIB = None
+_LIBS: dict = {}
 _THREADS = 256
+_GRAD_THREADS = 128
 _SMEM_LIMIT = 227 * 1024
 
 
@@ -133,21 +158,54 @@ def unpack_programs_fused(prog: np.ndarray, vals: np.ndarray, opset: OperatorSet
 # -- plain version -------------------------------------------------------------
 
 
+def plain_losses(flat: FlatTrees, vals: torch.Tensor, X, y, w, opset: OperatorSet,
+                 loss_elem, with_grad: bool = False):
+    """Both kernels' function in plain PyTorch, on X's device and dtype:
+    losses [P] (``loss_sum / w_sum``, inf where not ok) and, ``with_grad``,
+    their gradients [P, N] with respect to ``vals``. ``flat`` (numpy) gives
+    the tree structure; ``vals`` [P, N] the constants.
+
+    The interpreter of ops/interp.py fills the value buffer; each row's
+    root adjoint is autograd of the loss times the row's weight; the
+    interpreter's reverse sweep gives the per-row constant adjoints. Sums
+    over rows are f64; gradients are divided by w_sum and 0 where the loss
+    is not ok."""
+    plan = make_plan(flat, opset, X.device)
+    with torch.no_grad():
+        pred, buf = _forward(plan, vals.to(X.dtype), X)
+    with torch.enable_grad():
+        p = pred.detach().requires_grad_(with_grad)
+        elem = loss_elem(p, y[None, :])
+        if w is not None:
+            elem = elem * w[None, :]
+        ct = None
+        if with_grad:
+            if elem.requires_grad:
+                (ct,) = torch.autograd.grad(elem.sum(), p)
+            else:
+                ct = torch.zeros_like(p)
+    with torch.no_grad():
+        if w is not None:
+            wsum = w.double().sum()
+        else:
+            wsum = torch.tensor(float(y.shape[0]), dtype=torch.float64, device=y.device)
+        ok = torch.isfinite(pred).all(dim=-1) & (wsum > 0)
+        losses = torch.where(
+            ok, (elem.detach().double().sum(-1) / wsum).to(X.dtype), torch.inf
+        )
+        if not with_grad:
+            return losses
+        gval, _ = _reverse_sweep(plan, buf, ct, X.shape[0], True, False)
+        grads = torch.where(ok[:, None], (gval.double().sum(-1) / wsum).to(X.dtype), 0.0)
+    return losses, grads
+
+
 def fused_loss_reference(prog, vals, X, y, w, opset: OperatorSet, loss_elem) -> torch.Tensor:
-    """The plain PyTorch version of the kernel: same inputs, same function.
-    Evaluates with the interpreter of ops/interp.py, applies the loss in f32,
-    sums w*loss and w in f64 and applies the ok rule."""
+    """The plain PyTorch version of B1: same inputs, same function
+    (``plain_losses``: loss in f32, w*loss and w summed in f64, the ok
+    rule)."""
     flat = unpack_programs_fused(prog.cpu().numpy(), vals.cpu().numpy(), opset)
-    preds = eval_trees(flat, X, opset)
-    elem = loss_elem(preds, y[None, :])
-    if w is not None:
-        elem = elem * w[None, :]
-        wsum = w.double().sum()
-    else:
-        wsum = torch.tensor(float(y.shape[0]), dtype=torch.float64, device=y.device)
-    lsum = elem.double().sum(dim=-1)
-    ok = torch.isfinite(preds).all(dim=-1) & (wsum > 0)
-    return torch.where(ok, (lsum / wsum).float(), torch.inf)
+    return plain_losses(flat, vals, X, y, w, opset, loss_elem)
 
 
 # -- build and launch ------------------------------------------------------------
@@ -164,54 +222,82 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the fused loss kernel cannot be built")
 
 
-def build() -> ctypes.CDLL:
-    """Compile csrc/fused_loss.cu for sm_90a (once per source content) and
-    load it. Raises if nvcc fails."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    import time
-
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libsr_fused_loss_{tag}.so"
-    t0 = time.perf_counter()
-    log = ""
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sr_fused_loss.argtypes = [
-        vp, ci, vp, vp, ci, vp, ctypes.c_longlong, vp, vp, ci, ci, ci, ci, ci, ci,
-        ci, cf, cf, cf, cf, vp, vp, vp,
-    ]
-    lib.sr_fused_loss.restype = ci
-    lib.sr_fused_loss_smem.argtypes = [ci, ci, ci, ci]
-    lib.sr_fused_loss_smem.restype = ctypes.c_size_t
+def _bind(name: str, lib: ctypes.CDLL) -> None:
+    vp, ci, cf, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    # prog, prog_ld, vals, optab, n_ops, X, ldx, y, w, P, N, R, threads,
+    # rows_per_block, n_chunks, loss_id, q0..q3, partials, out[, grads], stream
+    common = [vp, ci, vp, vp, ci, vp, cl, vp, vp, ci, ci, ci, ci, ci, ci, ci, cf, cf, cf, cf,
+              vp, vp]
+    fn = getattr(lib, f"sr_{name}")
+    fn.argtypes = common + ([vp, vp] if name == "fused_loss_grad" else [vp])
+    fn.restype = ci
+    smem = getattr(lib, f"sr_{name}_smem")
+    smem.argtypes = [ci, ci, ci, ci]
+    smem.restype = ctypes.c_size_t
     lib.sr_cuda_error_string.argtypes = [ci]
     lib.sr_cuda_error_string.restype = ctypes.c_char_p
-    BUILD_INFO.update(
-        library=str(lib_path), seconds=time.perf_counter() - t0, log=log
-    )
-    _LIB = lib
-    return lib
 
 
-def _geometry(lib, P: int, N: int, R: int, prog_ld: int, n_ops: int):
-    """(threads, rows_per_block, n_chunks): 256 threads (fewer for tiny R
-    or wide programs), 4 rows per thread unless that leaves the card with
-    too few blocks."""
-    threads = min(_THREADS, max(32, -(-R // 32) * 32))
-    while threads > 32 and lib.sr_fused_loss_smem(N, threads, prog_ld, n_ops) > _SMEM_LIMIT:
+def _lib_path(name: str) -> Path:
+    src = SOURCES[name].read_bytes() + HEADER.read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"libsr_{name}_{tag}.so"
+
+
+def build_all(names=tuple(SOURCES)) -> dict:
+    """Compile the named kernels' sources for sm_90a (once per source
+    content; one ``nvcc`` per source, all started together) and load them.
+    Returns {name: library}. Raises if any nvcc fails."""
+    import time
+
+    t0 = time.perf_counter()
+    jobs = {}
+    for name in names:
+        if name in _LIBS:
+            continue
+        lib_path = _lib_path(name)
+        if lib_path.exists():
+            jobs[name] = (lib_path, None, None)
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        jobs[name] = (lib_path, tmp, proc)
+    for name, (lib_path, tmp, proc) in jobs.items():
+        log = ""
+        if proc is not None:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name} ({proc.returncode}):\n{log}")
+            os.replace(tmp, lib_path)
+        lib = ctypes.CDLL(str(lib_path))
+        _bind(name, lib)
+        BUILD_INFO[name] = dict(
+            library=str(lib_path), seconds=time.perf_counter() - t0, log=log
+        )
+        _LIBS[name] = lib
+    return {name: _LIBS[name] for name in names}
+
+
+def build(name: str = "fused_loss") -> ctypes.CDLL:
+    """The loaded library of one kernel, built at first use."""
+    lib = _LIBS.get(name)
+    return lib if lib is not None else build_all((name,))[name]
+
+
+def _geometry(smem_fn, P: int, N: int, R: int, prog_ld: int, n_ops: int,
+              max_threads: int = _THREADS):
+    """(threads, rows_per_block, n_chunks): a power of two up to
+    ``max_threads`` (fewer for tiny R or wide programs), 4 rows per thread
+    unless that leaves the card with too few blocks."""
+    threads = 32
+    while threads < max_threads and threads < R:
+        threads *= 2
+    while threads > 32 and smem_fn(N, threads, prog_ld, n_ops) > _SMEM_LIMIT:
         threads //= 2
-    if lib.sr_fused_loss_smem(N, threads, prog_ld, n_ops) > _SMEM_LIMIT:
+    if smem_fn(N, threads, prog_ld, n_ops) > _SMEM_LIMIT:
         raise ValueError(f"programs of {N} slots do not fit in shared memory")
     rows_per_block = threads * 4
     if P * -(-R // rows_per_block) < 4 * 132:
@@ -221,19 +307,15 @@ def _geometry(lib, P: int, N: int, R: int, prog_ld: int, n_ops: int):
     return threads, rows_per_block, max(1, -(-R // rows_per_block))
 
 
-def fused_loss(prog, vals, X, y, w, opset: OperatorSet, loss_elem) -> torch.Tensor:
-    """Per-tree losses [P] f32 of packed programs on (X [F, R], y [R], w).
-
-    CPU tensors take ``fused_loss_reference``. CUDA tensors launch the kernel
-    on the current stream (no synchronisation) or raise."""
-    if X.device.type == "cpu":
-        return fused_loss_reference(prog, vals, X, y, w, opset, loss_elem)
+def _checked_launch_args(kernel: str, prog, vals, X, y, w, opset, loss_elem):
+    """Validate a CUDA launch: (optab, loss spec, P, N, R, prog_ld). Raises
+    on whatever the kernel does not take."""
     if X.device.type != "cuda":
-        raise ValueError(f"fused_loss: unsupported device {X.device}")
+        raise ValueError(f"{kernel}: unsupported device {X.device}")
     optab = kernel_op_table(opset)
     spec = kernel_loss_spec(loss_elem)
     if optab is None or spec is None:
-        raise ValueError("fused_loss: operator set or loss has no kernel implementation")
+        raise ValueError(f"{kernel}: operator set or loss has no kernel implementation")
     P, prog_ld = prog.shape
     N = vals.shape[1]
     F, R = X.shape
@@ -241,40 +323,121 @@ def fused_loss(prog, vals, X, y, w, opset: OperatorSet, loss_elem) -> torch.Tens
     for name, t, dt in (("prog", prog, torch.int32), ("vals", vals, torch.float32),
                         ("X", X, torch.float32), ("y", y, torch.float32)):
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"fused_loss: {name} must be contiguous {dt} on {dev}")
+            raise ValueError(f"{kernel}: {name} must be contiguous {dt} on {dev}")
     if prog_ld != 4 * N + 1 or vals.shape[0] != P or y.shape != (R,):
-        raise ValueError("fused_loss: inconsistent shapes")
+        raise ValueError(f"{kernel}: inconsistent shapes")
     if w is not None and (w.device != dev or w.dtype != torch.float32
                           or not w.is_contiguous() or w.shape != (R,)):
-        raise ValueError("fused_loss: w must be contiguous float32 [R] on the same device")
-    out = torch.empty((P,), dtype=torch.float32, device=dev)
+        raise ValueError(f"{kernel}: w must be contiguous float32 [R] on the same device")
+    return optab, spec, P, N, R, prog_ld
+
+
+def _launch(kernel: str, prog, vals, X, y, w, optab, spec, P, N, R, prog_ld, outs,
+            n_partials: int, max_threads: int) -> None:
+    lib = build(kernel)
+    n_ops = len(optab)
+    threads, rows_per_block, n_chunks = _geometry(
+        getattr(lib, f"sr_{kernel}_smem"), P, N, R, prog_ld, n_ops, max_threads
+    )
+    dev = X.device
+    optab_t = _optab_tensor(optab, dev)
+    partials = torch.empty((P, n_chunks, n_partials), dtype=torch.float64, device=dev)
+    q = list(spec[1]) + [0.0] * (4 - len(spec[1]))
+    err = getattr(lib, f"sr_{kernel}")(
+        prog.data_ptr(), prog_ld, vals.data_ptr(), optab_t.data_ptr(), n_ops,
+        X.data_ptr(), X.stride(0), y.data_ptr(), None if w is None else w.data_ptr(),
+        P, N, R, threads, rows_per_block, n_chunks, spec[0], *q,
+        partials.data_ptr(), *(o.data_ptr() for o in outs),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"{kernel} kernel launch failed: {lib.sr_cuda_error_string(err).decode()}"
+        )
+    # tensors freed after this return are reused only by later work on the
+    # same stream (PyTorch's caching allocator), so no keep-alive is needed
+
+
+def fused_loss(prog, vals, X, y, w, opset: OperatorSet, loss_elem) -> torch.Tensor:
+    """Per-tree losses [P] f32 of packed programs on (X [F, R], y [R], w).
+
+    CPU tensors take ``fused_loss_reference``. CUDA tensors launch the kernel
+    on the current stream (no synchronisation) or raise."""
+    if X.device.type == "cpu":
+        return fused_loss_reference(prog, vals, X, y, w, opset, loss_elem)
+    optab, spec, P, N, R, prog_ld = _checked_launch_args(
+        "fused_loss", prog, vals, X, y, w, opset, loss_elem
+    )
+    out = torch.empty((P,), dtype=torch.float32, device=X.device)
     if P == 0:
         return out
     if R == 0:
         return out.fill_(torch.inf)
-    lib = build()
-    n_ops = len(optab)
-    threads, rows_per_block, n_chunks = _geometry(lib, P, N, R, prog_ld, n_ops)
-    optab_t = _optab_tensor(optab, dev)
-    partials = torch.empty((P, n_chunks, 3), dtype=torch.float64, device=dev)
-    q = list(spec[1]) + [0.0] * (4 - len(spec[1]))
-    err = lib.sr_fused_loss(
-        prog.data_ptr(), prog_ld, vals.data_ptr(), optab_t.data_ptr(), n_ops,
-        X.data_ptr(), X.stride(0), y.data_ptr(), None if w is None else w.data_ptr(),
-        P, N, R, threads, rows_per_block, n_chunks, spec[0], *q,
-        partials.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(
-            f"fused_loss kernel launch failed: {lib.sr_cuda_error_string(err).decode()}"
-        )
+    _launch("fused_loss", prog, vals, X, y, w, optab, spec, P, N, R, prog_ld, (out,),
+            3, _THREADS)
     fused_loss.launches += 1
-    # tensors freed after this return are reused only by later work on the
-    # same stream (PyTorch's caching allocator), so no keep-alive is needed
     return out
 
 
 fused_loss.launches = 0
+
+
+def fused_loss_grad(prog, vals, X, y, w, opset: OperatorSet, loss_elem):
+    """(losses [P] f32, grads [P, N] f32): ``fused_loss``'s losses and their
+    gradients with respect to every constant slot (0 on other slots, and on
+    every slot of a tree whose loss is not ok).
+
+    CPU tensors take ``fused_loss_grad_reference``. CUDA tensors launch the
+    kernel on the current stream (no synchronisation) or raise."""
+    if X.device.type == "cpu":
+        return fused_loss_grad_reference(prog, vals, X, y, w, opset, loss_elem)
+    optab, spec, P, N, R, prog_ld = _checked_launch_args(
+        "fused_loss_grad", prog, vals, X, y, w, opset, loss_elem
+    )
+    out = torch.empty((P,), dtype=torch.float32, device=X.device)
+    grads = torch.zeros((P, N), dtype=torch.float32, device=X.device)
+    if P == 0:
+        return out, grads
+    if R == 0:
+        return out.fill_(torch.inf), grads
+    _launch("fused_loss_grad", prog, vals, X, y, w, optab, spec, P, N, R, prog_ld,
+            (out, grads), 3 + N, _GRAD_THREADS)
+    fused_loss_grad.launches += 1
+    return out, grads
+
+
+fused_loss_grad.launches = 0
+
+
+def fused_loss_grad_reference(prog, vals, X, y, w, opset: OperatorSet, loss_elem):
+    """The plain PyTorch version of B2: ``plain_losses`` with gradients (the
+    interpreter's reverse sweep and autograd of the loss)."""
+    flat = unpack_programs_fused(prog.cpu().numpy(), vals.cpu().numpy(), opset)
+    return plain_losses(flat, vals, X, y, w, opset, loss_elem, with_grad=True)
+
+
+class DiffLoss(torch.autograd.Function):
+    """losses [P] = fused_loss(prog, vals, ...), differentiable in ``vals``
+    (the counterpart of the JAX package's ``pallas_diff_loss``,
+    ``interp_pallas.py:1026-1073``). The forward is B1; when the caller needs
+    the gradient it is one B2 launch instead, and the backward scales B2's
+    gradients by the incoming cotangent without launching anything.
+
+    ``DiffLoss.apply(vals, prog, X, y, w, opset, loss_elem)``."""
+
+    @staticmethod
+    def forward(ctx, vals, prog, X, y, w, opset, loss_elem):
+        if ctx.needs_input_grad[0]:
+            losses, grads = fused_loss_grad(prog, vals, X, y, w, opset, loss_elem)
+            ctx.save_for_backward(grads)
+            return losses
+        return fused_loss(prog, vals, X, y, w, opset, loss_elem)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (grads,) = ctx.saved_tensors
+        return ct[:, None] * grads, None, None, None, None, None, None
+
 
 _OPTAB_CACHE: dict = {}
 
@@ -287,7 +450,7 @@ def _optab_tensor(optab: np.ndarray, device) -> torch.Tensor:
 
 
 def work_counts(prog: np.ndarray, R: int, F: int, weighted: bool) -> dict:
-    """Slot evaluations, operations and bytes one call needs (the bound):
+    """Slot evaluations, operations and bytes one B1 call needs (the bound):
     each real slot of each tree once per row, plus the loss and the two sums
     per row; each input read once and the output written once."""
     prog = np.asarray(prog)
@@ -297,3 +460,20 @@ def work_counts(prog: np.ndarray, R: int, F: int, weighted: bool) -> dict:
     ops = slot_evals + 4 * P * R
     bytes_ = prog.nbytes + P * N * 4 + F * R * 4 + R * 4 * (2 if weighted else 1) + P * 4
     return {"slot_evals": slot_evals, "operations": ops, "bytes": bytes_}
+
+
+def grad_work_counts(prog: np.ndarray, R: int, F: int, weighted: bool) -> dict:
+    """The same for one B2 call: each real slot evaluated forward and once
+    in reverse per row, plus per row the loss, its derivative, the two loss
+    sums and one gradient sum per constant slot; each input read once, the
+    losses and the [P, N] gradients written once."""
+    prog = np.asarray(prog)
+    P, L = prog.shape
+    N = (L - 1) // 4
+    live = np.arange(N)[None, :] < prog[:, 4 * N][:, None]
+    n_const = int(((prog[:, :N] == 0) & live).sum())
+    slot_evals = int(prog[:, 4 * N].astype(np.int64).sum()) * R
+    ops = 2 * slot_evals + 4 * P * R + n_const * R
+    bytes_ = (prog.nbytes + P * N * 4 + F * R * 4 + R * 4 * (2 if weighted else 1)
+              + P * 4 + P * N * 4)
+    return {"slot_evals": 2 * slot_evals, "operations": ops, "bytes": bytes_}

@@ -186,8 +186,9 @@ class Options:
     # -- the JAX package's own knobs ------------------------------------------
     dtype: Any = np.float32  # compute dtype; f32 scores through the kernel
     pad_multiple: int = 8  # node-slot padding bucket
-    # "lockstep" (ported): host-driven islands, one scoring dispatch per
-    # cycle; "device" and "async" are later slices (raise)
+    # "lockstep": host-driven islands, one scoring dispatch per cycle;
+    # "device": the device-resident engine (models/device_search.py);
+    # "async" is a later slice (raises)
     scheduler: str = "lockstep"
     async_workers: int | None = None  # async scheduler only
     device_mutation_attempts: int = 1  # device engine only
@@ -201,7 +202,9 @@ class Options:
     # are seed-for-seed identical (per-output RNG streams either way).
     parallel_outputs: bool | None = None
     profile: bool = False  # device-engine stage profiling: later slice (raises)
-    async_readback: bool | None = None  # device engine: later slice (raises)
+    # device engine: pipelined readback (None = auto: on; False: the
+    # iteration's readback is consumed before the next iteration starts)
+    async_readback: bool | None = None
 
     # -- fault tolerance: later slices. Setting checkpoint_every*, fault_spec,
     # on_peer_loss or exchange_topology raises; the rest only serve those.
@@ -420,10 +423,14 @@ def _not_ported(what: str, item: str):
 def _reject_out_of_slice(o: Options) -> None:
     """Features outside the port's first slice raise instead of falling
     back silently."""
-    if o.scheduler == "device":
-        raise _not_ported("scheduler='device'", "A, slice 2: the device engine")
     if o.scheduler == "async":
         raise _not_ported("scheduler='async'", "A, slice 4: parallel/islands.py")
+    if o.scheduler == "device" and o.use_recorder:
+        raise _not_ported("the recorder under scheduler='device'",
+                          "A, slice 2: recorder and profile in device mode")
+    if o.scheduler == "device" and o.optimizer_algorithm == "NelderMead":
+        raise _not_ported("optimizer_algorithm='NelderMead' under scheduler='device'",
+                          "A, slice 2: NelderMead in the device engine")
     if o.data_sharding is not None:
         raise _not_ported(f"data_sharding={o.data_sharding!r}", "A, slice 4: parallel/sharding.py")
     if o.checkpoint_every is not None or o.checkpoint_every_seconds is not None:
@@ -440,8 +447,8 @@ def _reject_out_of_slice(o: Options) -> None:
         raise _not_ported("graph_nodes", "A, slice 2: graph nodes")
     if o.dimensional_constraint_penalty is not None or o.dimensionless_constants_only:
         raise _not_ported("units / dimensional constraints", "A, slice 2: units.py")
-    if o.profile or o.async_readback:
-        raise _not_ported("engine profiling / async readback", "A, slice 2: the device engine")
+    if o.profile:
+        raise _not_ported("engine profiling", "A, slice 2: recorder and profile in device mode")
 
 
 def _normalize_constraints(constraints, opset: OperatorSet):

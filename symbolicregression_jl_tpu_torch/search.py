@@ -1,8 +1,9 @@
-"""equation_search: the top-level search driver, lockstep scheduler.
+"""equation_search: the top-level search driver.
 
-Counterpart of ``symbolicregression_jl_tpu/search.py`` restricted to the
-lockstep scheduler (checkpoint/resume, fault injection and the device and
-async schedulers are later slices of the port and raise NotImplementedError).
+Counterpart of ``symbolicregression_jl_tpu/search.py`` for the lockstep
+scheduler (below) and the device-resident engine (``scheduler="device"``,
+models/device_search.py); checkpoint/resume, fault injection and the async
+scheduler are later slices of the port and raise NotImplementedError.
 
 Reference: SymbolicRegression.jl/src/SymbolicRegression.jl:360-1129. Keeps the
 6-phase driver shape (validate -> create -> initialize -> warmup -> main loop
@@ -355,8 +356,8 @@ def _search_one_output(
 
 
 #: reference parallelism names -> scheduler (``parallelism`` resolution,
-#: SymbolicRegression.jl/src/SymbolicRegression.jl:465-488). Only the
-#: lockstep scheduler is ported; the others raise in Options.
+#: SymbolicRegression.jl/src/SymbolicRegression.jl:465-488). The async
+#: scheduler is not ported and raises in Options.
 _PARALLELISM_TO_SCHEDULER = {
     "serial": "lockstep",
     "multithreading": "async",
@@ -507,6 +508,16 @@ def equation_search(
 
     def _run_one(j, dataset, reader=None, quiet=False):
         saved_j = saved[j] if saved is not None else None
+        if options.scheduler == "device":
+            from .models.device_search import device_search_one_output
+
+            return device_search_one_output(
+                dataset, options, niterations, child_rngs[j],
+                saved_state=saved_j,
+                verbosity=0 if quiet else verbosity,
+                output_file=_output_file(j),
+                stdin_reader=reader,
+            )
         return _search_one_output(
             dataset, options, niterations, child_rngs[j],
             saved_state=saved_j,

@@ -1,5 +1,6 @@
-"""The fused loss kernel on the card: wrapper checks, launch count, and
-agreement with its plain version at small shapes.
+"""The fused kernels on the card: wrapper checks, launch counts, agreement
+with their plain versions at small shapes, and the device engine on the
+card.
 
 These tests need a CUDA card and ``nvcc`` and skip without them. They import
 neither JAX nor the JAX package, so on a machine without JAX they run with
@@ -9,7 +10,9 @@ the repository's conftest left out:
 
 Tolerance: kernel and plain version compute the same f32 elementwise values
 and sum in f64 in different orders, so losses agree to rtol 1e-5 (atol 1e-6
-for losses near zero) and their ok flags are equal.
+for losses near zero) and their ok flags are equal. B2's constant
+gradients: rtol 1e-4 plus 1e-6 times the largest gradient of the same tree,
+with equal non-finite positions.
 """
 
 import numpy as np
@@ -21,7 +24,10 @@ from symbolicregression_jl_tpu_torch.models.mutation_functions import gen_random
 from symbolicregression_jl_tpu_torch.models.scorer import BatchScorer
 from symbolicregression_jl_tpu_torch.ops.flat import flatten_trees
 from symbolicregression_jl_tpu_torch.ops.interp_cuda import (
+    DiffLoss,
     fused_loss,
+    fused_loss_grad,
+    fused_loss_grad_reference,
     fused_loss_reference,
     pack_programs_fused,
 )
@@ -106,3 +112,98 @@ def test_scorer_launches_once_per_dispatch(cuda):
     assert fused_loss.launches - before == scorer.num_dispatches == 2
     assert full.shape == mini.shape == (40,)
     assert np.isfinite(full).sum() > 10
+
+
+def assert_grads_close(got, want):
+    got, want = got.cpu().double().numpy(), want.cpu().double().numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    fin = np.isfinite(want)
+    scale = np.max(np.where(fin, np.abs(want), 0.0), axis=1, keepdims=True)
+    lim = 1e-4 * np.abs(want) + 1e-6 * scale
+    assert not (fin & (np.abs(got - want) > lim)).any()
+
+
+@pytest.mark.parametrize("n_rows", [1, 50, 1000])
+@pytest.mark.parametrize("weighted", [False, True], ids=["plain", "weighted"])
+def test_grad_kernel_matches_plain_version(cuda, n_rows, weighted):
+    opts = Options(binary_operators=list(BINARY_OPS), unary_operators=list(UNARY_OPS),
+                   maxsize=20, device="cuda")
+    prog, vals, X, y, w = _inputs(opts, 300, n_rows, seed=n_rows + 1, device=cuda)
+    w = w if weighted else None
+    before = fused_loss_grad.launches
+    lk, gk = fused_loss_grad(prog, vals, X, y, w, opts.operators, opts.loss)
+    assert fused_loss_grad.launches == before + 1
+    lr, gr = fused_loss_grad_reference(prog, vals, X, y, w, opts.operators, opts.loss)
+    torch.cuda.synchronize()
+    lk_, lr_ = lk.cpu().double().numpy(), lr.cpu().double().numpy()
+    np.testing.assert_array_equal(np.isfinite(lk_), np.isfinite(lr_))
+    m = np.isfinite(lr_)
+    np.testing.assert_allclose(lk_[m], lr_[m], rtol=1e-5, atol=1e-6)
+    # B2's losses are B1's
+    torch.testing.assert_close(lk, fused_loss(prog, vals, X, y, w, opts.operators, opts.loss),
+                               rtol=1e-6, atol=1e-7, equal_nan=True)
+    assert_grads_close(gk, gr)
+
+
+def test_diff_loss_launches(cuda):
+    opts = Options(maxsize=20, device="cuda")
+    prog, vals, X, y, w = _inputs(opts, 64, 200, seed=5, device=cuda)
+    b1, b2 = fused_loss.launches, fused_loss_grad.launches
+    DiffLoss.apply(vals, prog, X, y, w, opts.operators, opts.loss)
+    assert (fused_loss.launches, fused_loss_grad.launches) == (b1 + 1, b2)
+    v = vals.clone().requires_grad_(True)
+    f = DiffLoss.apply(v, prog, X, y, w, opts.operators, opts.loss)
+    (g,) = torch.autograd.grad(f.sum(), v)
+    assert (fused_loss.launches, fused_loss_grad.launches) == (b1 + 1, b2 + 1)
+    _, gr = fused_loss_grad_reference(prog, vals, X, y, w, opts.operators, opts.loss)
+    assert_grads_close(g, gr)
+
+
+def test_grad_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    opts = Options(maxsize=20, device="cuda")
+    prog, vals, X, y, w = _inputs(opts, 8, 64, seed=0, device=cuda)
+    before = fused_loss_grad.launches
+    with pytest.raises(ValueError, match="prog must be contiguous"):
+        fused_loss_grad(prog.long(), vals, X, y, None, opts.operators, opts.loss)
+    with pytest.raises(ValueError, match="inconsistent shapes"):
+        fused_loss_grad(prog[:, :-1].contiguous(), vals, X, y, None, opts.operators, opts.loss)
+    assert fused_loss_grad.launches == before
+
+
+def test_device_engine_on_the_card(cuda):
+    import symbolicregression_jl_tpu_torch.models.device_search as ds
+    from symbolicregression_jl_tpu_torch import equation_search
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(2, 500)).astype(np.float32)
+    y = (2 * np.cos(X[1]) + X[0] ** 2 - 2).astype(np.float32)
+    opts = Options(binary_operators=["+", "-", "*"], unary_operators=["cos"], populations=4,
+                   population_size=16, ncycles_per_iteration=20, maxsize=14, seed=0,
+                   save_to_file=False, progress=False, scheduler="device", device="cuda")
+
+    def no_sync_in_evolve(name):
+        import contextlib
+
+        @contextlib.contextmanager
+        def guard():
+            torch.cuda.set_sync_debug_mode("error" if name == "evolve" else 0)
+            try:
+                yield
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return guard()
+
+    b1, b2 = fused_loss.launches, fused_loss_grad.launches
+    saved = ds._LEG_WRAP
+    ds._LEG_WRAP = no_sync_in_evolve
+    try:
+        res = equation_search(X, y, options=opts, niterations=2, verbosity=0)
+    finally:
+        ds._LEG_WRAP = saved
+    st = res.engine_stats
+    assert res.use_kernel
+    assert fused_loss.launches - b1 == st["score_calls"] > 40
+    assert fused_loss_grad.launches - b2 == st["grad_calls"] >= 2
+    assert np.isfinite(min(m.loss for m in res.pareto_frontier))
+    assert set(st["device_seconds"]) == {"evolve", "const_opt", "readback"}

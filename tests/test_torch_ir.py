@@ -151,7 +151,7 @@ def test_port_and_smoke_import_no_jax():
 @pytest.mark.parametrize(
     "kwargs",
     [
-        dict(scheduler="device"),
+        dict(scheduler="device", use_recorder=True, crossover_probability=0.0),
         dict(scheduler="async"),
         dict(data_sharding="rows"),
         dict(checkpoint_every=1),
