@@ -18,17 +18,30 @@ JAX or of the JAX package. Phases, each of which raises on failure:
    operator, and for every built-in real loss; timings with CUDA events;
 3. kernel check of B2, the fused loss+gradient kernel
    (``fused_loss_grad``), the same way, at the device engine's
-   constant-optimization shape (4,200 instances x 10,000 rows);
+   constant-optimization shape (4,200 instances x 10,000 rows); then one
+   tree per built-in operator on U(-2, 2) rows through B4 and its plain
+   version, with the largest relative difference per operator;
+   kernel check of B3, the evolve block (``evolve_block``): after 1 and 8
+   cycles from one seed its integer outputs equal its plain version's and
+   its float outputs agree, at config3 width (100 islands x 100 members),
+   at the quick-start shape, on the all-operator corpus and for every loss;
+   a block of ENGINE_CYCLES cycles checked for its own consistency; and
+   kernel check of B4, the prediction matrix (``eval_trees_kernel``);
 4. the lockstep main path at full width: ``equation_search`` on config3
    (100 populations x 100 members), with every scoring dispatch counted as a
    B1 launch;
 5. the device-engine main path at full width: ``equation_search(...,
-   scheduler="device")`` on config3, every B1 launch counted against the
-   engine's scoring calls and every B2 launch against its gradient calls,
-   the first iteration's evolve leg run with host syncs made errors;
+   scheduler="device")`` on config3, first with ``SR_ENGINE_BLOCK=0`` (the
+   event leg; no B3 launch), then by default (the evolve leg is one B3
+   launch per iteration); every B1 launch counted against the engine's
+   scoring calls and every B2 launch against its gradient calls, the first
+   iteration's evolve leg run with host syncs made errors; then both
+   again for three iterations, every leg timed between synchronizations
+   and the last iteration's legs traced with torch.profiler (kernel time by
+   name, the device's idle share);
 6. the README quick start through ``SRRegressor`` on the card, under the
    lockstep scheduler, then twice under ``scheduler="device"`` with one
-   seed (the two frontiers must be identical).
+   seed, through B3 (the two frontiers must be identical).
 
 The last lines are the kernels JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}`` (``count`` is the number of cards the
@@ -38,6 +51,7 @@ port beside this file, it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -493,18 +507,400 @@ def grad_kernel_check(device, n_instances=4200):
     }
 
 
-def engine_path(device, lockstep=None, iterations=ENGINE_ITERATIONS, cycles=ENGINE_CYCLES,
-                rows=CONFIG3_ROWS, populations=100, population_size=100):
-    """Phase 5: the device engine at config3 width. Returns the launches of
-    B1 and B2 in the run. ``lockstep``: phase 4's ms per cycle and evals/s,
-    printed beside the engine's."""
-    import contextlib
+def block_setup(device, options, X, y, w, n_islands, ncycles, seed=0):
+    """The evolve block's inputs at ``options``' widths: a packed population
+    of random trees scored by B1, a size-frequency snapshot with ties and
+    uneven weights, births with ties, and the scalars on the card. Returns
+    (cfg, pop, scalars) with scalars = (fnorm, seed, step0, curmaxsize,
+    norm)."""
+    import dataclasses
 
+    import numpy as np
+    import torch
+
+    from symbolicregression_jl_tpu_torch.models.device_search import build_evo_config
+    from symbolicregression_jl_tpu_torch.ops.evolve_block import pack_state_words
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import (
+        fused_loss, unpack_programs_fused,
+    )
+
+    F, R = X.shape
+    cfg = build_evo_config(options, n_features=F, baseline_loss=1.0, use_baseline=True,
+                           niterations=1, n_islands=n_islands, n_rows=R)
+    cfg = dataclasses.replace(cfg, ncycles=ncycles)
+    I, P, N, S1 = cfg.n_islands, cfg.pop_size, cfg.n_slots, cfg.maxsize + 1
+    opset = options.operators
+    prog_np, vals_np = random_programs(opset, I * P, N, F, seed=seed, max_len=10)
+    flat = unpack_programs_fused(prog_np, vals_np, opset)
+    kind, op, feat, val = (torch.from_numpy(np.asarray(a)).to(device)
+                           for a in (flat.kind, flat.op, flat.feat, flat.val))
+    words, consts = pack_state_words(kind, op, feat, val)
+    prog = torch.from_numpy(prog_np).to(device)
+    vals = torch.from_numpy(vals_np).to(device)
+    loss = fused_loss(prog, vals, X, y, w, opset, options.loss).reshape(I, P)
+    length = torch.from_numpy(np.asarray(flat.length, np.int32)).to(device).reshape(I, P)
+    rng = np.random.default_rng(seed)
+    norm = torch.full((), float(np.float32(max(float(y.double().var()), 0.01))),
+                      dtype=torch.float32, device=device)
+    score = loss / norm + length.to(torch.float32) * cfg.parsimony
+    birth = torch.from_numpy(rng.integers(0, P // 2, (I, P)).astype(np.int32)).to(device)
+    fnorm = torch.from_numpy(rng.dirichlet(np.ones(S1) * 0.5).astype(np.float32)).to(device)
+    pop = (words.reshape(I, P, N).contiguous(), consts.reshape(I, P, N).contiguous(),
+           length.contiguous(), loss.contiguous(), score.contiguous(), birth)
+    scalars = (fnorm, torch.tensor(0x9E3779B1 ^ seed, dtype=torch.int64, device=device),
+               torch.tensor(P, dtype=torch.int32, device=device),
+               torch.tensor(cfg.maxsize, dtype=torch.int32, device=device), norm)
+    return cfg, pop, scalars
+
+
+def compare_block(tag, got, ref):
+    """Integer outputs equal, float outputs within RTOL/ATOL with equal
+    non-finite positions; on a mismatch name the island and the field.
+    Returns the largest abs error of the float fields."""
+    import torch
+
+    from symbolicregression_jl_tpu_torch.convert import BLOCK_FIELDS
+
+    err = 0.0
+    for name, g, r in zip(BLOCK_FIELDS, got, ref):
+        g, r = g.cpu(), r.cpu()
+        if not r.dtype.is_floating_point:
+            bad = (g != r).reshape(g.shape[0], -1).any(1)
+        else:
+            g64, r64 = g.double(), r.double()
+            fin = torch.isfinite(r64)
+            diff = torch.where(fin, (g64 - r64).abs(), 0.0)
+            over = fin & (diff > ATOL + RTOL * r64.abs())
+            nonfin = (torch.isnan(g64) != torch.isnan(r64)) | (torch.isinf(g64) != torch.isinf(r64))
+            nonfin |= torch.isinf(g64) & torch.isinf(r64) & (torch.sign(g64) != torch.sign(r64))
+            bad = (over | nonfin).reshape(g.shape[0], -1).any(1)
+            if diff.numel():
+                err = max(err, float(diff.max()))
+        if bool(bad.any()):
+            isl = int(torch.nonzero(bad)[0])
+            _fail(f"{tag}: field {name} differs from the plain version on island {isl} "
+                  f"({int(bad.sum())} islands)")
+    return err
+
+
+def block_kernel_check(device, inexact=(), islands=100, rows=CONFIG3_ROWS):
+    """Phase 3: B3 against its plain version on the card, at config3 width
+    (``islands`` x 100 members, ``rows`` rows). Integer equality needs
+    bit-identical scores, so the all-operator corpus leaves out the
+    operators of ``inexact`` (see operator_isolation). Returns the record
+    (without launches)."""
+    import numpy as np
+    import torch
+
+    from symbolicregression_jl_tpu_torch import Options
+    from symbolicregression_jl_tpu_torch.analysis.ir_verify import verify_packed_programs
+    from symbolicregression_jl_tpu_torch.convert import BLOCK_FIELDS
+    from symbolicregression_jl_tpu_torch.ops import losses as L
+    from symbolicregression_jl_tpu_torch.ops.evolve_block import unpack_pointers
+    from symbolicregression_jl_tpu_torch.ops.evolve_block_cuda import (
+        block_work_counts, evolve_block, evolve_block_reference,
+    )
+    from symbolicregression_jl_tpu_torch.ops.flat import FlatTrees, PackedPrograms
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import fused_loss, pack_programs_fused
+    from symbolicregression_jl_tpu_torch.ops.operators import BINARY_OPS, UNARY_OPS
+
+    Xn, yn = config3_data(n_rows=rows)
+    X = torch.from_numpy(Xn).to(device)
+    y = torch.from_numpy(yn).to(device)
+    c3 = Options(maxsize=20, populations=islands, population_size=100, device=device.type,
+                 **CONFIG3_OPS)
+    max_err = 0.0
+    n_cases = 0
+
+    def check(tag, options, Xc, yc, wc, n_islands, cycles=(1, 8), seed=0):
+        nonlocal max_err, n_cases
+        for ncyc in cycles:
+            cfg, pop, scal = block_setup(device, options, Xc, yc, wc, n_islands, ncyc, seed)
+            args = (*pop, *scal, Xc, yc, wc, cfg, options.operators, options.loss)
+            got = evolve_block(*args)
+            ref = evolve_block_reference(*args)
+            torch.cuda.synchronize()
+            max_err = max(max_err, compare_block(f"{tag}, {ncyc} cycles", got, ref))
+            n_cases += 1
+
+    # (a) config3 width: 100 islands x 100 members, 10k rows x 5 features
+    check("config3", c3, X, y, None, islands)
+    # (c) the quick-start shape, weighted and unweighted; the all-operator
+    # corpus; every built-in real loss at a small shape
+    rng = np.random.default_rng(0)
+    Xq = torch.from_numpy(rng.normal(size=(2, 200)).astype(np.float32)).to(device)
+    yq = 2 * torch.cos(Xq[1]) + Xq[0] ** 2 - 2
+    wq = torch.from_numpy(rng.uniform(0.5, 2.0, 200).astype(np.float32)).to(device)
+    qs = Options(binary_operators=["+", "-", "*"], unary_operators=["cos"], device=device.type)
+    check("quick start", qs, Xq, yq, None, qs.populations)
+    check("quick start weighted", qs, Xq, yq, wq, qs.populations)
+    all_ops = Options(binary_operators=[o for o in BINARY_OPS if o not in inexact],
+                      unary_operators=[o for o in UNARY_OPS if o not in inexact],
+                      maxsize=20, populations=islands // 5, population_size=100,
+                      device=device.type)
+    check("every operator", all_ops, X, y, None, islands // 5, seed=11)
+    Xs = torch.from_numpy(rng.uniform(-1, 1, (3, 257)).astype(np.float32)).to(device)
+    ys = torch.from_numpy(np.sign(rng.uniform(-1, 1, 257)).astype(np.float32)).to(device)
+    ws = torch.from_numpy(rng.uniform(0.1, 2.0, 257).astype(np.float32)).to(device)
+    zoo = dict(L.LOSSES)
+    for spec in ("LPDistLoss(3.0)", "HuberLoss(0.5)", "QuantileLoss(0.9)",
+                 "SmoothedL1HingeLoss(0.5)", "DWDMarginLoss(2.0)", "PeriodicLoss(2.0)"):
+        zoo[spec] = L.resolve_loss(spec)
+    for name, loss in zoo.items():
+        lo = Options(binary_operators=["add", "sub", "mult"], unary_operators=[],
+                     elementwise_loss=loss,
+                     populations=4, population_size=16, maxsize=12, device=device.type)
+        check(f"loss {name}", lo, Xs, ys, ws, 4, cycles=(8,), seed=13)
+    print(f"block kernel check: {n_cases} cases equal to the plain version on every integer "
+          f"output, max abs err of float outputs {max_err:.3e} (rtol {RTOL}, atol {ATOL}; "
+          f"all-operator corpus without {sorted(inexact) or 'nothing'})", flush=True)
+
+    # (b) a whole block of ENGINE_CYCLES cycles at config3 width: the
+    # kernel's own consistency
+    cfg, pop, scal = block_setup(device, c3, X, y, None, islands, ENGINE_CYCLES, seed=3)
+    args = (*pop, *scal, X, y, None, cfg, c3.operators, c3.loss)
+    out = evolve_block(*args)
+    again = evolve_block(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(BLOCK_FIELDS, out, again):
+        if not torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                           b.view(torch.int32) if b.dtype == torch.float32 else b):
+            _fail(f"block consistency: two launches differ in {name}")
+    I, P, N, S1 = cfg.n_islands, cfg.pop_size, cfg.n_slots, cfg.maxsize + 1
+    words, consts, length, loss, score = (t.cpu() for t in out[:5])
+    norm = scal[4]
+    if bool((length > cfg.maxsize).any()) or bool((length < 1).any()):
+        _fail("block consistency: a length is outside [1, curmaxsize]")
+    want_score = (out[3] / norm + out[2].to(torch.float32) * cfg.parsimony).cpu()
+    fin = torch.isfinite(score)
+    if not torch.equal(fin, torch.isfinite(want_score)) or bool(
+            ((score - want_score).abs() > 1e-6 * want_score.abs())[fin].any()):
+        _fail("block consistency: a score is not _score_of(loss, length)")
+
+    def b1_of(w_, c_, ln_):
+        kind, op, lhs, rhs, feat = (a.cpu().numpy() for a in unpack_pointers(w_, ln_))
+        flat = FlatTrees(kind, op, lhs, rhs, feat, c_.cpu().numpy(), ln_.cpu().numpy())
+        prog, vals = pack_programs_fused(flat, c3.operators)
+        return fused_loss(torch.from_numpy(prog).to(device), torch.from_numpy(vals).to(device),
+                          X, y, None, c3.operators, c3.loss)
+
+    compare("block consistency: member losses vs B1", loss.reshape(-1),
+            b1_of(out[0].reshape(I * P, N), out[1].reshape(I * P, N), out[2].reshape(I * P)))
+    bs_fin = torch.isfinite(out[7].reshape(-1))
+    if not bool(bs_fin.any()):
+        _fail("block consistency: no best-seen entry")
+    bw, bc, bl = (t.reshape(I * S1, -1)[bs_fin] for t in (out[8], out[9], out[10][..., None]))
+    compare("block consistency: best-seen losses vs B1", out[7].reshape(-1)[bs_fin],
+            b1_of(bw, bc, bl[:, 0]))
+    for name, (wd, cs, ln) in (("population", (words.reshape(I * P, N), consts.reshape(I * P, N),
+                                               length.reshape(I * P))),
+                               ("best seen", (bw.cpu(), bc.cpu(), bl[:, 0].cpu()))):
+        verify_packed_programs(
+            PackedPrograms(wd.numpy().astype(np.int16), cs.numpy(), ln.numpy()), c3.operators,
+            n_features=CONFIG3_FEATURES, allow_empty=False, where=f"block {name}: ")
+    print(f"block consistency ({ENGINE_CYCLES} cycles, {I} x {P}): losses and best-seen losses "
+          f"equal B1's, scores equal _score_of, programs stack-sound with zero pads, lengths "
+          f"<= {cfg.maxsize}, two launches bit-identical", flush=True)
+
+    # timing at config3: 1 cycle (beside the plain version and the bound) and
+    # ENGINE_CYCLES cycles; the per-cycle time from the two
+    cfg1, pop1, scal1 = block_setup(device, c3, X, y, None, islands, 1, seed=5)
+    args1 = (*pop1, *scal1, X, y, None, cfg1, c3.operators, c3.loss)
+    saved = evolve_block.launches
+    ms1 = time_ms(lambda: evolve_block(*args1))
+    msk = time_ms(lambda: evolve_block(*args))
+    counts = {}
+    evolve_block_reference(*args1, counts=counts)
+    plain_ms = time_ms(lambda: evolve_block_reference(*args1), warmup=1, reps=20)
+    evolve_block.launches = saved
+    work = block_work_counts(cfg1, rows, CONFIG3_FEATURES, False, counts["candidates"],
+                             counts["slots"])
+    bound_ops = work["operations"] / PEAK_F32_FLOPS * 1e3
+    bound_bytes = work["bytes"] / PEAK_BYTES * 1e3
+    per_cycle = (msk - ms1) / (ENGINE_CYCLES - 1)
+    print(f"evolve_block timing (config3: {I} islands x {P}, E={cfg.events_per_cycle}, "
+          f"R={rows}, N={N}): 1 cycle {ms1:.4f} ms, {ENGINE_CYCLES} cycles "
+          f"{msk:.4f} ms, {per_cycle:.4f} ms per cycle; plain 1 cycle {plain_ms:.4f} ms; "
+          f"bound (1 cycle, {counts['candidates']} candidates) "
+          f"{max(bound_ops, bound_bytes):.5f} ms", flush=True)
+    return {
+        "name": "evolve_block",
+        "route": "cuda",
+        "source": "symbolicregression_jl_tpu_torch/csrc/evolve_block.cu",
+        "replaces": "symbolicregression_jl_tpu/ops/interp_pallas.py:1114",
+        "max_abs_err": max_err,
+        "ms": ms1,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bound_ops, bound_bytes),
+        "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+        "library_ms": None,
+        "ms_per_cycle": per_cycle,
+    }
+
+
+def preds_kernel_check(device, inexact=(), rows=CONFIG3_ROWS):
+    """Phase 3: B4 (the prediction matrix) against ops/interp.eval_trees at
+    1024 trees x ``rows`` rows. Elementwise predictions amplify an ulp of
+    difference in one operator through the operators composed on it, so
+    trees holding an operator of ``inexact`` (not bit-identical alone, see
+    operator_isolation) are not held to RTOL: their largest relative
+    difference is printed. Returns the record (without launches)."""
+    import numpy as np
+    import torch
+
+    from symbolicregression_jl_tpu_torch import Options
+    from symbolicregression_jl_tpu_torch.ops.flat import flatten_trees
+    from symbolicregression_jl_tpu_torch.ops.interp import eval_trees
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import (
+        eval_trees_kernel, preds_work_counts, unpack_programs_fused,
+    )
+    from symbolicregression_jl_tpu_torch.ops.operators import (
+        BINARY_OPS, UNARY_OPS, resolve_operators,
+    )
+
+    Xn, _ = config3_data(n_rows=rows)
+    X = torch.from_numpy(Xn).to(device)
+    opts = Options(maxsize=20, device=device.type, **CONFIG3_OPS)
+    N = opts.max_nodes
+    all_ops = resolve_operators(list(BINARY_OPS), list(UNARY_OPS))
+    max_err = 0.0
+    notes = []
+    for tag, ops, seed in (("config3", opts.operators, 1024), ("every operator", all_ops, 11)):
+        prog, vals = random_programs(ops, 1024, N, CONFIG3_FEATURES, seed=seed)
+        flat = unpack_programs_fused(prog, vals, ops)
+        got = eval_trees_kernel(flat, X, ops)
+        ref = eval_trees(flat, X, ops)
+        torch.cuda.synchronize()
+        names = [o.name for o in ops.unary] + [o.name for o in ops.binary]
+        codes = [2 + k for k, n in enumerate(names) if n in inexact]
+        live = np.arange(N)[None, :] < prog[:, 4 * N][:, None]
+        held = ~(np.isin(prog[:, :N], codes) & live).any(1)
+        keep = torch.from_numpy(held).to(device)
+        max_err = max(max_err, compare(f"eval_preds {tag}", got[keep].reshape(-1),
+                                       ref[keep].reshape(-1)))
+        if not held.all():
+            g, r = got[~keep].double().cpu(), ref[~keep].double().cpu()
+            fin = torch.isfinite(g) & torch.isfinite(r)
+            rel = ((g - r).abs() / r.abs().clamp_min(1e-30))[fin]
+            notes.append(f"{tag}: {int((~held).sum())} trees holding {sorted(inexact)} not held, "
+                         f"largest relative difference {float(rel.max()):.3g}, "
+                         f"{int((torch.isfinite(g) != torch.isfinite(r)).sum())} values "
+                         f"finite in one only")
+    prog, vals = random_programs(opts.operators, 1024, N, CONFIG3_FEATURES, seed=1024)
+    flat = unpack_programs_fused(prog, vals, opts.operators)
+    saved = eval_trees_kernel.launches
+    ms = time_ms(lambda: eval_trees_kernel(flat, X, opts.operators))
+    plain_ms = time_ms(lambda: eval_trees(flat, X, opts.operators), warmup=1, reps=20)
+    eval_trees_kernel.launches = saved
+    work = preds_work_counts(prog, rows, CONFIG3_FEATURES)
+    bound_ops = work["operations"] / PEAK_F32_FLOPS * 1e3
+    bound_bytes = work["bytes"] / PEAK_BYTES * 1e3
+    print(f"eval_preds check: config3 and every-operator corpora (1024 trees x "
+          f"{rows} rows) equal eval_trees within rtol {RTOL}, max abs err "
+          f"{max_err:.3e} ({'; '.join(notes) or 'every tree held'}); timing (P=1024): "
+          f"kernel {ms:.4f} ms (with packing and upload), "
+          f"plain {plain_ms:.4f} ms, bound {max(bound_ops, bound_bytes):.5f} ms "
+          f"({'bytes' if bound_bytes >= bound_ops else 'operations'})", flush=True)
+    return {
+        "name": "eval_preds",
+        "route": "cuda",
+        "source": "symbolicregression_jl_tpu_torch/csrc/eval_preds.cu",
+        "replaces": "symbolicregression_jl_tpu/ops/interp_pallas.py:73",
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bound_ops, bound_bytes),
+        "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+        "library_ms": None,
+    }
+
+
+def operator_isolation(device, n_rows=10_000, spans=(2.0, 20.0)):
+    """Phase 3: one-operator trees (each built-in operator on features drawn
+    from U(-a, a), for each a in ``spans``) through B4 and through the plain
+    version; prints the largest relative difference per operator over rows
+    where both are finite, and the rows whose finiteness differs. Returns the
+    names of the operators whose single evaluation is not bit-identical."""
+    import numpy as np
+    import torch
+
+    from symbolicregression_jl_tpu_torch.ops.flat import FlatTrees
+    from symbolicregression_jl_tpu_torch.ops.interp import eval_trees
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import eval_trees_kernel
+    from symbolicregression_jl_tpu_torch.ops.operators import (
+        BINARY_OPS, UNARY_OPS, resolve_operators,
+    )
+
+    ops = resolve_operators(list(BINARY_OPS), list(UNARY_OPS))
+    nu, nb = ops.n_unary, ops.n_binary
+    P, N = nu + nb, 3
+    kind = np.zeros((P, N), np.int32)
+    op = np.zeros((P, N), np.int32)
+    lhs = np.zeros((P, N), np.int32)
+    rhs = np.zeros((P, N), np.int32)
+    feat = np.zeros((P, N), np.int32)
+    length = np.zeros(P, np.int32)
+    kind[:, 0] = 2
+    kind[:nu, 1], op[:nu, 1], length[:nu] = 3, np.arange(nu), 2
+    kind[nu:, 1], feat[nu:, 1] = 2, 1
+    kind[nu:, 2], op[nu:, 2], lhs[nu:, 2], rhs[nu:, 2], length[nu:] = 4, np.arange(nb), 0, 1, 3
+    flat = FlatTrees(kind, op, lhs, rhs, feat, np.zeros((P, N), np.float32), length)
+    inexact = set()
+    for a in spans:
+        X = torch.from_numpy(
+            np.random.default_rng(2).uniform(-a, a, (2, n_rows)).astype(np.float32)).to(device)
+        got = eval_trees_kernel(flat, X, ops).double().cpu()
+        ref = eval_trees(flat, X, ops).double().cpu()
+        rows = []
+        for k in range(P):
+            name = ops.unary[k].name if k < nu else ops.binary[k - nu].name
+            g, r = got[k], ref[k]
+            fin = torch.isfinite(g) & torch.isfinite(r)
+            rel = ((g - r).abs() / r.abs().clamp_min(1e-30))[fin]
+            nonfin = int((torch.isnan(g) != torch.isnan(r)).sum()
+                         + (torch.isinf(g) != torch.isinf(r)).sum())
+            rows.append((name, float(rel.max()) if rel.numel() else 0.0, nonfin))
+            if rows[-1][1] > 0 or nonfin:
+                inexact.add(name)
+        rows.sort(key=lambda t: -t[1])
+        print(f"operator isolation (one-operator trees on U(-{a:g}, {a:g}) rows, B4 vs plain): "
+              "largest relative difference per operator: "
+              + ", ".join(f"{n} {e:.3g}" + (f" ({m} rows non-finite in one only)" if m else "")
+                          for n, e, m in rows), flush=True)
+    return inexact
+
+
+@contextlib.contextmanager
+def engine_block_env(block):
+    """SR_ENGINE_BLOCK unset (the default: the block where eligible) or "0"
+    (the event leg) inside the context, restored after."""
+    saved = os.environ.get("SR_ENGINE_BLOCK")
+    if block:
+        os.environ.pop("SR_ENGINE_BLOCK", None)
+    else:
+        os.environ["SR_ENGINE_BLOCK"] = "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("SR_ENGINE_BLOCK", None)
+        else:
+            os.environ["SR_ENGINE_BLOCK"] = saved
+
+
+def engine_path(device, lockstep=None, block=True, iterations=ENGINE_ITERATIONS,
+                cycles=ENGINE_CYCLES, rows=CONFIG3_ROWS, populations=100, population_size=100):
+    """Phase 5: the device engine at config3 width, with the evolve block
+    (the default: B3 runs the evolve leg, one launch per iteration) or with
+    ``SR_ENGINE_BLOCK=0`` (the event leg). Returns the launches
+    of B1, B2 and B3 in the run, and the ms per cycle and evals/s.
+    ``lockstep``: phase 4's numbers, printed beside the engine's."""
     import numpy as np
     import torch
 
     import symbolicregression_jl_tpu_torch.models.device_search as ds
     from symbolicregression_jl_tpu_torch import Options, equation_search
+    from symbolicregression_jl_tpu_torch.ops.evolve_block_cuda import evolve_block
     from symbolicregression_jl_tpu_torch.ops.interp_cuda import fused_loss, fused_loss_grad
 
     X, y = config3_data(n_rows=rows)
@@ -534,22 +930,28 @@ def engine_path(device, lockstep=None, iterations=ENGINE_ITERATIONS, cycles=ENGI
     saved = ds._DISPATCH_HOOK, ds._LEG_WRAP
     ds._DISPATCH_HOOK, ds._LEG_WRAP = legs.append, leg_wrap
     try:
-        fused_loss.launches = fused_loss_grad.launches = 0
-        t0 = time.perf_counter()
-        res = equation_search(X, y, options=options, niterations=iterations, verbosity=0)
-        wall = time.perf_counter() - t0
-        b1, b2 = fused_loss.launches, fused_loss_grad.launches
+        with engine_block_env(block):
+            fused_loss.launches = fused_loss_grad.launches = evolve_block.launches = 0
+            t0 = time.perf_counter()
+            res = equation_search(X, y, options=options, niterations=iterations, verbosity=0)
+            wall = time.perf_counter() - t0
+            b1, b2, b3 = fused_loss.launches, fused_loss_grad.launches, evolve_block.launches
     finally:
         ds._DISPATCH_HOOK, ds._LEG_WRAP = saved
     st = res.engine_stats
+    leg_name = "block" if block else "event leg"
     if not res.use_kernel:
         _fail("the device engine did not select the kernels")
+    if st["block"] != ("kernel" if block else None):
+        _fail(f"the evolve leg ran {st['block']!r}, not the {leg_name}")
     if device.type == "cuda" and not checked:
         _fail("the evolve leg ran without the host-sync check")
     if b1 != st["score_calls"] or b1 == 0:
         _fail(f"{b1} B1 launches for {st['score_calls']} engine scoring calls")
     if b2 != st["grad_calls"] or b2 == 0:
         _fail(f"{b2} B2 launches for {st['grad_calls']} engine gradient calls")
+    if b3 != (st["iterations"] if block else 0):
+        _fail(f"{b3} B3 launches in {st['iterations']} iterations ({leg_name})")
     if legs != ["evolve", "const_opt", "readback"] * iterations:
         _fail(f"legs per iteration: {legs}")
     front = res.pareto_frontier
@@ -559,23 +961,98 @@ def engine_path(device, lockstep=None, iterations=ENGINE_ITERATIONS, cycles=ENGI
     host_s = st["host_seconds"]
     n_cycles = iterations * cycles
     evolve_s = dev_s.get("evolve", host_s["evolve"])
-    print(f"config3 device engine: {populations}x{population_size}, {rows} rows, {iterations} "
-          f"iterations x {cycles} cycles (cut from 550): wall {wall:.3f} s (set-up "
+    stats = {"ms_per_cycle": evolve_s / n_cycles * 1e3,
+             "evals_per_s": res.num_evals / res.iteration_seconds}
+    print(f"config3 device engine, {leg_name}: {populations}x{population_size}, {rows} rows, "
+          f"{iterations} iterations x {cycles} cycles (cut from 550): wall {wall:.3f} s (set-up "
           f"{res.setup_seconds:.3f} s, main loop {res.iteration_seconds:.3f} s); per leg, "
-          f"device s (CUDA events) / host s: evolve {dev_s.get('evolve', 0):.3f} / "
-          f"{host_s['evolve']:.3f}, const-opt {dev_s.get('const_opt', 0):.3f} / "
+          f"device s (CUDA events) / host s: evolve {dev_s.get('evolve', 0):.4f} / "
+          f"{host_s['evolve']:.4f}, const-opt {dev_s.get('const_opt', 0):.3f} / "
           f"{host_s['const_opt']:.3f}, readback + host work {dev_s.get('readback', 0):.3f} / "
-          f"{host_s['readback']:.3f}; evolve {evolve_s / n_cycles * 1e3:.2f} ms/cycle; "
-          f"{res.num_evals / res.iteration_seconds:.4g} evals/s; B1 {b1} launches = "
-          f"{st['score_calls']} scoring calls, B2 {b2} launches = {st['grad_calls']} gradient "
-          f"calls; first evolve leg made no host sync; frontier {len(front)} members, best "
-          f"loss {min(m.loss for m in front):.6g}", flush=True)
+          f"{host_s['readback']:.3f}; evolve {stats['ms_per_cycle']:.4f} ms/cycle; "
+          f"{stats['evals_per_s']:.4g} evals/s; B1 {b1} launches = {st['score_calls']} scoring "
+          f"calls, B2 {b2} launches = {st['grad_calls']} gradient calls, B3 {b3} launches; "
+          f"first evolve leg made no host sync; frontier {len(front)} members, best loss "
+          f"{min(m.loss for m in front):.6g}", flush=True)
     if lockstep is not None:
-        print(f"config3, device engine vs lockstep: {evolve_s / n_cycles * 1e3:.2f} vs "
-              f"{lockstep['ms_per_cycle']:.2f} ms/cycle, "
-              f"{res.num_evals / res.iteration_seconds:.4g} vs "
-              f"{lockstep['evals_per_s']:.4g} evals/s", flush=True)
-    return b1, b2
+        print(f"config3, device engine ({leg_name}) vs lockstep: "
+              f"{stats['ms_per_cycle']:.4f} vs {lockstep['ms_per_cycle']:.2f} ms/cycle, "
+              f"{stats['evals_per_s']:.4g} vs {lockstep['evals_per_s']:.4g} evals/s", flush=True)
+    return b1, b2, b3, stats
+
+
+def leg_profile(device, block=True, iterations=3, cycles=ENGINE_CYCLES, rows=CONFIG3_ROWS,
+                populations=100, population_size=100):
+    """Where the time goes in the config3 device engine. Every evolve and
+    const-opt leg is timed on the host clock between two synchronizations;
+    the last iteration's legs also run under torch.profiler (CUDA activity
+    only), which gives the device time of their kernels by name and the
+    device's idle share inside the leg (1 - device time / wall; the engine
+    runs one stream, so its kernels do not overlap)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import symbolicregression_jl_tpu_torch.models.device_search as ds
+    from symbolicregression_jl_tpu_torch import Options, equation_search
+
+    X, y = config3_data(n_rows=rows)
+    options = Options(
+        populations=populations, population_size=population_size, maxsize=20,
+        ncycles_per_iteration=cycles, seed=0, save_to_file=False, progress=False,
+        device=device.type, scheduler="device", **CONFIG3_OPS,
+    )
+    seen = {}
+    walls = {}
+    report = {}
+
+    def leg_wrap(name):
+        seen[name] = seen.get(name, 0) + 1
+        if name == "readback":
+            return contextlib.nullcontext()
+        traced = seen[name] == iterations
+
+        @contextlib.contextmanager
+        def timed():
+            acts = [ProfilerActivity.CUDA if device.type == "cuda" else ProfilerActivity.CPU]
+            with (profile(activities=acts) if traced else contextlib.nullcontext()) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                yield
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            walls.setdefault(name, []).append(wall)
+            if traced:
+                kern = {}
+                for ev in prof.key_averages():
+                    dev_us = getattr(ev, "self_device_time_total", None)
+                    if dev_us is None:
+                        dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+                    if dev_us > 0:
+                        kern[ev.key] = kern.get(ev.key, 0.0) + dev_us * 1e-6
+                report[name] = (wall, kern)
+        return timed()
+
+    saved = ds._LEG_WRAP
+    ds._LEG_WRAP = leg_wrap
+    try:
+        with engine_block_env(block):
+            equation_search(X, y, options=options, niterations=iterations, verbosity=0)
+    finally:
+        ds._LEG_WRAP = saved
+    what = "block" if block else "event leg"
+    print(f"legs, config3 device engine ({what}), {iterations} iterations x {cycles} cycles, "
+          "host ms between synchronizations per iteration: "
+          + "; ".join(f"{n} " + ", ".join(f"{w * 1e3:.3f}" for w in ws)
+                      for n, ws in walls.items()), flush=True)
+    for name, (wall, kern) in report.items():
+        busy = sum(kern.values())
+        top = sorted(kern.items(), key=lambda kv: -kv[1])[:5]
+        idle = f"{1 - busy / wall:.1%}" if busy > 0 else "not measured (no device time traced)"
+        print(f"profile, config3 device engine ({what}), iteration {iterations} {name} leg: "
+              f"wall {wall * 1e3:.3f} ms, device time {busy * 1e3:.3f} ms in {len(kern)} kernel "
+              f"names, device idle {idle}; largest: "
+              + ", ".join(f"{k[:48]} {v * 1e3:.3f} ms" for k, v in top), flush=True)
+    return walls, report
 
 
 def quick_start_device(device, niterations=DEVICE_QUICKSTART_ITERATIONS):
@@ -584,12 +1061,14 @@ def quick_start_device(device, niterations=DEVICE_QUICKSTART_ITERATIONS):
     import numpy as np
 
     from symbolicregression_jl_tpu_torch import SRRegressor
+    from symbolicregression_jl_tpu_torch.ops.evolve_block_cuda import evolve_block
 
     rng = np.random.default_rng(0)
     X = rng.normal(size=(200, 2)).astype(np.float32)
     y = 2 * np.cos(X[:, 1]) + X[:, 0] ** 2 - 2
     baseline = float(np.mean((y - y.mean()) ** 2))
     fronts = []
+    evolve_block.launches = 0
     for run in range(2):
         t0 = time.perf_counter()
         model = SRRegressor(
@@ -612,7 +1091,11 @@ def quick_start_device(device, niterations=DEVICE_QUICKSTART_ITERATIONS):
               f"{baseline:.6g}): {best['equation']}", flush=True)
     if fronts[0] != fronts[1]:
         _fail("two device quick starts with one seed gave different frontiers")
-    print("quick start, scheduler='device': the two frontiers are identical", flush=True)
+    if evolve_block.launches != 2 * niterations:
+        _fail(f"{evolve_block.launches} B3 launches in two device quick starts of "
+              f"{niterations} iterations")
+    print(f"quick start, scheduler='device': the two frontiers are identical; the evolve leg "
+          f"ran on B3 ({evolve_block.launches} launches)", flush=True)
 
 
 def main() -> int:
@@ -652,18 +1135,31 @@ def main() -> int:
 
     b1 = kernel_check(device)
     b2 = grad_kernel_check(device)
+    inexact = operator_isolation(device)
+    b3 = block_kernel_check(device, inexact)
+    b4 = preds_kernel_check(device, inexact)
     lockstep_b1, lockstep_b2, lockstep_stats = main_path(device)
-    engine_b1, engine_b2 = engine_path(device, lockstep_stats)
-    b1["launches"] = lockstep_b1 + engine_b1
-    b1["launches_by_path"] = {"lockstep": lockstep_b1, "device": engine_b1}
-    b2["launches"] = lockstep_b2 + engine_b2
-    b2["launches_by_path"] = {"lockstep": lockstep_b2, "device": engine_b2}
+    event_b1, event_b2, event_b3, _ = engine_path(device, lockstep_stats, block=False)
+    engine_b1, engine_b2, engine_b3, _ = engine_path(device, lockstep_stats, block=True)
+    leg_profile(device, block=True)
+    leg_profile(device, block=False)
+    b1["launches_by_path"] = {"lockstep": lockstep_b1, "device": engine_b1,
+                              "device SR_ENGINE_BLOCK=0": event_b1}
+    b2["launches_by_path"] = {"lockstep": lockstep_b2, "device": engine_b2,
+                              "device SR_ENGINE_BLOCK=0": event_b2}
+    b3["launches_by_path"] = {"lockstep": 0, "device": engine_b3,
+                              "device SR_ENGINE_BLOCK=0": event_b3}
+    # B4 is on no main path: as in the JAX package, only tests call it
+    b4["launches_by_path"] = {"lockstep": 0, "device": 0, "device SR_ENGINE_BLOCK=0": 0}
+    for rec in (b1, b2, b3, b4):
+        rec["launches"] = sum(rec["launches_by_path"].values())
     quick_start(device)
     quick_start_device(device)
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path"]
-    print(json.dumps({"kernels": [{k: r[k] for k in order} for r in (b1, b2)]}), flush=True)
+    print(json.dumps({"kernels": [{k: r[k] for k in order} for r in (b1, b2, b3, b4)]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({
         "ok": True,

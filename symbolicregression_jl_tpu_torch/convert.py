@@ -10,7 +10,10 @@ plain arrays. The device engine's state crosses the same way:
 ``evo_state_from_arrays`` builds this package's ``EvoState`` from the
 fields of the JAX package's (its PRNG key is dropped: this package keeps a
 ``torch.Generator`` beside the state), and ``evo_state_arrays`` goes back.
-Tests use these so the two packages compute on identical inputs.
+The evolve block's 11-tuple carry (packed population, per-island columns,
+frequency delta and best-seen carry) crosses with
+``block_carry_from_arrays`` / ``block_carry_arrays``. Tests use these so
+the two packages compute on identical inputs.
 """
 
 from __future__ import annotations
@@ -38,6 +41,9 @@ __all__ = [
     "EVO_FIELDS",
     "evo_state_from_arrays",
     "evo_state_arrays",
+    "BLOCK_FIELDS",
+    "block_carry_from_arrays",
+    "block_carry_arrays",
 ]
 
 #: the FlatTrees fields, in order
@@ -169,3 +175,30 @@ def evo_state_arrays(state) -> dict:
             tuple(np.asarray(a.cpu()) for a in v) if name == "bs_tree" else np.asarray(v.cpu())
         )
     return out
+
+
+#: the evolve block's carry, in order (the JAX package's ``_block_cycle``
+#: carry and this package's ``evolve_block.block_cycle`` carry alike)
+BLOCK_FIELDS = ("words", "consts", "length", "loss", "score", "birth", "fd", "bs_loss",
+                "bs_words", "bs_consts", "bs_length")
+_BLOCK_INTS = ("words", "length", "birth", "bs_words", "bs_length")
+
+
+def block_carry_from_arrays(carry, device="cpu") -> tuple:
+    """This package's block carry from the 11 arrays of a block carry (the
+    JAX package's, or numpy) in ``BLOCK_FIELDS`` order, leading island axis
+    first: integer fields int32, the others float32."""
+    import torch
+
+    if len(carry) != len(BLOCK_FIELDS):
+        raise ValueError(f"a block carry has {len(BLOCK_FIELDS)} fields, got {len(carry)}")
+    return tuple(
+        torch.from_numpy(np.array(np.asarray(a), dtype=np.int32 if name in _BLOCK_INTS
+                                  else np.float32)).to(device)
+        for name, a in zip(BLOCK_FIELDS, carry)
+    )
+
+
+def block_carry_arrays(carry) -> tuple:
+    """The block carry's fields as numpy arrays (the inverse)."""
+    return tuple(np.asarray(a.cpu()) for a in carry)

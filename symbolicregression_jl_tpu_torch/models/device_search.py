@@ -26,6 +26,14 @@ both are their plain versions (``plain_losses``). Packing happens on the
 device from the state tensors. The TPU's bucket ladders are gone: the
 kernels loop to each tree's own length.
 
+The evolve block (``SR_ENGINE_BLOCK``, the JAX package's gate at its
+``device_search.py:2010-2046``): where ``block_eligible`` holds on at most
+``BLOCK_MAX_ROWS`` rows, the evolve leg is one launch of B3 per iteration
+(``evolve_block_cuda.evolve_block``) on a CUDA device with kernel-eligible
+names; unset, the block runs exactly there; ``"1"`` forces it, taking B3's
+plain version on the CPU or with names the kernels do not take; ``"0"``
+keeps the event leg.
+
 The pipelined readback (``Options.async_readback``, on by default here)
 copies iteration i's packed tensor into pinned host memory without
 blocking and consumes iteration i-1's while the card runs iteration i, so
@@ -46,6 +54,10 @@ import torch
 
 from ..analysis.ir_verify import debug_checks_enabled
 from ..dataset import Dataset
+from ..ops.evolve_block import (
+    BLOCK_MAX_ROWS, block_eligible, make_plain_eval, run_block_iteration,
+)
+from ..ops.evolve_block_cuda import evolve_block
 from ..ops.evolve import (
     EvoConfig,
     EvoContext,
@@ -62,7 +74,7 @@ from ..ops.flat import (
     unflatten_tree,
 )
 from ..ops.interp_cuda import (
-    DiffLoss, fused_loss, loss_kernel_eligible, plain_losses, unpack_programs_fused,
+    DiffLoss, build, fused_loss, loss_kernel_eligible, plain_losses, unpack_programs_fused,
 )
 from ..ops.treeops import Tree
 from ..options import Options, _not_ported
@@ -663,9 +675,41 @@ def _reject_out_of_slice(options: Options) -> None:
             f"scheduler='device' cannot honor this configuration ({reason}); "
             "use scheduler='lockstep'"
         )
-    if os.environ.get("SR_ENGINE_BLOCK", "") == "1":
-        raise _not_ported("the evolve block (SR_ENGINE_BLOCK=1)",
-                          "A, slice 3: the evolve block B3")
+
+
+def _block_mode(ecfg: EvoConfig, device, use_kernel: bool, n_rows: int) -> str | None:
+    """Which evolve leg an iteration runs: "kernel" (B3), "plain" (B3's plain
+    version) or None (the event leg). The JAX package's gate
+    (``device_search.py:2010-2046``): ``SR_ENGINE_BLOCK=0`` turns the block
+    off; unset, it runs where the accelerator's kernel would (a CUDA device,
+    kernel-eligible names); ``1`` forces it; either way only where
+    ``block_eligible`` holds on at most BLOCK_MAX_ROWS rows. Decided from
+    names and shapes, never by probing."""
+    env = os.environ.get("SR_ENGINE_BLOCK", "")
+    if env == "0" or n_rows > BLOCK_MAX_ROWS or not block_eligible(ecfg)[0]:
+        return None
+    on_card = torch.device(device).type == "cuda" and use_kernel
+    if on_card:
+        return "kernel"
+    return "plain" if env == "1" else None
+
+
+def _make_block_fn(mode: str | None, options: Options, ecfg: EvoConfig, data: ScoreData,
+                   ctx: EvoContext):
+    """The evolve leg's ``(state, data) -> state`` for ``mode``, or None. The
+    kernel is built here, at set-up, not inside the first leg."""
+    if mode is None:
+        return None
+    opset, loss_elem = options.operators, options.loss
+    if mode == "kernel":
+        build("evolve_block")
+
+        def kernel_fn(*args):
+            return evolve_block(*args, data.X, data.y, data.w, ecfg, opset, loss_elem)
+
+        return lambda state, d: run_block_iteration(state, d, ctx, kernel_fn=kernel_fn)
+    eval_fn = make_plain_eval(opset, loss_elem, data.X, data.y, data.w)
+    return lambda state, d: run_block_iteration(state, d, ctx, eval_fn=eval_fn)
 
 
 # ---------------------------------------------------------------------------
@@ -746,6 +790,8 @@ def device_search_one_output(
         make_const_opt_fn(options, ecfg, scorer, ctx)
         if options.should_optimize_constants else None
     )
+    block_mode = _block_mode(ecfg, device, use_kernel, dataset.n)
+    block_fn = _make_block_fn(block_mode, options, ecfg, data, ctx)
     bflat = flatten_trees(init_trees, N, dtype=eng_dt)
     batch0 = _flat_to_tree(bflat, device, vdt)
     losses0 = score_call(batch0)
@@ -805,7 +851,8 @@ def device_search_one_output(
                 )
 
     for it in range(niterations):
-        state = run_iteration_fused(state, data, ctx, copt=const_opt, leg=timer.leg)
+        state = run_iteration_fused(state, data, ctx, copt=const_opt, leg=timer.leg,
+                                    block=block_fn)
         with timer.leg("readback"):
             fetch = readback.start(_readback_pack(state))
             if async_rb:
@@ -874,6 +921,7 @@ def device_search_one_output(
     result.use_kernel = use_kernel
     result.engine_stats = {
         "iterations": iterations_run,
+        "block": block_mode,
         "score_calls": scorer.score_calls,
         "grad_calls": scorer.grad_calls,
         "host_seconds": dict(timer.host),

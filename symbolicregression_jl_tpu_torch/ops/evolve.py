@@ -936,15 +936,17 @@ def run_finalize(state: EvoState, data, ctx: EvoContext) -> EvoState:
 
 
 def run_iteration_fused(state: EvoState, data, ctx: EvoContext, copt=None,
-                        leg=None) -> EvoState:
+                        leg=None, block=None) -> EvoState:
     """One engine iteration: evolve -> constant optimization -> (batching)
     full-data finalize, chained as one Python function (the JAX package
     compiles the same chain into one program). ``copt``: ``(state, data)
     -> state`` or None. ``leg(name)``: a context manager entered around
-    each leg (the engine's dispatch count and timers)."""
+    each leg (the engine's dispatch count and timers). ``block``: the evolve
+    block's ``(state, data) -> state`` (ops/evolve_block.py), which replaces
+    the event leg inside the "evolve" leg, or None."""
     leg = leg or (lambda name: contextlib.nullcontext())
     with leg("evolve"):
-        state = run_iteration(state, data, ctx)
+        state = run_iteration(state, data, ctx) if block is None else block(state, data)
     if copt is not None:
         with leg("const_opt"):
             state = copt(state, data)

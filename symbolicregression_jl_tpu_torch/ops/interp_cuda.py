@@ -26,6 +26,15 @@ kernel or raises. Each source is built with ``nvcc`` into a shared library
 with a plain C interface, at first use, under ``_build/`` beside the package
 (listed in .gitignore), and bound with ``ctypes``.
 
+- B4, ``eval_trees_kernel`` (``csrc/eval_preds.cu``), replaces
+  ``interp_pallas.py:73`` (``_make_kernel`` via ``_eval_pallas``): B1's
+  forward pass writing the prediction matrix [P, R] instead of a loss. Its
+  plain version is ``ops/interp.eval_trees``. As in the JAX package, only
+  tests (and ``chip_smoke.py``) call it.
+
+The evolve block B3 (``csrc/evolve_block.cu``) is built here with the others;
+its wrapper is ``ops/evolve_block_cuda.evolve_block``.
+
 Unlike the TPU kernels, rows are masked by index (no 10240-row padding, no
 (8, C) sublane layout) and any batch size P is accepted.
 """
@@ -43,7 +52,7 @@ import numpy as np
 import torch
 
 from .flat import KIND_BINARY, KIND_CONST, KIND_UNARY, KIND_VAR, FlatTrees
-from .interp import _forward, _reverse_sweep, make_plan
+from .interp import _forward, _reverse_sweep, eval_trees, make_plan
 from .losses import kernel_loss_spec
 from .operators import OperatorSet, kernel_op_table
 
@@ -53,6 +62,7 @@ __all__ = [
     "fused_loss_grad",
     "fused_loss_grad_reference",
     "plain_losses",
+    "eval_trees_kernel",
     "DiffLoss",
     "pack_programs_fused",
     "unpack_programs_fused",
@@ -62,6 +72,7 @@ __all__ = [
     "BUILD_INFO",
     "work_counts",
     "grad_work_counts",
+    "preds_work_counts",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -70,6 +81,8 @@ CSRC = _PKG / "csrc"
 SOURCES = {
     "fused_loss": CSRC / "fused_loss.cu",
     "fused_loss_grad": CSRC / "fused_loss_grad.cu",
+    "evolve_block": CSRC / "evolve_block.cu",
+    "eval_preds": CSRC / "eval_preds.cu",
 }
 HEADER = CSRC / "sr_ops.cuh"
 BUILD_DIR = _PKG / "_build"
@@ -224,16 +237,30 @@ def _nvcc() -> str:
 
 def _bind(name: str, lib: ctypes.CDLL) -> None:
     vp, ci, cf, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    # prog, prog_ld, vals, optab, n_ops, X, ldx, y, w, P, N, R, threads,
-    # rows_per_block, n_chunks, loss_id, q0..q3, partials, out[, grads], stream
-    common = [vp, ci, vp, vp, ci, vp, cl, vp, vp, ci, ci, ci, ci, ci, ci, ci, cf, cf, cf, cf,
-              vp, vp]
     fn = getattr(lib, f"sr_{name}")
-    fn.argtypes = common + ([vp, vp] if name == "fused_loss_grad" else [vp])
-    fn.restype = ci
     smem = getattr(lib, f"sr_{name}_smem")
-    smem.argtypes = [ci, ci, ci, ci]
     smem.restype = ctypes.c_size_t
+    fn.restype = ci
+    if name == "evolve_block":
+        from .evolve_block_cuda import SrBlockCfg
+
+        # cfg, threads, 6 population inputs, fnorm, iscal, fscal, X, y, w,
+        # 11 outputs, stream
+        fn.argtypes = [SrBlockCfg, ci] + [vp] * 12 + [vp] * 11 + [vp]
+        smem.argtypes = [SrBlockCfg, ci]
+    elif name == "eval_preds":
+        # prog, prog_ld, vals, optab, n_ops, X, ldx, P, N, R, threads,
+        # rows_per_block, n_chunks, preds, stream
+        fn.argtypes = [vp, ci, vp, vp, ci, vp, cl, ci, ci, ci, ci, ci, ci, vp, vp]
+        smem.argtypes = [ci, ci, ci, ci]
+    else:
+        # prog, prog_ld, vals, optab, n_ops, X, ldx, y, w, P, N, R, threads,
+        # rows_per_block, n_chunks, loss_id, q0..q3, partials, out[, grads],
+        # stream
+        common = [vp, ci, vp, vp, ci, vp, cl, vp, vp, ci, ci, ci, ci, ci, ci, ci, cf, cf, cf,
+                  cf, vp, vp]
+        fn.argtypes = common + ([vp, vp] if name == "fused_loss_grad" else [vp])
+        smem.argtypes = [ci, ci, ci, ci]
     lib.sr_cuda_error_string.argtypes = [ci]
     lib.sr_cuda_error_string.restype = ctypes.c_char_p
 
@@ -358,6 +385,50 @@ def _launch(kernel: str, prog, vals, X, y, w, optab, spec, P, N, R, prog_ld, out
     # same stream (PyTorch's caching allocator), so no keep-alive is needed
 
 
+def eval_trees_kernel(flat: FlatTrees, X, opset: OperatorSet) -> torch.Tensor:
+    """B4: predictions [P, R] f32 of a flat batch (numpy) on X [F, R].
+
+    A CPU tensor takes the plain version, ``ops/interp.eval_trees``. A CUDA
+    tensor launches the kernel on the current stream (no synchronisation)
+    or raises."""
+    if X.device.type == "cpu":
+        return eval_trees(flat, X, opset)
+    if X.device.type != "cuda":
+        raise ValueError(f"eval_trees_kernel: unsupported device {X.device}")
+    optab = kernel_op_table(opset)
+    if optab is None:
+        raise ValueError("eval_trees_kernel: the operator set has no kernel implementation")
+    if X.dtype != torch.float32 or not X.is_contiguous() or X.dim() != 2:
+        raise ValueError("eval_trees_kernel: X must be contiguous float32 [F, R]")
+    prog_np, vals_np = pack_programs_fused(flat, opset)
+    dev = X.device
+    prog = torch.from_numpy(prog_np).to(dev)
+    vals = torch.from_numpy(vals_np).to(dev)
+    P, prog_ld = prog.shape
+    N = vals.shape[1]
+    R = X.shape[1]
+    preds = torch.empty((P, R), dtype=torch.float32, device=dev)
+    if P == 0 or R == 0:
+        return preds
+    lib = build("eval_preds")
+    threads, rows_per_block, n_chunks = _geometry(lib.sr_eval_preds_smem, P, N, R, prog_ld,
+                                                  len(optab))
+    optab_t = _optab_tensor(optab, dev)
+    err = lib.sr_eval_preds(
+        prog.data_ptr(), prog_ld, vals.data_ptr(), optab_t.data_ptr(), len(optab),
+        X.data_ptr(), X.stride(0), P, N, R, threads, rows_per_block, n_chunks,
+        preds.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"eval_preds kernel launch failed: "
+                           f"{lib.sr_cuda_error_string(err).decode()}")
+    eval_trees_kernel.launches += 1
+    return preds
+
+
+eval_trees_kernel.launches = 0
+
+
 def fused_loss(prog, vals, X, y, w, opset: OperatorSet, loss_elem) -> torch.Tensor:
     """Per-tree losses [P] f32 of packed programs on (X [F, R], y [R], w).
 
@@ -477,3 +548,14 @@ def grad_work_counts(prog: np.ndarray, R: int, F: int, weighted: bool) -> dict:
     bytes_ = (prog.nbytes + P * N * 4 + F * R * 4 + R * 4 * (2 if weighted else 1)
               + P * 4 + P * N * 4)
     return {"slot_evals": 2 * slot_evals, "operations": ops, "bytes": bytes_}
+
+
+def preds_work_counts(prog: np.ndarray, R: int, F: int) -> dict:
+    """The same for one B4 call: each real slot of each tree once per row;
+    the inputs read once and the [P, R] predictions written once."""
+    prog = np.asarray(prog)
+    P, L = prog.shape
+    N = (L - 1) // 4
+    slot_evals = int(prog[:, 4 * N].astype(np.int64).sum()) * R
+    bytes_ = prog.nbytes + P * N * 4 + F * R * 4 + P * R * 4
+    return {"slot_evals": slot_evals, "operations": slot_evals, "bytes": bytes_}

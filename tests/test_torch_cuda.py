@@ -1,6 +1,6 @@
-"""The fused kernels on the card: wrapper checks, launch counts, agreement
-with their plain versions at small shapes, and the device engine on the
-card.
+"""The hand-written kernels on the card: wrapper checks, launch counts,
+agreement with their plain versions at small shapes, and the device engine
+on the card, on the event leg and on the evolve block.
 
 These tests need a CUDA card and ``nvcc`` and skip without them. They import
 neither JAX nor the JAX package, so on a machine without JAX they run with
@@ -12,7 +12,10 @@ Tolerance: kernel and plain version compute the same f32 elementwise values
 and sum in f64 in different orders, so losses agree to rtol 1e-5 (atol 1e-6
 for losses near zero) and their ok flags are equal. B2's constant
 gradients: rtol 1e-4 plus 1e-6 times the largest gradient of the same tree,
-with equal non-finite positions.
+with equal non-finite positions. B3 (the evolve block) against its plain
+version: every integer output equal, float outputs to the same rtol. B4
+(the prediction matrix): predictions to rtol 1e-5 on operators whose single
+evaluation is bit-identical in both (gamma differs by an ulp).
 """
 
 import numpy as np
@@ -25,6 +28,7 @@ from symbolicregression_jl_tpu_torch.models.scorer import BatchScorer
 from symbolicregression_jl_tpu_torch.ops.flat import flatten_trees
 from symbolicregression_jl_tpu_torch.ops.interp_cuda import (
     DiffLoss,
+    eval_trees_kernel,
     fused_loss,
     fused_loss_grad,
     fused_loss_grad_reference,
@@ -171,10 +175,12 @@ def test_grad_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     assert fused_loss_grad.launches == before
 
 
-def test_device_engine_on_the_card(cuda):
+def test_device_engine_on_the_card(cuda, monkeypatch):
+    """The event leg (``SR_ENGINE_BLOCK=0``): B1 scores every cycle."""
     import symbolicregression_jl_tpu_torch.models.device_search as ds
     from symbolicregression_jl_tpu_torch import equation_search
 
+    monkeypatch.setenv("SR_ENGINE_BLOCK", "0")
     rng = np.random.default_rng(0)
     X = rng.normal(size=(2, 500)).astype(np.float32)
     y = (2 * np.cos(X[1]) + X[0] ** 2 - 2).astype(np.float32)
@@ -207,3 +213,153 @@ def test_device_engine_on_the_card(cuda):
     assert fused_loss_grad.launches - b2 == st["grad_calls"] >= 2
     assert np.isfinite(min(m.loss for m in res.pareto_frontier))
     assert set(st["device_seconds"]) == {"evolve", "const_opt", "readback"}
+    assert st["block"] is None
+
+
+def _block_inputs(device, ncycles, weighted, populations=6, population_size=20):
+    import dataclasses
+
+    from symbolicregression_jl_tpu_torch.models.device_search import build_evo_config
+    from symbolicregression_jl_tpu_torch.ops.evolve_block import pack_state_words
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import unpack_programs_fused
+
+    opts = Options(binary_operators=["+", "-", "*", "/"], unary_operators=["cos", "exp"],
+                   populations=populations, population_size=population_size, maxsize=14,
+                   device="cuda")
+    rng = np.random.default_rng(ncycles)
+    X = torch.from_numpy(rng.normal(size=(3, 300)).astype(np.float32)).to(device)
+    y = torch.cos(X[0]) * 2 + X[1]
+    w = torch.from_numpy(rng.uniform(0.5, 2.0, 300).astype(np.float32)).to(device)
+    w = w if weighted else None
+    cfg = dataclasses.replace(
+        build_evo_config(opts, 3, 1.0, True, 1, n_rows=300), ncycles=ncycles)
+    I, P, N = cfg.n_islands, cfg.pop_size, cfg.n_slots
+    prog, vals = pack_programs_fused(
+        flatten_trees(_trees(opts.operators, I * P, 3, ncycles, N), N), opts.operators)
+    flat = unpack_programs_fused(prog, vals, opts.operators)
+    words, consts = pack_state_words(*(torch.from_numpy(np.asarray(a)).to(device)
+                                       for a in (flat.kind, flat.op, flat.feat, flat.val)))
+    loss = fused_loss(torch.from_numpy(prog).to(device), torch.from_numpy(vals).to(device),
+                      X, y, w, opts.operators, opts.loss).reshape(I, P)
+    length = torch.from_numpy(np.asarray(flat.length)).to(device).reshape(I, P)
+    norm = torch.tensor(1.5, device=device)
+    pop = (words.reshape(I, P, N).contiguous(), consts.reshape(I, P, N).contiguous(), length,
+           loss.contiguous(), (loss / norm + length.float() * cfg.parsimony).contiguous(),
+           torch.from_numpy(rng.integers(0, 8, (I, P)).astype(np.int32)).to(device))
+    fnorm = torch.from_numpy(rng.dirichlet(np.ones(cfg.maxsize + 1)).astype(np.float32))
+    scal = (fnorm.to(device), torch.tensor(12345, dtype=torch.int64, device=device),
+            torch.tensor(P, dtype=torch.int32, device=device),
+            torch.tensor(cfg.maxsize, dtype=torch.int32, device=device), norm)
+    return (*pop, *scal, X, y, w, cfg, opts.operators, opts.loss)
+
+
+@pytest.mark.parametrize("ncycles, weighted, size", [
+    (1, False, 20), (8, False, 20), (1, True, 20), (8, True, 20), (2, False, 1100),
+], ids=["1-plain", "8-plain", "1-weighted", "8-weighted", "population-in-device-memory"])
+def test_block_kernel_matches_plain_version(cuda, ncycles, weighted, size):
+    from symbolicregression_jl_tpu_torch.ops.evolve_block_cuda import (
+        _geometry, _make_cfg, evolve_block, evolve_block_reference,
+    )
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import build
+
+    args = _block_inputs(cuda, ncycles, weighted, 2 if size > 100 else 6, size)
+    cfg, X = args[-3], args[11]
+    c = _make_cfg(cfg, *args[-2:], X.shape[0], X.shape[1], X.stride(0))
+    _geometry(build("evolve_block"), c)
+    # 1100 members do not fit in shared memory beside the lanes: the kernel
+    # keeps that island in the output arrays
+    assert c.use_smem == (1 if size < 100 else 0)
+    before = evolve_block.launches
+    got = evolve_block(*args)
+    assert evolve_block.launches == before + 1
+    want = evolve_block_reference(*args)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        g, r = g.cpu(), r.cpu()
+        if not r.dtype.is_floating_point:
+            assert torch.equal(g, r)
+        else:
+            g, r = g.double().numpy(), r.double().numpy()
+            np.testing.assert_array_equal(np.isnan(g), np.isnan(r))
+            np.testing.assert_array_equal(np.isinf(g), np.isinf(r))
+            m = np.isfinite(r)
+            np.testing.assert_allclose(g[m], r[m], rtol=1e-5, atol=1e-6)
+    # one seed, one result
+    again = evolve_block(*args)
+    for a, b in zip(got, again):
+        assert torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                           b.view(torch.int32) if b.is_floating_point() else b)
+
+
+def test_block_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from symbolicregression_jl_tpu_torch.ops.evolve_block_cuda import evolve_block
+
+    args = list(_block_inputs(cuda, 1, False))
+    before = evolve_block.launches
+    bad = list(args)
+    bad[0] = args[0].long()
+    with pytest.raises(ValueError, match="words must be"):
+        evolve_block(*bad)
+    bad = list(args)
+    bad[7] = 12345
+    with pytest.raises(ValueError, match="seed must be"):
+        evolve_block(*bad)
+    assert evolve_block.launches == before
+
+
+def test_preds_kernel_matches_plain_version(cuda):
+    from symbolicregression_jl_tpu_torch.ops.interp import eval_trees
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import unpack_programs_fused
+
+    ops = [o for o in UNARY_OPS if o != "gamma"]
+    opts = Options(binary_operators=list(BINARY_OPS), unary_operators=ops, maxsize=20,
+                   device="cuda")
+    prog, vals, X, _, _ = _inputs(opts, 300, 777, seed=3, device=cuda)
+    flat = unpack_programs_fused(prog.cpu().numpy(), vals.cpu().numpy(), opts.operators)
+    before = eval_trees_kernel.launches
+    got = eval_trees_kernel(flat, X, opts.operators)
+    assert eval_trees_kernel.launches == before + 1
+    want = eval_trees(flat, X, opts.operators)
+    torch.cuda.synchronize()
+    got, want = got.cpu().double().numpy(), want.cpu().double().numpy()
+    assert got.shape == (300, 777)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    m = np.isfinite(want)
+    np.testing.assert_allclose(got[m], want[m], rtol=1e-5, atol=1e-6)
+
+
+def test_device_engine_on_the_block(cuda, monkeypatch):
+    """The default evolve leg on the card: one B3 launch per iteration, no
+    host sync inside it, B1 and B2 counted against the engine's calls."""
+    import contextlib
+
+    import symbolicregression_jl_tpu_torch.models.device_search as ds
+    from symbolicregression_jl_tpu_torch import equation_search
+    from symbolicregression_jl_tpu_torch.ops.evolve_block_cuda import evolve_block
+
+    monkeypatch.delenv("SR_ENGINE_BLOCK", raising=False)
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(2, 500)).astype(np.float32)
+    y = (2 * np.cos(X[1]) + X[0] ** 2 - 2).astype(np.float32)
+    opts = Options(binary_operators=["+", "-", "*"], unary_operators=["cos"], populations=4,
+                   population_size=16, ncycles_per_iteration=50, maxsize=14, seed=0,
+                   save_to_file=False, progress=False, scheduler="device", device="cuda")
+
+    @contextlib.contextmanager
+    def guard(name):
+        torch.cuda.set_sync_debug_mode("error" if name == "evolve" else 0)
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    b1, b2, b3 = fused_loss.launches, fused_loss_grad.launches, evolve_block.launches
+    monkeypatch.setattr(ds, "_LEG_WRAP", guard)
+    res = equation_search(X, y, options=opts, niterations=2, verbosity=0)
+    st = res.engine_stats
+    assert st["block"] == "kernel"
+    assert evolve_block.launches - b3 == st["iterations"] == 2
+    assert fused_loss.launches - b1 == st["score_calls"]
+    assert fused_loss_grad.launches - b2 == st["grad_calls"] >= 2
+    assert np.isfinite(min(m.loss for m in res.pareto_frontier))

@@ -24,7 +24,6 @@ frontier.
 """
 
 import contextlib
-import os
 
 import jax
 import numpy as np
@@ -281,15 +280,11 @@ def test_out_of_slice_options_name_their_item(kw, item):
         _opts(**kw)
 
 
-def test_out_of_slice_entry_points_name_their_item(monkeypatch):
+def test_out_of_slice_entry_points_name_their_item():
     with pytest.raises(NotImplementedError, match="ROADMAP.md, A, slice 5: fleet"):
         tds.fleet_search([])
     with pytest.raises(NotImplementedError, match="ROADMAP.md, A, slice 5: fleet"):
         tds.FleetLaneSpec(None, None)
-    X, y = _planted()
-    monkeypatch.setitem(os.environ, "SR_ENGINE_BLOCK", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, A, slice 3: the evolve block"):
-        T.equation_search(X, y, options=_opts(seed=0), niterations=1, verbosity=0)
 
 
 def test_device_mode_supported():
