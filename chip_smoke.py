@@ -19,14 +19,15 @@ JAX or of the JAX package. Phases, each of which raises on failure:
 3. kernel check of B2, the fused loss+gradient kernel
    (``fused_loss_grad``), the same way, at the device engine's
    constant-optimization shape (4,200 instances x 10,000 rows); then one
-   tree per built-in operator on U(-2, 2) rows through B4 and its plain
-   version, with the largest relative difference per operator;
+   tree per built-in operator on U(-2, 2) and U(-20, 20) rows through B4
+   and its plain version, which must give equal values on every row;
    kernel check of B3, the evolve block (``evolve_block``): after 1 and 8
    cycles from one seed its integer outputs equal its plain version's and
    its float outputs agree, at config3 width (100 islands x 100 members),
    at the quick-start shape, on the all-operator corpus and for every loss;
    a block of ENGINE_CYCLES cycles checked for its own consistency; and
-   kernel check of B4, the prediction matrix (``eval_trees_kernel``);
+   kernel check of B4, the prediction matrix (``eval_trees_kernel``),
+   every tree of both corpora held;
 4. the lockstep main path at full width: ``equation_search`` on config3
    (100 populations x 100 members), with every scoring dispatch counted as a
    B1 launch;
@@ -35,10 +36,9 @@ JAX or of the JAX package. Phases, each of which raises on failure:
    event leg; no B3 launch), then by default (the evolve leg is one B3
    launch per iteration); every B1 launch counted against the engine's
    scoring calls and every B2 launch against its gradient calls, the first
-   iteration's evolve leg run with host syncs made errors; then both
-   again for three iterations, every leg timed between synchronizations
-   and the last iteration's legs traced with torch.profiler (kernel time by
-   name, the device's idle share);
+   iteration's evolve leg run with host syncs made errors, every leg timed
+   between synchronizations and the last iteration's legs traced with
+   torch.profiler (kernel time by name, the device's idle share);
 6. the README quick start through ``SRRegressor`` on the card, under the
    lockstep scheduler, then twice under ``scheduler="device"`` with one
    seed, through B3 (the two frontiers must be identical).
@@ -68,7 +68,7 @@ CONFIG3_CYCLES = 100
 CONFIG3_OPS = dict(binary_operators=["+", "-", "*", "/"], unary_operators=["cos", "exp", "abs"])
 # the device engine at config3 width: depth cut to ENGINE_ITERATIONS
 # iterations of ENGINE_CYCLES cycles (the configuration's 550)
-ENGINE_ITERATIONS, ENGINE_CYCLES = 2, 100
+ENGINE_ITERATIONS, ENGINE_CYCLES = 3, 100
 # README quick start: 200 x 2, + - *, cos; README budget is 20 iterations,
 # cut to QUICKSTART_ITERATIONS (lockstep) and DEVICE_QUICKSTART_ITERATIONS
 # (each of the two device-engine runs) to fit the time limit.
@@ -583,12 +583,11 @@ def compare_block(tag, got, ref):
     return err
 
 
-def block_kernel_check(device, inexact=(), islands=100, rows=CONFIG3_ROWS):
+def block_kernel_check(device, islands=100, rows=CONFIG3_ROWS):
     """Phase 3: B3 against its plain version on the card, at config3 width
     (``islands`` x 100 members, ``rows`` rows). Integer equality needs
-    bit-identical scores, so the all-operator corpus leaves out the
-    operators of ``inexact`` (see operator_isolation). Returns the record
-    (without launches)."""
+    bit-identical scores, which rest on every built-in operator alone giving
+    equal values (operator_isolation). Returns the record (without launches)."""
     import numpy as np
     import torch
 
@@ -634,8 +633,7 @@ def block_kernel_check(device, inexact=(), islands=100, rows=CONFIG3_ROWS):
     qs = Options(binary_operators=["+", "-", "*"], unary_operators=["cos"], device=device.type)
     check("quick start", qs, Xq, yq, None, qs.populations)
     check("quick start weighted", qs, Xq, yq, wq, qs.populations)
-    all_ops = Options(binary_operators=[o for o in BINARY_OPS if o not in inexact],
-                      unary_operators=[o for o in UNARY_OPS if o not in inexact],
+    all_ops = Options(binary_operators=list(BINARY_OPS), unary_operators=list(UNARY_OPS),
                       maxsize=20, populations=islands // 5, population_size=100,
                       device=device.type)
     check("every operator", all_ops, X, y, None, islands // 5, seed=11)
@@ -653,7 +651,7 @@ def block_kernel_check(device, inexact=(), islands=100, rows=CONFIG3_ROWS):
         check(f"loss {name}", lo, Xs, ys, ws, 4, cycles=(8,), seed=13)
     print(f"block kernel check: {n_cases} cases equal to the plain version on every integer "
           f"output, max abs err of float outputs {max_err:.3e} (rtol {RTOL}, atol {ATOL}; "
-          f"all-operator corpus without {sorted(inexact) or 'nothing'})", flush=True)
+          f"all {len(BINARY_OPS) + len(UNARY_OPS)} operators in the all-operator corpus)", flush=True)
 
     # (b) a whole block of ENGINE_CYCLES cycles at config3 width: the
     # kernel's own consistency
@@ -738,21 +736,19 @@ def block_kernel_check(device, inexact=(), islands=100, rows=CONFIG3_ROWS):
     }
 
 
-def preds_kernel_check(device, inexact=(), rows=CONFIG3_ROWS):
+def preds_kernel_check(device, rows=CONFIG3_ROWS):
     """Phase 3: B4 (the prediction matrix) against ops/interp.eval_trees at
-    1024 trees x ``rows`` rows. Elementwise predictions amplify an ulp of
-    difference in one operator through the operators composed on it, so
-    trees holding an operator of ``inexact`` (not bit-identical alone, see
-    operator_isolation) are not held to RTOL: their largest relative
-    difference is printed. Returns the record (without launches)."""
-    import numpy as np
+    1024 trees x ``rows`` rows, every prediction within RTOL/ATOL with equal
+    non-finite positions. ``ms`` times the kernel's launch alone
+    (``eval_preds`` on programs already on the card); the entry point's
+    time, with its host packing and upload, is printed beside it. Returns
+    the record (without launches)."""
     import torch
 
     from symbolicregression_jl_tpu_torch import Options
-    from symbolicregression_jl_tpu_torch.ops.flat import flatten_trees
     from symbolicregression_jl_tpu_torch.ops.interp import eval_trees
     from symbolicregression_jl_tpu_torch.ops.interp_cuda import (
-        eval_trees_kernel, preds_work_counts, unpack_programs_fused,
+        eval_preds, eval_trees_kernel, preds_work_counts, unpack_programs_fused,
     )
     from symbolicregression_jl_tpu_torch.ops.operators import (
         BINARY_OPS, UNARY_OPS, resolve_operators,
@@ -764,42 +760,29 @@ def preds_kernel_check(device, inexact=(), rows=CONFIG3_ROWS):
     N = opts.max_nodes
     all_ops = resolve_operators(list(BINARY_OPS), list(UNARY_OPS))
     max_err = 0.0
-    notes = []
     for tag, ops, seed in (("config3", opts.operators, 1024), ("every operator", all_ops, 11)):
         prog, vals = random_programs(ops, 1024, N, CONFIG3_FEATURES, seed=seed)
         flat = unpack_programs_fused(prog, vals, ops)
         got = eval_trees_kernel(flat, X, ops)
         ref = eval_trees(flat, X, ops)
         torch.cuda.synchronize()
-        names = [o.name for o in ops.unary] + [o.name for o in ops.binary]
-        codes = [2 + k for k, n in enumerate(names) if n in inexact]
-        live = np.arange(N)[None, :] < prog[:, 4 * N][:, None]
-        held = ~(np.isin(prog[:, :N], codes) & live).any(1)
-        keep = torch.from_numpy(held).to(device)
-        max_err = max(max_err, compare(f"eval_preds {tag}", got[keep].reshape(-1),
-                                       ref[keep].reshape(-1)))
-        if not held.all():
-            g, r = got[~keep].double().cpu(), ref[~keep].double().cpu()
-            fin = torch.isfinite(g) & torch.isfinite(r)
-            rel = ((g - r).abs() / r.abs().clamp_min(1e-30))[fin]
-            notes.append(f"{tag}: {int((~held).sum())} trees holding {sorted(inexact)} not held, "
-                         f"largest relative difference {float(rel.max()):.3g}, "
-                         f"{int((torch.isfinite(g) != torch.isfinite(r)).sum())} values "
-                         f"finite in one only")
+        max_err = max(max_err, compare(f"eval_preds {tag}", got.reshape(-1), ref.reshape(-1)))
     prog, vals = random_programs(opts.operators, 1024, N, CONFIG3_FEATURES, seed=1024)
     flat = unpack_programs_fused(prog, vals, opts.operators)
+    prog_t, vals_t = torch.from_numpy(prog).to(device), torch.from_numpy(vals).to(device)
     saved = eval_trees_kernel.launches
-    ms = time_ms(lambda: eval_trees_kernel(flat, X, opts.operators))
+    ms = time_ms(lambda: eval_preds(prog_t, vals_t, X, opts.operators))
+    entry_ms = time_ms(lambda: eval_trees_kernel(flat, X, opts.operators))
     plain_ms = time_ms(lambda: eval_trees(flat, X, opts.operators), warmup=1, reps=20)
     eval_trees_kernel.launches = saved
     work = preds_work_counts(prog, rows, CONFIG3_FEATURES)
     bound_ops = work["operations"] / PEAK_F32_FLOPS * 1e3
     bound_bytes = work["bytes"] / PEAK_BYTES * 1e3
     print(f"eval_preds check: config3 and every-operator corpora (1024 trees x "
-          f"{rows} rows) equal eval_trees within rtol {RTOL}, max abs err "
-          f"{max_err:.3e} ({'; '.join(notes) or 'every tree held'}); timing (P=1024): "
-          f"kernel {ms:.4f} ms (with packing and upload), "
-          f"plain {plain_ms:.4f} ms, bound {max(bound_ops, bound_bytes):.5f} ms "
+          f"{rows} rows) equal eval_trees within rtol {RTOL}, atol {ATOL}, every tree held, "
+          f"max abs err {max_err:.3e}; timing (P=1024): kernel {ms:.4f} ms (programs on the "
+          f"card), entry point {entry_ms:.4f} ms (with host packing and upload), plain "
+          f"{plain_ms:.4f} ms, bound {max(bound_ops, bound_bytes):.5f} ms "
           f"({'bytes' if bound_bytes >= bound_ops else 'operations'})", flush=True)
     return {
         "name": "eval_preds",
@@ -818,9 +801,10 @@ def preds_kernel_check(device, inexact=(), rows=CONFIG3_ROWS):
 def operator_isolation(device, n_rows=10_000, spans=(2.0, 20.0)):
     """Phase 3: one-operator trees (each built-in operator on features drawn
     from U(-a, a), for each a in ``spans``) through B4 and through the plain
-    version; prints the largest relative difference per operator over rows
-    where both are finite, and the rows whose finiteness differs. Returns the
-    names of the operators whose single evaluation is not bit-identical."""
+    version. Every operator must give equal values on every row (NaN where
+    NaN): the kernels' exact comparisons (B3's integer outputs) rest on it.
+    Prints the largest relative difference per operator of any that
+    differs, and fails."""
     import numpy as np
     import torch
 
@@ -845,29 +829,26 @@ def operator_isolation(device, n_rows=10_000, spans=(2.0, 20.0)):
     kind[nu:, 1], feat[nu:, 1] = 2, 1
     kind[nu:, 2], op[nu:, 2], lhs[nu:, 2], rhs[nu:, 2], length[nu:] = 4, np.arange(nb), 0, 1, 3
     flat = FlatTrees(kind, op, lhs, rhs, feat, np.zeros((P, N), np.float32), length)
-    inexact = set()
+    names = [o.name for o in ops.unary] + [o.name for o in ops.binary]
     for a in spans:
         X = torch.from_numpy(
             np.random.default_rng(2).uniform(-a, a, (2, n_rows)).astype(np.float32)).to(device)
-        got = eval_trees_kernel(flat, X, ops).double().cpu()
-        ref = eval_trees(flat, X, ops).double().cpu()
-        rows = []
-        for k in range(P):
-            name = ops.unary[k].name if k < nu else ops.binary[k - nu].name
-            g, r = got[k], ref[k]
+        got = eval_trees_kernel(flat, X, ops).cpu()
+        ref = eval_trees(flat, X, ops).cpu()
+        same = (got == ref) | (got.isnan() & ref.isnan())
+        bad = []
+        for k in torch.nonzero(~same.all(1)).flatten().tolist():
+            g, r = got[k].double(), ref[k].double()
             fin = torch.isfinite(g) & torch.isfinite(r)
             rel = ((g - r).abs() / r.abs().clamp_min(1e-30))[fin]
-            nonfin = int((torch.isnan(g) != torch.isnan(r)).sum()
-                         + (torch.isinf(g) != torch.isinf(r)).sum())
-            rows.append((name, float(rel.max()) if rel.numel() else 0.0, nonfin))
-            if rows[-1][1] > 0 or nonfin:
-                inexact.add(name)
-        rows.sort(key=lambda t: -t[1])
-        print(f"operator isolation (one-operator trees on U(-{a:g}, {a:g}) rows, B4 vs plain): "
-              "largest relative difference per operator: "
-              + ", ".join(f"{n} {e:.3g}" + (f" ({m} rows non-finite in one only)" if m else "")
-                          for n, e, m in rows), flush=True)
-    return inexact
+            bad.append(f"{names[k]} ({int((~same[k]).sum())} rows, largest relative difference "
+                       f"{float(rel.max()) if rel.numel() else float('nan'):.3g})")
+        if bad:
+            _fail(f"operator isolation on U(-{a:g}, {a:g}) rows: B4 differs from the plain "
+                  f"version in {', '.join(bad)}")
+        print(f"operator isolation: all {P} built-in operators alone on {n_rows} rows from "
+              f"U(-{a:g}, {a:g}) equal the plain version on every row",
+              flush=True)
 
 
 @contextlib.contextmanager
@@ -892,11 +873,18 @@ def engine_path(device, lockstep=None, block=True, iterations=ENGINE_ITERATIONS,
                 cycles=ENGINE_CYCLES, rows=CONFIG3_ROWS, populations=100, population_size=100):
     """Phase 5: the device engine at config3 width, with the evolve block
     (the default: B3 runs the evolve leg, one launch per iteration) or with
-    ``SR_ENGINE_BLOCK=0`` (the event leg). Returns the launches
-    of B1, B2 and B3 in the run, and the ms per cycle and evals/s.
-    ``lockstep``: phase 4's numbers, printed beside the engine's."""
+    ``SR_ENGINE_BLOCK=0`` (the event leg). Every evolve and const-opt leg is
+    timed on the host clock between two synchronizations; the first evolve
+    leg runs with host syncs made errors; the last iteration's legs run
+    under torch.profiler (CUDA activity only), which gives the device time
+    of their kernels by name and the device's idle share inside the leg
+    (1 - device time / wall; the engine runs one stream, so its kernels do
+    not overlap). Returns the launches of B1, B2 and B3 in the run, and the
+    ms per cycle and evals/s. ``lockstep``: phase 4's numbers, printed
+    beside the engine's."""
     import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     import symbolicregression_jl_tpu_torch.models.device_search as ds
     from symbolicregression_jl_tpu_torch import Options, equation_search
@@ -911,21 +899,38 @@ def engine_path(device, lockstep=None, block=True, iterations=ENGINE_ITERATIONS,
     )
     legs = []
     checked = []
+    seen = {}
+    walls = {}
+    traces = {}
+    on_card = device.type == "cuda"
 
     def leg_wrap(name):
-        # the first iteration's evolve leg: any host sync raises
-        if name != "evolve" or checked or device.type != "cuda":
+        seen[name] = nth = seen.get(name, 0) + 1
+        if name == "readback":
             return contextlib.nullcontext()
-        checked.append(name)
+        no_sync = on_card and name == "evolve" and nth == 1
+        traced = nth == iterations
 
         @contextlib.contextmanager
-        def no_sync():
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                yield
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        return no_sync()
+        def timed():
+            acts = [ProfilerActivity.CUDA if on_card else ProfilerActivity.CPU]
+            with (profile(activities=acts) if traced else contextlib.nullcontext()) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if no_sync:
+                    checked.append(name)
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    yield
+                finally:
+                    if no_sync:
+                        torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            walls.setdefault(name, []).append(wall)
+            if traced:
+                traces[name] = (wall, prof)
+        return timed()
 
     saved = ds._DISPATCH_HOOK, ds._LEG_WRAP
     ds._DISPATCH_HOOK, ds._LEG_WRAP = legs.append, leg_wrap
@@ -944,7 +949,7 @@ def engine_path(device, lockstep=None, block=True, iterations=ENGINE_ITERATIONS,
         _fail("the device engine did not select the kernels")
     if st["block"] != ("kernel" if block else None):
         _fail(f"the evolve leg ran {st['block']!r}, not the {leg_name}")
-    if device.type == "cuda" and not checked:
+    if on_card and not checked:
         _fail("the evolve leg ran without the host-sync check")
     if b1 != st["score_calls"] or b1 == 0:
         _fail(f"{b1} B1 launches for {st['score_calls']} engine scoring calls")
@@ -954,6 +959,8 @@ def engine_path(device, lockstep=None, block=True, iterations=ENGINE_ITERATIONS,
         _fail(f"{b3} B3 launches in {st['iterations']} iterations ({leg_name})")
     if legs != ["evolve", "const_opt", "readback"] * iterations:
         _fail(f"legs per iteration: {legs}")
+    if sorted(traces) != ["const_opt", "evolve"]:
+        _fail(f"the last iteration's legs were not all traced: {sorted(traces)}")
     front = res.pareto_frontier
     if not front or not all(np.isfinite(m.loss) for m in front):
         _fail("device-engine frontier is empty or not finite")
@@ -964,7 +971,8 @@ def engine_path(device, lockstep=None, block=True, iterations=ENGINE_ITERATIONS,
     stats = {"ms_per_cycle": evolve_s / n_cycles * 1e3,
              "evals_per_s": res.num_evals / res.iteration_seconds}
     print(f"config3 device engine, {leg_name}: {populations}x{population_size}, {rows} rows, "
-          f"{iterations} iterations x {cycles} cycles (cut from 550): wall {wall:.3f} s (set-up "
+          f"{iterations} iterations x {cycles} cycles (cut from 550; the last under "
+          f"torch.profiler): wall {wall:.3f} s (set-up "
           f"{res.setup_seconds:.3f} s, main loop {res.iteration_seconds:.3f} s); per leg, "
           f"device s (CUDA events) / host s: evolve {dev_s.get('evolve', 0):.4f} / "
           f"{host_s['evolve']:.4f}, const-opt {dev_s.get('const_opt', 0):.3f} / "
@@ -974,85 +982,29 @@ def engine_path(device, lockstep=None, block=True, iterations=ENGINE_ITERATIONS,
           f"calls, B2 {b2} launches = {st['grad_calls']} gradient calls, B3 {b3} launches; "
           f"first evolve leg made no host sync; frontier {len(front)} members, best loss "
           f"{min(m.loss for m in front):.6g}", flush=True)
+    print(f"legs, config3 device engine ({leg_name}), host ms between synchronizations per "
+          "iteration: " + "; ".join(f"{n} " + ", ".join(f"{w * 1e3:.3f}" for w in ws)
+                                    for n, ws in walls.items()), flush=True)
+    for name, (lwall, prof) in traces.items():
+        kern = {}
+        for ev in prof.key_averages():
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+            if dev_us > 0:
+                kern[ev.key] = kern.get(ev.key, 0.0) + dev_us * 1e-6
+        busy = sum(kern.values())
+        top = sorted(kern.items(), key=lambda kv: -kv[1])[:5]
+        idle = f"{1 - busy / lwall:.1%}" if busy > 0 else "not measured (no device time traced)"
+        print(f"profile, config3 device engine ({leg_name}), iteration {iterations} {name} leg: "
+              f"wall {lwall * 1e3:.3f} ms, device time {busy * 1e3:.3f} ms in {len(kern)} "
+              f"kernel names, device idle {idle}; largest: "
+              + ", ".join(f"{k[:48]} {v * 1e3:.3f} ms" for k, v in top), flush=True)
     if lockstep is not None:
         print(f"config3, device engine ({leg_name}) vs lockstep: "
               f"{stats['ms_per_cycle']:.4f} vs {lockstep['ms_per_cycle']:.2f} ms/cycle, "
               f"{stats['evals_per_s']:.4g} vs {lockstep['evals_per_s']:.4g} evals/s", flush=True)
     return b1, b2, b3, stats
-
-
-def leg_profile(device, block=True, iterations=3, cycles=ENGINE_CYCLES, rows=CONFIG3_ROWS,
-                populations=100, population_size=100):
-    """Where the time goes in the config3 device engine. Every evolve and
-    const-opt leg is timed on the host clock between two synchronizations;
-    the last iteration's legs also run under torch.profiler (CUDA activity
-    only), which gives the device time of their kernels by name and the
-    device's idle share inside the leg (1 - device time / wall; the engine
-    runs one stream, so its kernels do not overlap)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    import symbolicregression_jl_tpu_torch.models.device_search as ds
-    from symbolicregression_jl_tpu_torch import Options, equation_search
-
-    X, y = config3_data(n_rows=rows)
-    options = Options(
-        populations=populations, population_size=population_size, maxsize=20,
-        ncycles_per_iteration=cycles, seed=0, save_to_file=False, progress=False,
-        device=device.type, scheduler="device", **CONFIG3_OPS,
-    )
-    seen = {}
-    walls = {}
-    report = {}
-
-    def leg_wrap(name):
-        seen[name] = seen.get(name, 0) + 1
-        if name == "readback":
-            return contextlib.nullcontext()
-        traced = seen[name] == iterations
-
-        @contextlib.contextmanager
-        def timed():
-            acts = [ProfilerActivity.CUDA if device.type == "cuda" else ProfilerActivity.CPU]
-            with (profile(activities=acts) if traced else contextlib.nullcontext()) as prof:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                yield
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            walls.setdefault(name, []).append(wall)
-            if traced:
-                kern = {}
-                for ev in prof.key_averages():
-                    dev_us = getattr(ev, "self_device_time_total", None)
-                    if dev_us is None:
-                        dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-                    if dev_us > 0:
-                        kern[ev.key] = kern.get(ev.key, 0.0) + dev_us * 1e-6
-                report[name] = (wall, kern)
-        return timed()
-
-    saved = ds._LEG_WRAP
-    ds._LEG_WRAP = leg_wrap
-    try:
-        with engine_block_env(block):
-            equation_search(X, y, options=options, niterations=iterations, verbosity=0)
-    finally:
-        ds._LEG_WRAP = saved
-    what = "block" if block else "event leg"
-    print(f"legs, config3 device engine ({what}), {iterations} iterations x {cycles} cycles, "
-          "host ms between synchronizations per iteration: "
-          + "; ".join(f"{n} " + ", ".join(f"{w * 1e3:.3f}" for w in ws)
-                      for n, ws in walls.items()), flush=True)
-    for name, (wall, kern) in report.items():
-        busy = sum(kern.values())
-        top = sorted(kern.items(), key=lambda kv: -kv[1])[:5]
-        idle = f"{1 - busy / wall:.1%}" if busy > 0 else "not measured (no device time traced)"
-        print(f"profile, config3 device engine ({what}), iteration {iterations} {name} leg: "
-              f"wall {wall * 1e3:.3f} ms, device time {busy * 1e3:.3f} ms in {len(kern)} kernel "
-              f"names, device idle {idle}; largest: "
-              + ", ".join(f"{k[:48]} {v * 1e3:.3f} ms" for k, v in top), flush=True)
-    return walls, report
 
 
 def quick_start_device(device, niterations=DEVICE_QUICKSTART_ITERATIONS):
@@ -1135,14 +1087,12 @@ def main() -> int:
 
     b1 = kernel_check(device)
     b2 = grad_kernel_check(device)
-    inexact = operator_isolation(device)
-    b3 = block_kernel_check(device, inexact)
-    b4 = preds_kernel_check(device, inexact)
+    operator_isolation(device)
+    b3 = block_kernel_check(device)
+    b4 = preds_kernel_check(device)
     lockstep_b1, lockstep_b2, lockstep_stats = main_path(device)
     event_b1, event_b2, event_b3, _ = engine_path(device, lockstep_stats, block=False)
     engine_b1, engine_b2, engine_b3, _ = engine_path(device, lockstep_stats, block=True)
-    leg_profile(device, block=True)
-    leg_profile(device, block=False)
     b1["launches_by_path"] = {"lockstep": lockstep_b1, "device": engine_b1,
                               "device SR_ENGINE_BLOCK=0": event_b1}
     b2["launches_by_path"] = {"lockstep": lockstep_b2, "device": engine_b2,

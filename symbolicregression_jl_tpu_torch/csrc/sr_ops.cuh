@@ -61,7 +61,9 @@ SR_HD float gamma_(float x) {
   const float ax = x < 0.0f ? 1.0f - x : x;
   const float pos = expf(lgammaf(ax > 0.0f ? ax : 1.0f));
   const float sin_pix = sinf(kPi * x);
-  const float refl = kPi / (sin_pix * pos);
+  // torch evaluates the plain version's `pi / den` as reciprocal(den) * pi
+  // (Tensor.__rtruediv__); a true division would differ by an ulp
+  const float refl = (1.0f / (sin_pix * pos)) * kPi;
   float out = x < 0.0f ? refl : expf(lgammaf(x > 0.0f ? x : 1.0f));
   if (x == floorf(x)) out = x > 0.0f ? out : nan_();
   if (isnan_(x)) out = nan_();

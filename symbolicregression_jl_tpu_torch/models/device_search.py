@@ -467,19 +467,20 @@ class _LegTimer:
     def leg(self, name: str):
         _count_dispatch(name)
         wrap = _LEG_WRAP(name) if _LEG_WRAP is not None else contextlib.nullcontext()
-        start = end = None
-        if self.cuda:
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
-                enable_timing=True
-            )
-            start.record()
-        t0 = time.perf_counter()
+        # timed inside the wrap: what the wrap itself does is not the leg's
         with wrap:
+            start = end = None
+            if self.cuda:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True
+                )
+                start.record()
+            t0 = time.perf_counter()
             yield
-        self.host[name] = self.host.get(name, 0.0) + time.perf_counter() - t0
-        if self.cuda:
-            end.record()
-            self.events.setdefault(name, []).append((start, end))
+            self.host[name] = self.host.get(name, 0.0) + time.perf_counter() - t0
+            if self.cuda:
+                end.record()
+                self.events.setdefault(name, []).append((start, end))
 
     def device_seconds(self) -> dict:
         if not self.cuda:

@@ -60,6 +60,16 @@ class SrBlockCfg(ctypes.Structure):
     )
 
 
+#: (kernel argtypes, smem argtypes): cfg, threads, the 6 population inputs,
+#: fnorm, iscal, fscal, X, y, w, the 11 outputs, stream; smem: cfg, threads
+_SIGNATURE = ([SrBlockCfg, ctypes.c_int] + [ctypes.c_void_p] * 24, [SrBlockCfg, ctypes.c_int])
+
+
+def kernel_lib() -> ctypes.CDLL:
+    """B3's library, built at first use, with its entry points typed."""
+    return build("evolve_block", _SIGNATURE)
+
+
 def _make_cfg(cfg: EvoConfig, opset: OperatorSet, loss_elem, F: int, R: int, ldx: int):
     optab = kernel_op_table(opset)
     spec = kernel_loss_spec(loss_elem)
@@ -172,7 +182,7 @@ def evolve_block(words, consts, length, loss, score, birth, fnorm, seed, step0, 
             raise ValueError(f"evolve_block: {name} must be a one-element tensor on {dev}")
     if R == 0:
         raise ValueError("evolve_block: no rows")
-    lib = build("evolve_block")
+    lib = kernel_lib()
     c = _make_cfg(cfg, opset, loss_elem, F, R, X.stride(0))
     threads = _geometry(lib, c)
     iscal = torch.stack([seed.reshape(()).to(torch.int64), step0.reshape(()).to(torch.int64),

@@ -29,8 +29,9 @@ with a plain C interface, at first use, under ``_build/`` beside the package
 - B4, ``eval_trees_kernel`` (``csrc/eval_preds.cu``), replaces
   ``interp_pallas.py:73`` (``_make_kernel`` via ``_eval_pallas``): B1's
   forward pass writing the prediction matrix [P, R] instead of a loss. Its
-  plain version is ``ops/interp.eval_trees``. As in the JAX package, only
-  tests (and ``chip_smoke.py``) call it.
+  plain version is ``ops/interp.eval_trees``; ``eval_preds`` launches it on
+  packed programs already on the card. As in the JAX package, only tests
+  (and ``chip_smoke.py``) call it.
 
 The evolve block B3 (``csrc/evolve_block.cu``) is built here with the others;
 its wrapper is ``ops/evolve_block_cuda.evolve_block``.
@@ -63,6 +64,7 @@ __all__ = [
     "fused_loss_grad_reference",
     "plain_losses",
     "eval_trees_kernel",
+    "eval_preds",
     "DiffLoss",
     "pack_programs_fused",
     "unpack_programs_fused",
@@ -94,6 +96,7 @@ NVCC_FLAGS = (
 #: per kernel name, what its build did: library path, seconds, ptxas report
 BUILD_INFO: dict = {}
 _LIBS: dict = {}
+_SIGNED: set = set()
 _THREADS = 256
 _GRAD_THREADS = 128
 _SMEM_LIMIT = 227 * 1024
@@ -236,33 +239,28 @@ def _nvcc() -> str:
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> None:
-    vp, ci, cf, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    fn = getattr(lib, f"sr_{name}")
-    smem = getattr(lib, f"sr_{name}_smem")
-    smem.restype = ctypes.c_size_t
-    fn.restype = ci
-    if name == "evolve_block":
-        from .evolve_block_cuda import SrBlockCfg
-
-        # cfg, threads, 6 population inputs, fnorm, iscal, fscal, X, y, w,
-        # 11 outputs, stream
-        fn.argtypes = [SrBlockCfg, ci] + [vp] * 12 + [vp] * 11 + [vp]
-        smem.argtypes = [SrBlockCfg, ci]
-    elif name == "eval_preds":
-        # prog, prog_ld, vals, optab, n_ops, X, ldx, P, N, R, threads,
-        # rows_per_block, n_chunks, preds, stream
-        fn.argtypes = [vp, ci, vp, vp, ci, vp, cl, ci, ci, ci, ci, ci, ci, vp, vp]
-        smem.argtypes = [ci, ci, ci, ci]
-    else:
-        # prog, prog_ld, vals, optab, n_ops, X, ldx, y, w, P, N, R, threads,
-        # rows_per_block, n_chunks, loss_id, q0..q3, partials, out[, grads],
-        # stream
-        common = [vp, ci, vp, vp, ci, vp, cl, vp, vp, ci, ci, ci, ci, ci, ci, ci, cf, cf, cf,
-                  cf, vp, vp]
-        fn.argtypes = common + ([vp, vp] if name == "fused_loss_grad" else [vp])
-        smem.argtypes = [ci, ci, ci, ci]
-    lib.sr_cuda_error_string.argtypes = [ci]
+    """What every kernel library shares: the return types and the error
+    string. Each wrapper gives its own argument types through ``build``."""
+    getattr(lib, f"sr_{name}").restype = ctypes.c_int
+    getattr(lib, f"sr_{name}_smem").restype = ctypes.c_size_t
+    lib.sr_cuda_error_string.argtypes = [ctypes.c_int]
     lib.sr_cuda_error_string.restype = ctypes.c_char_p
+
+
+_vp, _ci, _cf, _cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+#: (kernel argtypes, smem argtypes) of this module's kernels. B1/B2: prog,
+#: prog_ld, vals, optab, n_ops, X, ldx, y, w, P, N, R, threads,
+#: rows_per_block, n_chunks, loss_id, q0..q3, partials, out[, grads], stream.
+#: B4: prog, prog_ld, vals, optab, n_ops, X, ldx, P, N, R, threads,
+#: rows_per_block, n_chunks, preds, stream. smem: N, threads, prog_ld, n_ops.
+_LOSS_ARGS = [_vp, _ci, _vp, _vp, _ci, _vp, _cl, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci,
+              _cf, _cf, _cf, _cf, _vp, _vp]
+_SIGNATURES = {
+    "fused_loss": (_LOSS_ARGS + [_vp], [_ci] * 4),
+    "fused_loss_grad": (_LOSS_ARGS + [_vp, _vp], [_ci] * 4),
+    "eval_preds": ([_vp, _ci, _vp, _vp, _ci, _vp, _cl, _ci, _ci, _ci, _ci, _ci, _ci, _vp, _vp],
+                   [_ci] * 4),
+}
 
 
 def _lib_path(name: str) -> Path:
@@ -308,10 +306,17 @@ def build_all(names=tuple(SOURCES)) -> dict:
     return {name: _LIBS[name] for name in names}
 
 
-def build(name: str = "fused_loss") -> ctypes.CDLL:
-    """The loaded library of one kernel, built at first use."""
+def build(name: str = "fused_loss", signature=None) -> ctypes.CDLL:
+    """The loaded library of one kernel, built at first use. ``signature``,
+    (kernel argtypes, smem argtypes), is set on its two entry points the
+    first time it is given."""
     lib = _LIBS.get(name)
-    return lib if lib is not None else build_all((name,))[name]
+    if lib is None:
+        lib = build_all((name,))[name]
+    if signature is not None and name not in _SIGNED:
+        getattr(lib, f"sr_{name}").argtypes, getattr(lib, f"sr_{name}_smem").argtypes = signature
+        _SIGNED.add(name)
+    return lib
 
 
 def _geometry(smem_fn, P: int, N: int, R: int, prog_ld: int, n_ops: int,
@@ -361,7 +366,7 @@ def _checked_launch_args(kernel: str, prog, vals, X, y, w, opset, loss_elem):
 
 def _launch(kernel: str, prog, vals, X, y, w, optab, spec, P, N, R, prog_ld, outs,
             n_partials: int, max_threads: int) -> None:
-    lib = build(kernel)
+    lib = build(kernel, _SIGNATURES[kernel])
     n_ops = len(optab)
     threads, rows_per_block, n_chunks = _geometry(
         getattr(lib, f"sr_{kernel}_smem"), P, N, R, prog_ld, n_ops, max_threads
@@ -386,12 +391,27 @@ def _launch(kernel: str, prog, vals, X, y, w, optab, spec, P, N, R, prog_ld, out
 
 
 def eval_trees_kernel(flat: FlatTrees, X, opset: OperatorSet) -> torch.Tensor:
-    """B4: predictions [P, R] f32 of a flat batch (numpy) on X [F, R].
+    """B4's entry point: predictions [P, R] f32 of a flat batch (numpy) on
+    X [F, R].
 
-    A CPU tensor takes the plain version, ``ops/interp.eval_trees``. A CUDA
-    tensor launches the kernel on the current stream (no synchronisation)
-    or raises."""
+    A CPU tensor takes the plain version, ``ops/interp.eval_trees``. On a
+    CUDA tensor it packs the batch, copies it to X's device and runs
+    ``eval_preds``."""
     if X.device.type == "cpu":
+        return eval_trees(flat, X, opset)
+    prog, vals = pack_programs_fused(flat, opset)
+    return eval_preds(torch.from_numpy(prog).to(X.device), torch.from_numpy(vals).to(X.device),
+                      X, opset)
+
+
+def eval_preds(prog, vals, X, opset: OperatorSet) -> torch.Tensor:
+    """B4 on packed programs (``pack_programs_fused``) already on X's
+    device: predictions [P, R] f32. A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel on the current stream (no
+    synchronisation) or raises. Launches count on
+    ``eval_trees_kernel.launches``."""
+    if X.device.type == "cpu":
+        flat = unpack_programs_fused(prog.numpy(), vals.numpy(), opset)
         return eval_trees(flat, X, opset)
     if X.device.type != "cuda":
         raise ValueError(f"eval_trees_kernel: unsupported device {X.device}")
@@ -400,17 +420,19 @@ def eval_trees_kernel(flat: FlatTrees, X, opset: OperatorSet) -> torch.Tensor:
         raise ValueError("eval_trees_kernel: the operator set has no kernel implementation")
     if X.dtype != torch.float32 or not X.is_contiguous() or X.dim() != 2:
         raise ValueError("eval_trees_kernel: X must be contiguous float32 [F, R]")
-    prog_np, vals_np = pack_programs_fused(flat, opset)
     dev = X.device
-    prog = torch.from_numpy(prog_np).to(dev)
-    vals = torch.from_numpy(vals_np).to(dev)
     P, prog_ld = prog.shape
     N = vals.shape[1]
     R = X.shape[1]
+    for name, t, dt in (("prog", prog, torch.int32), ("vals", vals, torch.float32)):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"eval_trees_kernel: {name} must be contiguous {dt} on {dev}")
+    if prog_ld != 4 * N + 1 or vals.shape[0] != P:
+        raise ValueError("eval_trees_kernel: inconsistent shapes")
     preds = torch.empty((P, R), dtype=torch.float32, device=dev)
     if P == 0 or R == 0:
         return preds
-    lib = build("eval_preds")
+    lib = build("eval_preds", _SIGNATURES["eval_preds"])
     threads, rows_per_block, n_chunks = _geometry(lib.sr_eval_preds_smem, P, N, R, prog_ld,
                                                   len(optab))
     optab_t = _optab_tensor(optab, dev)

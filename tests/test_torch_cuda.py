@@ -14,8 +14,8 @@ for losses near zero) and their ok flags are equal. B2's constant
 gradients: rtol 1e-4 plus 1e-6 times the largest gradient of the same tree,
 with equal non-finite positions. B3 (the evolve block) against its plain
 version: every integer output equal, float outputs to the same rtol. B4
-(the prediction matrix): predictions to rtol 1e-5 on operators whose single
-evaluation is bit-identical in both (gamma differs by an ulp).
+(the prediction matrix): predictions to rtol 1e-5 on every operator, and
+each operator alone equal to the plain version on every row.
 """
 
 import numpy as np
@@ -258,14 +258,13 @@ def _block_inputs(device, ncycles, weighted, populations=6, population_size=20):
 ], ids=["1-plain", "8-plain", "1-weighted", "8-weighted", "population-in-device-memory"])
 def test_block_kernel_matches_plain_version(cuda, ncycles, weighted, size):
     from symbolicregression_jl_tpu_torch.ops.evolve_block_cuda import (
-        _geometry, _make_cfg, evolve_block, evolve_block_reference,
+        _geometry, _make_cfg, evolve_block, evolve_block_reference, kernel_lib,
     )
-    from symbolicregression_jl_tpu_torch.ops.interp_cuda import build
 
     args = _block_inputs(cuda, ncycles, weighted, 2 if size > 100 else 6, size)
     cfg, X = args[-3], args[11]
     c = _make_cfg(cfg, *args[-2:], X.shape[0], X.shape[1], X.stride(0))
-    _geometry(build("evolve_block"), c)
+    _geometry(kernel_lib(), c)
     # 1100 members do not fit in shared memory beside the lanes: the kernel
     # keeps that island in the output arrays
     assert c.use_smem == (1 if size < 100 else 0)
@@ -311,9 +310,8 @@ def test_preds_kernel_matches_plain_version(cuda):
     from symbolicregression_jl_tpu_torch.ops.interp import eval_trees
     from symbolicregression_jl_tpu_torch.ops.interp_cuda import unpack_programs_fused
 
-    ops = [o for o in UNARY_OPS if o != "gamma"]
-    opts = Options(binary_operators=list(BINARY_OPS), unary_operators=ops, maxsize=20,
-                   device="cuda")
+    opts = Options(binary_operators=list(BINARY_OPS), unary_operators=list(UNARY_OPS),
+                   maxsize=20, device="cuda")
     prog, vals, X, _, _ = _inputs(opts, 300, 777, seed=3, device=cuda)
     flat = unpack_programs_fused(prog.cpu().numpy(), vals.cpu().numpy(), opts.operators)
     before = eval_trees_kernel.launches
@@ -327,6 +325,35 @@ def test_preds_kernel_matches_plain_version(cuda):
     np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
     m = np.isfinite(want)
     np.testing.assert_allclose(got[m], want[m], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("span", [2.0, 20.0])
+def test_every_operator_alone_equals_plain_version(cuda, span):
+    """One tree per built-in operator, on rows from U(-span, span), through
+    B4 and its plain version: equal on every row, NaN where NaN. (gamma's
+    reflection once differed by an ulp: PyTorch evaluates the plain
+    version's ``pi / den`` as ``reciprocal(den) * pi``.)"""
+    from symbolicregression_jl_tpu_torch.ops.flat import FlatTrees
+    from symbolicregression_jl_tpu_torch.ops.interp import eval_trees
+    from symbolicregression_jl_tpu_torch.ops.operators import resolve_operators
+
+    ops = resolve_operators(list(BINARY_OPS), list(UNARY_OPS))
+    nu, nb = ops.n_unary, ops.n_binary
+    P, N = nu + nb, 3
+    kind, op, lhs, rhs, feat = (np.zeros((P, N), np.int32) for _ in range(5))
+    kind[:, 0] = 2
+    kind[:nu, 1], op[:nu, 1] = 3, np.arange(nu)
+    kind[nu:, 1], feat[nu:, 1] = 2, 1
+    kind[nu:, 2], op[nu:, 2], lhs[nu:, 2], rhs[nu:, 2] = 4, np.arange(nb), 0, 1
+    length = np.where(np.arange(P) < nu, 2, 3).astype(np.int32)
+    flat = FlatTrees(kind, op, lhs, rhs, feat, np.zeros((P, N), np.float32), length)
+    X = torch.from_numpy(np.random.default_rng(2).uniform(-span, span, (2, 4096))
+                         .astype(np.float32)).to(cuda)
+    got = eval_trees_kernel(flat, X, ops).cpu()
+    want = eval_trees(flat, X, ops).cpu()
+    same = (got == want) | (got.isnan() & want.isnan())
+    names = [o.name for o in ops.unary] + [o.name for o in ops.binary]
+    assert [names[k] for k in torch.nonzero(~same.all(1)).flatten().tolist()] == []
 
 
 def test_device_engine_on_the_block(cuda, monkeypatch):

@@ -520,6 +520,10 @@ def test_wrappers_raise_on_a_meta_tensor():
     flat = flatten_trees(_trees(4, N, 0), N)
     with pytest.raises(ValueError, match="unsupported device"):
         interp_cuda.eval_trees_kernel(flat, X, opts.operators)
+    prog, vals = interp_cuda.pack_programs_fused(flat, opts.operators)
+    with pytest.raises(ValueError, match="unsupported device"):
+        interp_cuda.eval_preds(torch.from_numpy(prog).to("meta"),
+                               torch.from_numpy(vals).to("meta"), X, opts.operators)
 
 
 def test_eval_preds_plain_version_matches_jax():
@@ -547,3 +551,17 @@ def test_eval_preds_plain_version_matches_jax():
     np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
     fin = np.isfinite(want)
     np.testing.assert_allclose(got[fin], want[fin], rtol=1e-4, atol=1e-5)
+
+
+def test_eval_preds_takes_the_plain_version_on_the_cpu():
+    """B4's launcher on packed programs: on CPU tensors it is the plain
+    version, equal to eval_trees on the same batch, and launches nothing."""
+    flat = flatten_trees(_trees(24, 16, 3), 16)
+    X = torch.from_numpy(np.random.default_rng(3).normal(size=(2, 101)).astype(np.float32))
+    prog, vals = interp_cuda.pack_programs_fused(flat, OPSET)
+    before = interp_cuda.eval_trees_kernel.launches
+    got = interp_cuda.eval_preds(torch.from_numpy(prog), torch.from_numpy(vals), X, OPSET)
+    want = interp_cuda.eval_trees_kernel(flat, X, OPSET)
+    assert interp_cuda.eval_trees_kernel.launches == before
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
