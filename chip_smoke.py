@@ -15,7 +15,9 @@ JAX or of the JAX package. Phases, each of which raises on failure:
    its plain PyTorch version on the card, at the main paths' shapes
    (config3: 10,000 rows x 5 features, maxsize 20), weighted and
    unweighted, on minibatches, on a corpus touching every built-in
-   operator, and for every built-in real loss; timings with CUDA events;
+   operator, and for every built-in real loss; timings with CUDA events at
+   the lockstep scoring shape (1024 programs) and the device engine's
+   constant-optimization shape (4,200), with slot evaluations per second;
 3. kernel check of B2, the fused loss+gradient kernel
    (``fused_loss_grad``), the same way, at the device engine's
    constant-optimization shape (4,200 instances x 10,000 rows); then one
@@ -25,7 +27,10 @@ JAX or of the JAX package. Phases, each of which raises on failure:
    cycles from one seed its integer outputs equal its plain version's and
    its float outputs agree, at config3 width (100 islands x 100 members),
    at the quick-start shape, on the all-operator corpus and for every loss;
-   a block of ENGINE_CYCLES cycles checked for its own consistency; and
+   a block of ENGINE_CYCLES cycles checked for its own consistency; its
+   timing at 1 and ENGINE_CYCLES cycles on 256, 2,500 and 10,000 rows, whose
+   fitted line splits a cycle into what scales with rows (scoring) and what
+   does not (stages 1-2, replacement, syncs); and
    kernel check of B4, the prediction matrix (``eval_trees_kernel``),
    every tree of both corpora held;
 4. the lockstep main path at full width: ``equation_search`` on config3
@@ -52,6 +57,7 @@ port beside this file, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import statistics
@@ -69,6 +75,12 @@ CONFIG3_OPS = dict(binary_operators=["+", "-", "*", "/"], unary_operators=["cos"
 # the device engine at config3 width: depth cut to ENGINE_ITERATIONS
 # iterations of ENGINE_CYCLES cycles (the configuration's 550)
 ENGINE_ITERATIONS, ENGINE_CYCLES = 3, 100
+# B1 is timed at the lockstep scoring shape and at the device engine's
+# constant-optimization shape (K*S = 1,400 x 3 instances); B3's row sweep
+# times the same config3 block at these widths: the fitted intercept is the
+# per-cycle cost that does not scale with rows, the slope the scoring
+B1_TIMED_P = (1024, 4200)
+B3_SWEEP_ROWS = (256, 2500, 10_000)
 # README quick start: 200 x 2, + - *, cos; README budget is 20 iterations,
 # cut to QUICKSTART_ITERATIONS (lockstep) and DEVICE_QUICKSTART_ITERATIONS
 # (each of the two device-engine runs) to fit the time limit.
@@ -104,7 +116,14 @@ def config3_data(n_rows=CONFIG3_ROWS, n_features=CONFIG3_FEATURES, seed=0):
 
 
 def random_programs(opset, n_trees, max_nodes, n_features, seed, max_len=10):
-    """A packed batch of random trees over ``opset`` (numpy)."""
+    """A packed batch of random trees over ``opset`` (numpy; fresh copies of
+    a batch made once per argument tuple)."""
+    prog, vals = _random_programs(opset, n_trees, max_nodes, n_features, seed, max_len)
+    return prog.copy(), vals.copy()
+
+
+@functools.lru_cache(maxsize=None)
+def _random_programs(opset, n_trees, max_nodes, n_features, seed, max_len):
     import numpy as np
 
     from symbolicregression_jl_tpu_torch.models.mutation_functions import gen_random_tree
@@ -186,9 +205,7 @@ def kernel_check(device):
 
     from symbolicregression_jl_tpu_torch import Options
     from symbolicregression_jl_tpu_torch.ops import losses as L
-    from symbolicregression_jl_tpu_torch.ops.interp_cuda import (
-        fused_loss, fused_loss_reference, work_counts,
-    )
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import fused_loss, fused_loss_reference
     from symbolicregression_jl_tpu_torch.ops.operators import (
         BINARY_OPS, UNARY_OPS, resolve_operators,
     )
@@ -261,33 +278,60 @@ def kernel_check(device):
     print(f"kernel check: {n_cases} cases, max abs err {max_err:.3e} "
           f"(rtol {RTOL}, atol {ATOL})", flush=True)
 
-    # timing at the main path's scoring shape: 1024 candidates x 10k rows
-    prog_np, vals_np = random_programs(opset, 1024, N, CONFIG3_FEATURES, seed=1024)
-    prog = torch.from_numpy(prog_np).to(device)
-    vals = torch.from_numpy(vals_np).to(device)
-    saved = fused_loss.launches
-    ms = time_ms(lambda: fused_loss(prog, vals, X, y, None, opset, l2))
-    plain_ms = time_ms(lambda: fused_loss_reference(prog, vals, X, y, None, opset, l2),
-                       warmup=1, reps=20)
-    fused_loss.launches = saved  # timing launches are not the main path's
-    work = work_counts(prog_np, CONFIG3_ROWS, CONFIG3_FEATURES, weighted=False)
-    bound_ops = work["operations"] / PEAK_F32_FLOPS * 1e3
-    bound_bytes = work["bytes"] / PEAK_BYTES * 1e3
-    print(f"fused_loss timing (P=1024, R={CONFIG3_ROWS}, N={N}): kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, slot evals {work['slot_evals']}, "
-          f"{work['slot_evals'] / (ms * 1e-3):.4g} slot-evals/s", flush=True)
+    # timing at the lockstep scoring shape (1024 candidates x 10k rows) and
+    # at the device engine's constant-optimization shape (K*S = 4,200)
+    t1024, t4200 = (b1_timing(device, P, plain=P == 1024) for P in B1_TIMED_P)
     return {
         "name": "fused_loss",
         "route": "cuda",
         "source": "symbolicregression_jl_tpu_torch/csrc/fused_loss.cu",
         "replaces": "symbolicregression_jl_tpu/ops/interp_pallas.py:258",
         "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bound_ops, bound_bytes),
-        "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+        "ms": t1024["ms"],
+        "plain_ms": t1024["plain_ms"],
+        "bound_ms": t1024["bound_ms"],
+        "bound_by": t1024["bound_by"],
         "library_ms": None,
+        "ms_p4200": t4200["ms"],
     }
+
+
+def b1_timing(device, P, plain=False):
+    """B1 on P random config3 programs (seed P) x 10k rows, unweighted: the
+    median kernel ms, slot evaluations per second, the bound and, with
+    ``plain``, the plain version's ms. Timing launches are not counted."""
+    import torch
+
+    from symbolicregression_jl_tpu_torch import Options
+    from symbolicregression_jl_tpu_torch.ops import losses as L
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import (
+        fused_loss, fused_loss_reference, work_counts,
+    )
+
+    opts = Options(maxsize=20, device=device.type, **CONFIG3_OPS)
+    opset, N = opts.operators, opts.max_nodes
+    Xn, yn = config3_data()
+    X, y = torch.from_numpy(Xn).to(device), torch.from_numpy(yn).to(device)
+    prog_np, vals_np = random_programs(opset, P, N, CONFIG3_FEATURES, seed=P)
+    prog = torch.from_numpy(prog_np).to(device)
+    vals = torch.from_numpy(vals_np).to(device)
+    l2 = L.L2DistLoss
+    saved = fused_loss.launches
+    ms = time_ms(lambda: fused_loss(prog, vals, X, y, None, opset, l2))
+    plain_ms = (time_ms(lambda: fused_loss_reference(prog, vals, X, y, None, opset, l2),
+                        warmup=1, reps=20) if plain else None)
+    fused_loss.launches = saved  # timing launches are not the main path's
+    work = work_counts(prog_np, CONFIG3_ROWS, CONFIG3_FEATURES, weighted=False)
+    bound_ops = work["operations"] / PEAK_F32_FLOPS * 1e3
+    bound_bytes = work["bytes"] / PEAK_BYTES * 1e3
+    rate = work["slot_evals"] / (ms * 1e-3)
+    print(f"fused_loss timing (P={P}, R={CONFIG3_ROWS}, N={N}): kernel {ms:.4f} ms"
+          + (f", plain {plain_ms:.4f} ms" if plain else "")
+          + f", bound {max(bound_ops, bound_bytes):.5f} ms, slot evals {work['slot_evals']}, "
+          f"{rate:.4g} slot-evals/s", flush=True)
+    return {"P": P, "ms": ms, "plain_ms": plain_ms, "slot_evals_per_s": rate,
+            "bound_ms": max(bound_ops, bound_bytes),
+            "bound_by": "operations" if bound_ops >= bound_bytes else "bytes"}
 
 
 def main_path(device, cycles=CONFIG3_CYCLES, rows=CONFIG3_ROWS, populations=100,
@@ -597,7 +641,7 @@ def block_kernel_check(device, islands=100, rows=CONFIG3_ROWS):
     from symbolicregression_jl_tpu_torch.ops import losses as L
     from symbolicregression_jl_tpu_torch.ops.evolve_block import unpack_pointers
     from symbolicregression_jl_tpu_torch.ops.evolve_block_cuda import (
-        block_work_counts, evolve_block, evolve_block_reference,
+        evolve_block, evolve_block_reference,
     )
     from symbolicregression_jl_tpu_torch.ops.flat import FlatTrees, PackedPrograms
     from symbolicregression_jl_tpu_torch.ops.interp_cuda import fused_loss, pack_programs_fused
@@ -700,40 +744,86 @@ def block_kernel_check(device, islands=100, rows=CONFIG3_ROWS):
           f"equal B1's, scores equal _score_of, programs stack-sound with zero pads, lengths "
           f"<= {cfg.maxsize}, two launches bit-identical", flush=True)
 
-    # timing at config3: 1 cycle (beside the plain version and the bound) and
-    # ENGINE_CYCLES cycles; the per-cycle time from the two
-    cfg1, pop1, scal1 = block_setup(device, c3, X, y, None, islands, 1, seed=5)
-    args1 = (*pop1, *scal1, X, y, None, cfg1, c3.operators, c3.loss)
-    saved = evolve_block.launches
-    ms1 = time_ms(lambda: evolve_block(*args1))
-    msk = time_ms(lambda: evolve_block(*args))
-    counts = {}
-    evolve_block_reference(*args1, counts=counts)
-    plain_ms = time_ms(lambda: evolve_block_reference(*args1), warmup=1, reps=20)
-    evolve_block.launches = saved
-    work = block_work_counts(cfg1, rows, CONFIG3_FEATURES, False, counts["candidates"],
-                             counts["slots"])
-    bound_ops = work["operations"] / PEAK_F32_FLOPS * 1e3
-    bound_bytes = work["bytes"] / PEAK_BYTES * 1e3
-    per_cycle = (msk - ms1) / (ENGINE_CYCLES - 1)
-    print(f"evolve_block timing (config3: {I} islands x {P}, E={cfg.events_per_cycle}, "
-          f"R={rows}, N={N}): 1 cycle {ms1:.4f} ms, {ENGINE_CYCLES} cycles "
-          f"{msk:.4f} ms, {per_cycle:.4f} ms per cycle; plain 1 cycle {plain_ms:.4f} ms; "
-          f"bound (1 cycle, {counts['candidates']} candidates) "
-          f"{max(bound_ops, bound_bytes):.5f} ms", flush=True)
+    t = b3_timing(device, islands, sweep=tuple(r for r in B3_SWEEP_ROWS if r <= rows))
     return {
         "name": "evolve_block",
         "route": "cuda",
         "source": "symbolicregression_jl_tpu_torch/csrc/evolve_block.cu",
         "replaces": "symbolicregression_jl_tpu/ops/interp_pallas.py:1114",
         "max_abs_err": max_err,
-        "ms": ms1,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bound_ops, bound_bytes),
-        "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
         "library_ms": None,
-        "ms_per_cycle": per_cycle,
+        "ms_per_cycle": t["ms_per_cycle"],
+        "row_sweep": t["sweep"],
     }
+
+
+def b3_timing(device, islands=100, sweep=B3_SWEEP_ROWS, plain=True):
+    """B3 timed at config3 width (``islands`` x 100 members) from one seed's
+    population: 1 cycle and ENGINE_CYCLES cycles at each row count of
+    ``sweep`` (the first rows of config3's data), the per-cycle time
+    (ENGINE_CYCLES - 1 cycles' difference) at each, and a least-squares line
+    through them: its intercept is the per-cycle cost that does not scale
+    with rows (stages 1-2, replacement, histogram, syncs), its slope the
+    scoring. The record (1 cycle at the widest sweep, beside the plain
+    version with ``plain``, and the bound) is that of the widest sweep.
+    Timing launches are not counted."""
+    import numpy as np
+    import torch
+
+    from symbolicregression_jl_tpu_torch import Options
+    from symbolicregression_jl_tpu_torch.ops.evolve_block_cuda import (
+        block_work_counts, evolve_block, evolve_block_reference,
+    )
+
+    Xn, yn = config3_data(n_rows=max(sweep))
+    c3 = Options(maxsize=20, populations=islands, population_size=100, device=device.type,
+                 **CONFIG3_OPS)
+    saved = evolve_block.launches
+    points = []
+    for rows in sweep:
+        X = torch.from_numpy(np.ascontiguousarray(Xn[:, :rows])).to(device)
+        y = torch.from_numpy(np.ascontiguousarray(yn[:rows])).to(device)
+        runs = {}
+        for ncyc in (1, ENGINE_CYCLES):
+            cfg, pop, scal = block_setup(device, c3, X, y, None, islands, ncyc, seed=5)
+            runs[ncyc] = (cfg, (*pop, *scal, X, y, None, cfg, c3.operators, c3.loss))
+        ms1 = time_ms(lambda: evolve_block(*runs[1][1]))
+        msk = time_ms(lambda: evolve_block(*runs[ENGINE_CYCLES][1]))
+        points.append({"rows": rows, "ms_1": ms1, "ms_k": msk,
+                       "ms_per_cycle": (msk - ms1) / (ENGINE_CYCLES - 1)})
+    evolve_block.launches = saved
+    r = np.array([p["rows"] for p in points], np.float64)
+    c = np.array([p["ms_per_cycle"] for p in points], np.float64)
+    slope, intercept = np.polyfit(r, c, 1) if len(points) > 1 else (0.0, float("nan"))
+    top = points[-1]
+    cfg1, args1 = runs[1]
+    counts = {}
+    evolve_block_reference(*args1, counts=counts)
+    plain_ms = time_ms(lambda: evolve_block_reference(*args1), warmup=1, reps=20) if plain else None
+    work = block_work_counts(cfg1, top["rows"], CONFIG3_FEATURES, False, counts["candidates"],
+                             counts["slots"])
+    bound_ops = work["operations"] / PEAK_F32_FLOPS * 1e3
+    bound_bytes = work["bytes"] / PEAK_BYTES * 1e3
+    for p in points:
+        print(f"evolve_block timing (config3: {islands} islands x 100, "
+              f"E={cfg1.events_per_cycle}, R={p['rows']}, N={cfg1.n_slots}): 1 cycle "
+              f"{p['ms_1']:.4f} ms, {ENGINE_CYCLES} cycles {p['ms_k']:.4f} ms, "
+              f"{p['ms_per_cycle']:.4f} ms per cycle", flush=True)
+    share = intercept / top["ms_per_cycle"] if top["ms_per_cycle"] > 0 else float("nan")
+    print(f"evolve_block row sweep: per-cycle ms = {intercept:.5f} + {slope * 1e3:.5f} x "
+          f"(rows / 1000); the intercept is {share:.1%} of a cycle at {top['rows']} rows; "
+          + (f"plain 1 cycle {plain_ms:.4f} ms; " if plain else "")
+          + f"bound (1 cycle, {counts['candidates']} candidates) "
+          f"{max(bound_ops, bound_bytes):.5f} ms", flush=True)
+    return {"ms": top["ms_1"], "ms_per_cycle": top["ms_per_cycle"], "plain_ms": plain_ms,
+            "bound_ms": max(bound_ops, bound_bytes),
+            "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+            "sweep": {"points": points, "intercept_ms": float(intercept),
+                      "slope_ms_per_1k_rows": float(slope * 1e3)}}
 
 
 def preds_kernel_check(device, rows=CONFIG3_ROWS):

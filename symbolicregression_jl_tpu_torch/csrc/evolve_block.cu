@@ -35,15 +35,27 @@
 //     they fit (config3: ~25 KB), else in the output arrays in device memory
 //     (the same code through generic pointers);
 //   * tournament, mutation, the pointer passes and the check are small
-//     per-lane work: one thread per event lane; replacement runs one thread
-//     per member, best-seen and histogram one thread per size;
-//   * scoring splits the block's warps over (candidate, row chunk) items, so
-//     one warp runs one program and the opcode switch stays warp-uniform; rows
-//     stride within the warp; the value buffer is [slot][thread] in shared
-//     memory as in B1; operators and losses are B1's (sr_ops.cuh);
-//   * per-item sums are f64, reduced by a fixed shuffle tree and then over
-//     items in index order: no atomics, so one seed gives bit-identical
-//     outputs on every launch.
+//     per-lane work: one thread per event lane (lanes loop over the threads
+//     when there are more); replacement runs one thread per member,
+//     best-seen and histogram one thread per size;
+//   * scoring runs on the multi-row interpreter core shared with B1
+//     (sr_interp.cuh): the units (candidate, tile of 32 x RPT rows) are split
+//     over all the block's warps in contiguous runs of equal cost weighted by
+//     program length (sr::first_unit), so no warp idles while another has
+//     two units more; a warp decodes each candidate it meets once into 16-byte
+//     instructions (stack heights by a warp scan; __syncwarp only), and
+//     each lane evaluates RPT rows per tile as interleaved chains, one
+//     warp-uniform dispatch per slot for all of them; the stack top stays in
+//     registers and the value buffer holds N / 2 + 2 stack positions,
+//     [position][thread][RPT] f32 in shared memory; operators and losses are
+//     B1's (sr_ops.cuh);
+//   * the block is built for a few (RPT, threads) shapes (SR_BLOCK_SHAPES);
+//     the wrapper takes the first whose buffer fits beside the island, and
+//     __launch_bounds__(threads, 1) lets 512 or 256 threads keep up to 128 or
+//     255 registers, where the one-row design's 1024 threads spilled at 64;
+//   * per-(candidate, warp) sums are f64, reduced by a fixed shuffle tree and
+//     then over the warps in index order: no atomics, so one seed gives
+//     bit-identical outputs on every launch.
 // No fast math: built with --fmad=false, IEEE division, libm's expf/logf/cosf/
 // powf/sqrtf (never the __ intrinsics), so temperature 0 on the last cycle
 // gives -d/0 = -inf, +inf or NaN by IEEE rules, as in the plain version.
@@ -51,7 +63,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "sr_ops.cuh"
+#include "sr_interp.cuh"
 
 namespace {
 
@@ -74,7 +86,7 @@ struct SrBlockCfg {
   long long ldx;
   int I, P, N, E, S1, maxsize, maxdepth, ncycles, tour_n;
   int nfeatures, n_unary, n_binary, annealing, use_frequency, use_freq_tour;
-  int F, R, loss_id, n_ops, use_smem, n_chunks;
+  int F, R, loss_id, n_ops, use_smem, rpt;
   float pf, pnc, alpha, aps, parsimony, bin_thr, ncyc_den;
   float q[4];
   float mut_w[8];
@@ -439,12 +451,42 @@ __device__ int lane_mutate(const SrBlockCfg& cfg, const Lane& ln, const int* wor
     }
     clen = plen;
   }
-  // pointers of the program to score
-  block_pointers(cw, clen, N, ln.lhs, ln.rhs, ln.start, ln.depth, ln.stack);
   return clen;
 }
 
-__global__ void __launch_bounds__(1024, 1) sr_evolve_block_kernel(
+// sr::decode_words by one warp: lane j takes slots j, j + 32, ...; the stack
+// heights come from a warp inclusive scan of the slots' pushes and soundness
+// from a warp vote. Same instructions, same unsound rule.
+__device__ int decode_words_warp(const int* words, const float* consts, int len, int N, int F,
+                                 int n_unary, int n_binary, const int* optab, int stride,
+                                 sr::Instr* ins, int lane) {
+  const int D = sr::stack_slots(N);
+  int carry = 0;  // stack height before this run of 32 slots
+  bool ok = true;
+  for (int base = 0; base < len; base += 32) {
+    const int i = base + lane;
+    const bool live = i < len;
+    const sr::WordSlot ws = live ? sr::word_slot(words[i], n_unary, n_binary)
+                                 : sr::WordSlot{0, 0, 0, 0, true};
+    int incl = ws.push;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += v;
+    }
+    const int h = carry + incl - ws.push;  // height before slot i
+    const bool valid = ws.valid && h >= ws.arity && h + ws.push <= D;
+    if (live && valid) ins[i] = sr::word_instr(ws, consts[i], h, F, n_unary, optab, stride);
+    ok = __all_sync(0xffffffffu, ok && valid);
+    carry = __shfl_sync(0xffffffffu, carry + incl, 31);
+  }
+  if (ok && (len == 0 || carry == 1)) return len;
+  __syncwarp();
+  if (lane == 0) sr::decode_unsound(ins);
+  return 1;
+}
+
+template <int RPT, int NT>
+__global__ void __launch_bounds__(NT, 1) sr_evolve_block_kernel(
     SrBlockCfg cfg, const int* __restrict__ words_in, const float* __restrict__ consts_in,
     const int* __restrict__ len_in, const float* __restrict__ loss_in,
     const float* __restrict__ score_in, const int* __restrict__ birth_in,
@@ -459,11 +501,14 @@ __global__ void __launch_bounds__(1024, 1) sr_evolve_block_kernel(
   const int lane_id = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
   const int P = cfg.P, N = cfg.N, E = cfg.E, S1 = cfg.S1, n = cfg.tour_n;
   const int D = N / 2 + 2;
-  const int n_items = E * cfg.n_chunks;
+  const int stride = nt * RPT;
 
-  // ---- shared-memory carve-up (must match sr_evolve_block_smem) ----
-  double* part = smem_d;                                      // [n_items * 3]
-  float* fbase = reinterpret_cast<float*>(part + 3 * n_items);
+  // ---- shared-memory carve-up (block_smem in ops/evolve_block_cuda.py counts it) ----
+  sr::Instr* sins = reinterpret_cast<sr::Instr*>(smem_d);     // [nwarps * N]
+  float* buf = reinterpret_cast<float*>(sins + nwarps * N);   // [D][nt][RPT]
+  double* part = reinterpret_cast<double*>(buf + D * stride);  // [(E + nwarps) * 3]
+  int* wbound = reinterpret_cast<int*>(part + 3 * (E + nwarps));  // [nwarps + 1]
+  float* fbase = reinterpret_cast<float*>(wbound + nwarps + 1);
   float* fnorm = fbase;                                       // [S1]
   float* mut_w = fnorm + S1;                                  // [8]
   float* tour_thr = mut_w + 8;                                // [n]
@@ -485,8 +530,7 @@ __global__ void __launch_bounds__(1024, 1) sr_evolve_block_kernel(
   int* l_stack = l_scr + E * 5 * N;                           // [E * 3D]
   int* l_cand = l_stack + E * 3 * D;                          // [E * n]
   int* ev = l_cand + E * n;                                   // [P]
-  float* buf = reinterpret_cast<float*>(ev + P);              // [N * nt]
-  float* pop_base = buf + N * nt;                             // population, when in smem
+  float* pop_base = reinterpret_cast<float*>(ev + P);         // population, when in smem
 
   // ---- the island's storage: shared memory, or the output arrays ----
   const long long oPN = (long long)isl * P * N, oP = (long long)isl * P;
@@ -555,15 +599,16 @@ __global__ void __launch_bounds__(1024, 1) sr_evolve_block_kernel(
   const int step0 = (int)iscal[1];
   const int curmaxsize = (int)iscal[2];
   const float norm = fscal[0];
-  const float q[4] = {cfg.q[0], cfg.q[1], cfg.q[2], cfg.q[3]};
+  const int T = (cfg.R + 32 * RPT - 1) / (32 * RPT);  // row tiles per candidate
+  float* col = buf + tid * RPT;
+  sr::Instr* wins = sins + warp * N;
   __syncthreads();
 
   for (int cycle = 0; cycle < cfg.ncycles; ++cycle) {
     const float temp = cfg.annealing ? 1.0f - (float)cycle / cfg.ncyc_den : 1.0f;
 
     // ---- stages 1-2: one thread per lane; the replacement ranks beside ----
-    if (tid < E) {
-      const int e = tid;
+    for (int e = tid; e < E; e += nt) {  // lanes loop over the threads when E > nt
       Lane ln{l_pw + e * N,
               l_pc + e * N,
               l_cw + e * N,
@@ -598,66 +643,53 @@ __global__ void __launch_bounds__(1024, 1) sr_evolve_block_kernel(
     }
     __syncthreads();
 
-    // ---- stage 3: scoring; warps over (candidate, row chunk) items ----
-    for (int item = warp; item < n_items; item += nwarps) {
-      const int e = item / cfg.n_chunks;
-      const int chunk = item % cfg.n_chunks;
-      const int tlen = l_vlen[e];
-      const int* vw = l_cw + e * N;
-      const float* vc = l_cc + e * N;
-      const int* vl = l_scr + e * 5 * N + N;
-      const int* vr = l_scr + e * 5 * N + 2 * N;
-      double acc_l = 0.0, acc_w = 0.0, acc_n = 0.0;
-      for (int r = chunk * 32 + lane_id; r < cfg.R; r += cfg.n_chunks * 32) {
-        float pred = 0.0f;  // an empty program reads the zeroed slot 0
-        for (int i = 0; i < tlen; ++i) {
-          const int wd = vw[i];
-          const int k = wd & 7;
-          const int pl = wd >> 3;
-          float v = 0.0f;
-          if (k == K_CONST) {
-            v = vc[i];
-          } else if (k == K_VAR) {
-            v = X[(long long)min(max(pl, 0), cfg.F - 1) * cfg.ldx + r];
-          } else if (k == K_UNARY) {
-            if (pl >= 0 && pl < cfg.n_unary) v = sr::unary(optab[pl], buf[vl[i] * nt + tid]);
-          } else if (k == K_BINARY) {
-            if (pl >= 0 && pl < cfg.n_binary)
-              v = sr::binary(optab[cfg.n_unary + pl] - sr::kUnaryBuiltins,
-                             buf[vl[i] * nt + tid], buf[vr[i] * nt + tid]);
-          }
-          buf[i * nt + tid] = v;
-          pred = v;
-        }
-        const float wt = W ? W[r] : 1.0f;
-        if (!sr::isfinite_(pred)) acc_n += 1.0;
-        acc_l += (double)(sr::loss(cfg.loss_id, pred, Y[r], q) * wt);
-        acc_w += (double)wt;
-      }
+    // ---- stage 3: scoring; each warp a cost-balanced run of (candidate,
+    // tile) units, decoding each candidate it meets once ----
+    if (tid <= nwarps) {
+      long long C_all = 0;
+      for (int e = 0; e < E; ++e) C_all += sr::unit_cost(l_vlen[e]);
+      wbound[tid] = sr::first_unit(l_vlen, E, T, C_all * T, tid, nwarps);
+    }
+    __syncthreads();
+    for (int u = wbound[warp], u_end = wbound[warp + 1]; u < u_end;) {
+      const int e = u / T;
+      const int t_end = min(u_end, (e + 1) * T) - e * T;
+      __syncwarp();  // the previous candidate's instructions are no longer read
+      const int dlen = decode_words_warp(l_cw + e * N, l_cc + e * N, l_vlen[e], N, cfg.F,
+                                         cfg.n_unary, cfg.n_binary, optab, stride, wins,
+                                         lane_id);
+      __syncwarp();
+      sr::Acc acc{0.0, 0.0, 0.0};
+      for (int t = u - e * T; t < t_end; ++t)  // an empty program reads 0
+        sr::tile_loss<RPT, sr::kTree>(
+            wins, dlen, col, X, cfg.ldx, Y, W, t * 32 * RPT + lane_id, 32, cfg.R, cfg.R,
+            cfg.loss_id, cfg.q[0], cfg.q[1], cfg.q[2], cfg.q[3], 0.0f, acc);
       for (int off = 16; off > 0; off >>= 1) {
-        acc_l += __shfl_down_sync(0xffffffffu, acc_l, off);
-        acc_w += __shfl_down_sync(0xffffffffu, acc_w, off);
-        acc_n += __shfl_down_sync(0xffffffffu, acc_n, off);
+        acc.l += __shfl_down_sync(0xffffffffu, acc.l, off);
+        acc.w += __shfl_down_sync(0xffffffffu, acc.w, off);
+        acc.n += __shfl_down_sync(0xffffffffu, acc.n, off);
       }
-      if (lane_id == 0) {
-        part[3 * item + 0] = acc_l;
-        part[3 * item + 1] = acc_w;
-        part[3 * item + 2] = acc_n;
+      if (lane_id == 0) {  // (e, warp) pairs of contiguous runs have distinct e + warp
+        double* dst = part + 3 * (e + warp);
+        dst[0] = acc.l;
+        dst[1] = acc.w;
+        dst[2] = acc.n;
       }
+      u = e * T + t_end;
     }
     __syncthreads();
 
     // ---- stage 4a: loss, score and the annealing-gated accept per lane ----
-    if (tid < E) {
-      const int e = tid;
+    for (int e = tid; e < E; e += nt) {  // lanes loop over the threads when E > nt
       double L = 0.0, Wt = 0.0, C = 0.0;
-      for (int c = 0; c < cfg.n_chunks; ++c) {
-        const double* src = part + 3 * (e * cfg.n_chunks + c);
+      for (int v = 0; v < nwarps; ++v) {  // the warps' sums in index order
+        if (!sr::run_has(wbound, v, e, T)) continue;
+        const double* src = part + 3 * (e + v);
         L += src[0];
         Wt += src[1];
         C += src[2];
       }
-      const float loss1 = (C == 0.0 && Wt > 0.0) ? (float)(L / Wt) : INFINITY;
+      const float loss1 = sr::finish(L, Wt, C);
       const int vlen = l_vlen[e];
       const float score1 = loss1 / norm + (float)vlen * cfg.parsimony;
       const int sz_old = min(max(l_plen[e], 0), cfg.maxsize);
@@ -744,42 +776,53 @@ __global__ void __launch_bounds__(1024, 1) sr_evolve_block_kernel(
   }
 }
 
+// The (rows per thread, threads) shapes the kernel is built for.
+#define SR_BLOCK_SHAPES(X) X(2, 512) X(4, 256) X(2, 256) X(1, 256) X(1, 64)
+
+template <int RPT, int NT>
+int launch(const SrBlockCfg& cfg, size_t smem, cudaStream_t s, const int* words,
+           const float* consts, const int* length, const float* loss, const float* score,
+           const int* birth, const float* fnorm, const long long* iscal, const float* fscal,
+           const float* X, const float* y, const float* w, int* words_out, float* consts_out,
+           int* len_out, float* loss_out, float* score_out, int* birth_out, float* fd_out,
+           float* bsl_out, int* bsw_out, float* bsc_out, int* bslen_out) {
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(sr_evolve_block_kernel<RPT, NT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  sr_evolve_block_kernel<RPT, NT><<<cfg.I, NT, smem, s>>>(
+      cfg, words, consts, length, loss, score, birth, fnorm, iscal, fscal, X, y, w, words_out,
+      consts_out, len_out, loss_out, score_out, birth_out, fd_out, bsl_out, bsw_out, bsc_out,
+      bslen_out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of one island block, in bytes.
-size_t sr_evolve_block_smem(SrBlockCfg cfg, int threads) {
-  const size_t E = cfg.E, N = cfg.N, P = cfg.P, S1 = cfg.S1, n = cfg.tour_n;
-  const size_t D = N / 2 + 2;
-  size_t bytes = 3 * E * cfg.n_chunks * sizeof(double);
-  bytes += 4 * (S1 + 8 + n + 4 * E + 2 * E * N + E * n);                  // floats
-  bytes += 4 * (cfg.n_ops + 3 * E + 2 * E * N + 5 * E * N + 3 * E * D + E * n + P);  // ints
-  bytes += 4 * N * (size_t)threads;                                        // value buffer
-  if (cfg.use_smem) bytes += 4 * (2 * P * N + 4 * P + 3 * S1 + 2 * S1 * N);
-  return bytes;
-}
-
-// Launches the block on `stream`; returns the CUDA error code (0 = ok).
-int sr_evolve_block(SrBlockCfg cfg, int threads, const int* words, const float* consts,
-                    const int* length, const float* loss, const float* score, const int* birth,
+// Launches the block on `stream`; returns the CUDA error code (0 = ok), or
+// cudaErrorInvalidValue for a (cfg.rpt, threads) shape it is not built for.
+// smem is the block's dynamic shared memory in bytes, as block_smem in
+// ops/evolve_block_cuda.py computes it.
+int sr_evolve_block(SrBlockCfg cfg, int threads, size_t smem, const int* words,
+                    const float* consts, const int* length, const float* loss, const float* score,
+                    const int* birth,
                     const float* fnorm, const long long* iscal, const float* fscal, const float* X,
                     const float* y, const float* w, int* words_out, float* consts_out,
                     int* len_out, float* loss_out, float* score_out, int* birth_out,
                     float* fd_out, float* bsl_out, int* bsw_out, float* bsc_out, int* bslen_out,
                     void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const size_t smem = sr_evolve_block_smem(cfg, threads);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(sr_evolve_block_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  sr_evolve_block_kernel<<<cfg.I, threads, smem, s>>>(
-      cfg, words, consts, length, loss, score, birth, fnorm, iscal, fscal, X, y, w, words_out,
-      consts_out, len_out, loss_out, score_out, birth_out, fd_out, bsl_out, bsw_out, bsc_out,
-      bslen_out);
-  return (int)cudaGetLastError();
+#define SR_CASE(R_, T_)                                                                      \
+  if (cfg.rpt == R_ && threads == T_)                                                        \
+    return launch<R_, T_>(cfg, smem, s, words, consts, length, loss, score, birth, fnorm,    \
+                          iscal, fscal, X, y, w, words_out, consts_out, len_out, loss_out,   \
+                          score_out, birth_out, fd_out, bsl_out, bsw_out, bsc_out, bslen_out);
+  SR_BLOCK_SHAPES(SR_CASE)
+#undef SR_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* sr_cuda_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }

@@ -1,5 +1,5 @@
 // Fused eval + loss kernel for Hopper (sm_90a): the scoring kernel of the
-// lockstep search.
+// lockstep search and of the device engine's constant optimization.
 //
 // Replaces the TPU kernel symbolicregression_jl_tpu/ops/interp_pallas.py:258
 // (_make_loss_kernel, launched by _loss_pallas at :407). It computes the same
@@ -16,115 +16,125 @@
 //   optab int32 [n_ops]    kernel id of each opset operator (unary ids
 //                           0..30, binary ids 31+0..31+11; see SrUnary/SrBinary)
 //   X     f32   [F, ldx]   feature-major rows; y, w f32 [R] (w may be null)
-// Output: out f32 [P]; scratch: partials f64 [P, n_chunks, 3].
+// Output: out f32 [P]; scratch: partials f64 [P, n_chunks, 3] (unused when
+// n_chunks is 1).
 //
-// What bounds it on this card: operations. X is a few hundred KB and stays
-// in L2; the program is a few hundred bytes per tree. Per (tree, row, slot)
-// the kernel issues one opcode dispatch, one or two shared-memory reads and
-// one write, and the operator's arithmetic (a libm call for transcendental
-// operators). The design keeps intermediates out of device memory and keeps
-// the dispatch warp-uniform:
-//   * one block per (tree, row chunk); the block stages its tree's program in
-//     shared memory, so every thread of the block runs the same opcode
-//     sequence and the switch never diverges inside a warp;
-//   * each thread evaluates its rows slot by slot into a value buffer in
-//     shared memory laid out [slot][thread] (N x blockDim f32; 24 KB at
-//     maxsize 20 and 256 threads), which is conflict-free;
+// What bounds it on this card: operations, and in practice the latency of
+// each slot's dependent steps (instruction load, indirect branch, operand,
+// libm), so what counts is how many independent row chains an SM holds. X is
+// a few hundred KB and stays in L2; the program is a few hundred bytes per
+// tree. The design (sr_interp.cuh):
+//   * each block stages its trees' programs in shared memory and one thread
+//     per tree decodes them once into 16-byte instructions (operator ids
+//     already through optab, buffer offsets already scaled), walking the
+//     postfix stack; a program that is not stack-sound scores inf;
+//   * every thread evaluates RPT rows as interleaved chains (rows r, r + g,
+//     ... with g the threads of its tree), so one broadcast instruction load
+//     and one warp-uniform branch serve RPT rows;
+//   * the stack top stays in registers, so a unary operator and a binary
+//     operator's right operand read no memory; the value buffer holds the
+//     N / 2 + 2 stack positions, not N slots, [position][thread][RPT] f32 in
+//     shared memory, which leaves room for more chains per SM;
+//   * a block holds `tpb` trees, one per group of warps, when the rows are too
+//     few to give every thread RPT rows of one tree (minibatches), so that
+//     threads are not left idle; a group always covers whole warps, so the
+//     dispatch stays warp-uniform;
 //   * per-thread partial sums (sum w*loss, sum w, non-finite count) are kept
-//     in double, reduced across the block in a fixed order, and a second
-//     small kernel reduces the chunks of each tree in a fixed order and
-//     applies the ok rule. No atomics: the result is deterministic.
+//     in double, reduced by a fixed warp shuffle tree, then over the group's
+//     warps in index order; with one row chunk per tree the block writes the
+//     tree's loss itself, else a second small kernel reduces the chunks in
+//     index order and applies the ok rule. No atomics: the result is
+//     deterministic.
 // Operators and losses come from sr_ops.cuh: each follows the semantics of
-// its torch `fn` in ops/operators.py (IEEE f32 arithmetic, CUDA libm), not
-// the TPU kernel's Mosaic variants.
+// its torch `fn` in ops/operators.py (IEEE f32 arithmetic, CUDA libm, built
+// with --fmad=false), not the TPU kernel's Mosaic variants.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "sr_ops.cuh"
+#include "sr_interp.cuh"
 
 namespace {
 
-constexpr int kRedSlots = 3 * 32;  // 3 partials x up to 32 warps
+constexpr int kMaxThreads = 256;
+constexpr int kRedSlots = 3 * (kMaxThreads / 32);  // 3 partials per warp
 
-__global__ void sr_loss_partials_kernel(
+template <int RPT>
+__global__ void __launch_bounds__(kMaxThreads) sr_loss_partials_kernel(
     const int* __restrict__ prog, int prog_ld, const float* __restrict__ vals,
-    const int* __restrict__ optab, int n_ops, const float* __restrict__ X,
-    long long ldx, const float* __restrict__ y, const float* __restrict__ w,
-    int N, int R, int rows_per_block, int n_chunks, int loss_id, float q0,
-    float q1, float q2, float q3, double* __restrict__ partials) {
-  extern __shared__ double smem[];
-  double* red = smem;                                   // [kRedSlots]
-  float* buf = reinterpret_cast<float*>(red + kRedSlots);  // [N][blockDim]
-  const int nt = blockDim.x;
-  int* sprog = reinterpret_cast<int*>(buf + N * nt);    // [prog_ld]
-  float* svals = reinterpret_cast<float*>(sprog + prog_ld);  // [N]
-  int* sopt = reinterpret_cast<int*>(svals + N);        // [n_ops]
+    const int* __restrict__ optab, int n_ops, const float* __restrict__ X, long long ldx,
+    const float* __restrict__ y, const float* __restrict__ w, int P, int N, int R, int tpb,
+    int rows_per_chunk, int n_chunks, int loss_id, float q0, float q1, float q2, float q3,
+    double* __restrict__ partials, float* __restrict__ out) {
+  extern __shared__ double smem[];  // carved as loss_smem in ops/interp_cuda.py counts it
+  const int nt = blockDim.x, tid = threadIdx.x;
+  const int D = sr::stack_slots(N);
+  double* red = smem;                                               // [kRedSlots]
+  sr::Instr* sins = reinterpret_cast<sr::Instr*>(red + kRedSlots);  // [tpb][N]
+  float* buf = reinterpret_cast<float*>(sins + tpb * N);            // [D][nt][RPT]
+  int* sprog = reinterpret_cast<int*>(buf + D * nt * RPT);          // [tpb][prog_ld]
+  float* svals = reinterpret_cast<float*>(sprog + tpb * prog_ld);   // [tpb][N]
+  int* sst = reinterpret_cast<int*>(svals + tpb * N);               // [tpb][D]
+  int* sopt = sst + tpb * D;                                        // [n_ops]
+  int* slen = sopt + n_ops;                                         // [tpb]
 
-  const int p = blockIdx.x;
+  const int gs = nt / tpb;  // threads per tree
+  const int g = tid / gs, gt = tid % gs;
+  const int p0 = blockIdx.x * tpb;
+  const int p = p0 + g;
   const int chunk = blockIdx.y;
-  const int tid = threadIdx.x;
-  for (int k = tid; k < prog_ld; k += nt) sprog[k] = prog[(long long)p * prog_ld + k];
-  for (int k = tid; k < N; k += nt) svals[k] = vals[(long long)p * N + k];
+  const bool live = p < P;
+  // stage the block's programs, then one thread per tree decodes its own
+  const int n_live = min(tpb, P - p0);
+  for (int k = tid; k < n_live * prog_ld; k += nt) sprog[k] = prog[(long long)p0 * prog_ld + k];
+  for (int k = tid; k < n_live * N; k += nt) svals[k] = vals[(long long)p0 * N + k];
   for (int k = tid; k < n_ops; k += nt) sopt[k] = optab[k];
   __syncthreads();
+  sr::Instr* ins = sins + g * N;
+  if (live && gt == 0)
+    slen[g] = sr::decode_code(sprog + g * prog_ld, N, sopt, svals + g * N, nt * RPT,
+                              sst + g * D, ins);
+  __syncthreads();
 
-  const float q[4] = {q0, q1, q2, q3};
-  const int length = sprog[4 * N];
-  const int r0 = chunk * rows_per_block;
-  const int r1 = min(R, r0 + rows_per_block);
-  double acc_l = 0.0, acc_w = 0.0, acc_n = 0.0;
-  for (int r = r0 + tid; r < r1; r += nt) {
-    float pred = sr::nan_();  // an empty program has no root
-    for (int i = 0; i < length; ++i) {
-      const int code = sprog[i];
-      float v;
-      if (code == 0) {
-        v = svals[i];
-      } else if (code == 1) {
-        v = X[(long long)sprog[3 * N + i] * ldx + r];
-      } else {
-        const int b = sopt[code - 2];
-        const float l = buf[sprog[N + i] * nt + tid];
-        if (b < sr::kUnaryBuiltins) {
-          v = sr::unary(b, l);
-        } else {
-          v = sr::binary(b - sr::kUnaryBuiltins, l, buf[sprog[2 * N + i] * nt + tid]);
-        }
-      }
-      buf[i * nt + tid] = v;
-      pred = v;  // the last slot written is the root, slot length-1
-    }
-    const float wt = w ? w[r] : 1.0f;
-    if (!sr::isfinite_(pred)) acc_n += 1.0;
-    acc_l += (double)(sr::loss(loss_id, pred, y[r], q) * wt);
-    acc_w += (double)wt;
+  sr::Acc acc{0.0, 0.0, 0.0};
+  if (live) {
+    const int length = slen[g];
+    float* col = buf + tid * RPT;
+    const int r0 = chunk * rows_per_chunk;
+    const int r1 = min(R, r0 + rows_per_chunk);
+    for (int base = r0; base < r1; base += gs * RPT)
+      sr::tile_loss<RPT, sr::kSwitch>(ins, length, col, X, ldx, y, w, base + gt, gs, r1, R,
+                                      loss_id, q0, q1, q2, q3, sr::nan_(), acc);
   }
 
-  // fixed-order block reduction: warp tree, then warps in index order
+  // fixed-order reduction: warp tree, then the group's warps in index order
   for (int off = 16; off > 0; off >>= 1) {
-    acc_l += __shfl_down_sync(0xffffffffu, acc_l, off);
-    acc_w += __shfl_down_sync(0xffffffffu, acc_w, off);
-    acc_n += __shfl_down_sync(0xffffffffu, acc_n, off);
+    acc.l += __shfl_down_sync(0xffffffffu, acc.l, off);
+    acc.w += __shfl_down_sync(0xffffffffu, acc.w, off);
+    acc.n += __shfl_down_sync(0xffffffffu, acc.n, off);
   }
   const int lane = tid & 31, warp = tid >> 5;
   if (lane == 0) {
-    red[3 * warp + 0] = acc_l;
-    red[3 * warp + 1] = acc_w;
-    red[3 * warp + 2] = acc_n;
+    red[3 * warp + 0] = acc.l;
+    red[3 * warp + 1] = acc.w;
+    red[3 * warp + 2] = acc.n;
   }
   __syncthreads();
-  if (tid == 0) {
+  if (gt == 0 && live) {
     double L = 0.0, W = 0.0, C = 0.0;
-    for (int k = 0; k < nt / 32; ++k) {
+    for (int k = warp; k < warp + gs / 32; ++k) {
       L += red[3 * k + 0];
       W += red[3 * k + 1];
       C += red[3 * k + 2];
     }
-    double* dst = partials + ((long long)p * n_chunks + chunk) * 3;
-    dst[0] = L;
-    dst[1] = W;
-    dst[2] = C;
+    if (n_chunks == 1) {
+      out[p] = sr::finish(L, W, C);
+    } else {
+      double* dst = partials + ((long long)p * n_chunks + chunk) * 3;
+      dst[0] = L;
+      dst[1] = W;
+      dst[2] = C;
+    }
   }
 }
 
@@ -139,41 +149,56 @@ __global__ void sr_loss_finalize_kernel(const double* __restrict__ partials, int
     W += src[1];
     C += src[2];
   }
-  out[p] = (C == 0.0 && W > 0.0) ? (float)(L / W) : INFINITY;
+  out[p] = sr::finish(L, W, C);
+}
+
+template <int RPT>
+int launch(const int* prog, int prog_ld, const float* vals, const int* optab, int n_ops,
+           const float* X, long long ldx, const float* y, const float* w, int P, int N, int R,
+           int threads, int tpb, int rows_per_chunk, int n_chunks, int loss_id, float q0, float q1,
+           float q2, float q3, double* partials, float* out, size_t smem, cudaStream_t s) {
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(sr_loss_partials_kernel<RPT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid((unsigned)((P + tpb - 1) / tpb), (unsigned)n_chunks);
+  sr_loss_partials_kernel<RPT><<<grid, threads, smem, s>>>(
+      prog, prog_ld, vals, optab, n_ops, X, ldx, y, w, P, N, R, tpb, rows_per_chunk, n_chunks,
+      loss_id, q0, q1, q2, q3, partials, out);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || n_chunks == 1) return (int)e;
+  sr_loss_finalize_kernel<<<(P + 255) / 256, 256, 0, s>>>(partials, P, n_chunks, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of one partials block, in bytes.
-size_t sr_fused_loss_smem(int N, int threads, int prog_ld, int n_ops) {
-  return kRedSlots * sizeof(double) + (size_t)N * threads * sizeof(float) +
-         (size_t)(prog_ld + N + n_ops) * 4;
-}
-
-// Launches both kernels on `stream`; returns the CUDA error code (0 = ok).
+// Launches B1 on `stream` (the finalize kernel too when n_chunks > 1);
+// returns the CUDA error code (0 = ok). rpt is 1, 2 or 4; threads at most
+// 256, a multiple of 32 * tpb; smem is the block's dynamic shared memory in
+// bytes, as loss_smem in ops/interp_cuda.py computes it.
 int sr_fused_loss(const int* prog, int prog_ld, const float* vals, const int* optab,
-                  int n_ops, const float* X, long long ldx, const float* y,
-                  const float* w, int P, int N, int R, int threads,
-                  int rows_per_block, int n_chunks, int loss_id, float q0,
-                  float q1, float q2, float q3, double* partials, float* out,
-                  void* stream) {
+                  int n_ops, const float* X, long long ldx, const float* y, const float* w, int P,
+                  int N, int R, int threads, int rpt, int tpb, int rows_per_chunk, int n_chunks,
+                  size_t smem, int loss_id, float q0, float q1, float q2, float q3,
+                  double* partials, float* out, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const size_t smem = sr_fused_loss_smem(N, threads, prog_ld, n_ops);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        sr_loss_partials_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  switch (rpt) {
+    case 1:
+      return launch<1>(prog, prog_ld, vals, optab, n_ops, X, ldx, y, w, P, N, R, threads, tpb,
+                       rows_per_chunk, n_chunks, loss_id, q0, q1, q2, q3, partials, out, smem, s);
+    case 2:
+      return launch<2>(prog, prog_ld, vals, optab, n_ops, X, ldx, y, w, P, N, R, threads, tpb,
+                       rows_per_chunk, n_chunks, loss_id, q0, q1, q2, q3, partials, out, smem, s);
+    case 4:
+      return launch<4>(prog, prog_ld, vals, optab, n_ops, X, ldx, y, w, P, N, R, threads, tpb,
+                       rows_per_chunk, n_chunks, loss_id, q0, q1, q2, q3, partials, out, smem, s);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  dim3 grid((unsigned)P, (unsigned)n_chunks);
-  sr_loss_partials_kernel<<<grid, threads, smem, s>>>(
-      prog, prog_ld, vals, optab, n_ops, X, ldx, y, w, N, R, rows_per_block,
-      n_chunks, loss_id, q0, q1, q2, q3, partials);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  sr_loss_finalize_kernel<<<(P + 255) / 256, 256, 0, s>>>(partials, P, n_chunks, out);
-  return (int)cudaGetLastError();
 }
 
 const char* sr_cuda_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }

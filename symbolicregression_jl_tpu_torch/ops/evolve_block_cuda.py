@@ -22,6 +22,7 @@ with the others by ``interp_cuda.build_all``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -43,7 +44,12 @@ _MAX_TOUR = 64
 _MAX_OPS = 64
 _INTS = ("I", "P", "N", "E", "S1", "maxsize", "maxdepth", "ncycles", "tour_n", "nfeatures",
          "n_unary", "n_binary", "annealing", "use_frequency", "use_freq_tour", "F", "R",
-         "loss_id", "n_ops", "use_smem", "n_chunks")
+         "loss_id", "n_ops", "use_smem", "rpt")
+#: the (rows per thread, threads) shapes csrc/evolve_block.cu is built for
+#: (SR_BLOCK_SHAPES), in the order ``_geometry`` tries them: the first is the
+#: fastest at config3 on the H100 (PERF.md), the others take the wider
+#: programs and larger populations it cannot hold
+BLOCK_SHAPES = ((2, 512), (4, 256), (2, 256), (1, 256), (1, 64))
 _FLOATS = ("pf", "pnc", "alpha", "aps", "parsimony", "bin_thr", "ncyc_den")
 
 
@@ -60,19 +66,20 @@ class SrBlockCfg(ctypes.Structure):
     )
 
 
-#: (kernel argtypes, smem argtypes): cfg, threads, the 6 population inputs,
-#: fnorm, iscal, fscal, X, y, w, the 11 outputs, stream; smem: cfg, threads
-_SIGNATURE = ([SrBlockCfg, ctypes.c_int] + [ctypes.c_void_p] * 24, [SrBlockCfg, ctypes.c_int])
+#: (kernel argtypes, no smem entry point): cfg, threads, smem bytes
+#: (``block_smem``), the 6 population inputs, fnorm, iscal, fscal, X, y, w,
+#: the 11 outputs, stream
+_SIGNATURE = ([SrBlockCfg, ctypes.c_int, ctypes.c_size_t] + [ctypes.c_void_p] * 24, None)
 
 
 def kernel_lib() -> ctypes.CDLL:
-    """B3's library, built at first use, with its entry points typed."""
+    """B3's library, built at first use, with its entry point typed."""
     return build("evolve_block", _SIGNATURE)
 
 
-def _make_cfg(cfg: EvoConfig, opset: OperatorSet, loss_elem, F: int, R: int, ldx: int):
+def _make_cfg(cfg: EvoConfig, opset: OperatorSet, spec, F: int, R: int, ldx: int):
+    """The kernel's SrBlockCfg; ``spec`` is the loss's ``kernel_loss_spec``."""
     optab = kernel_op_table(opset)
-    spec = kernel_loss_spec(loss_elem)
     if optab is None or spec is None:
         raise ValueError("evolve_block: operator set or loss has no kernel implementation")
     if cfg.tournament_n > _MAX_TOUR or len(optab) > _MAX_OPS:
@@ -105,20 +112,44 @@ def _make_cfg(cfg: EvoConfig, opset: OperatorSet, loss_elem, F: int, R: int, ldx
     return c
 
 
-def _geometry(lib, c: SrBlockCfg) -> int:
-    """Threads per island block: the most warps whose value buffer fits in
-    shared memory beside the island's population (or, when the population
-    does not fit, beside its lane scratch alone); at least one thread per
-    event lane. Sets ``use_smem`` and ``n_chunks`` on ``c``."""
+def block_smem(c: SrBlockCfg, threads: int) -> int:
+    """Dynamic shared memory of one island block in bytes, as the kernel
+    carves it (csrc/evolve_block.cu), passed to the launch: the warps' decoded
+    instructions (16 bytes a slot), the value buffer of D = N // 2 + 2 stack
+    positions x threads x RPT f32, the scoring partials (3 f64 per candidate
+    and warp) and the warps' first units, the lanes' scratch and, with
+    ``use_smem``, the island's population and best-seen carry."""
+    E, N, P, S1, n = c.E, c.N, c.P, c.S1, c.tour_n
+    D, W = N // 2 + 2, threads // 32
+    b = 16 * W * N + 4 * D * threads * c.rpt + 24 * (E + W) + 4 * (W + 1)
+    b += 4 * (S1 + 8 + n + 4 * E + 2 * E * N + E * n)
+    b += 4 * (c.n_ops + 3 * E + 2 * E * N + 5 * E * N + 3 * E * D + E * n + P)
+    if c.use_smem:
+        b += 4 * (2 * P * N + 4 * P + 3 * S1 + 2 * S1 * N)
+    return b
+
+
+def _geometry(c: SrBlockCfg) -> int:
+    """Threads per island block: the first of BLOCK_SHAPES whose value buffer
+    fits in shared memory beside the island's population, else beside the
+    lane scratch alone (the population then stays in the output arrays); the
+    event lanes loop over the threads when there are more. Sets ``rpt`` and
+    ``use_smem`` on ``c``."""
     for use_smem in (1, 0):
-        threads = 1024
-        while threads >= 32 and threads >= c.E:
-            c.use_smem = use_smem
-            c.n_chunks = max(1, (threads // 32) // c.E)
-            if lib.sr_evolve_block_smem(c, threads) <= _SMEM_LIMIT:
+        for rpt, threads in BLOCK_SHAPES:
+            c.use_smem, c.rpt = use_smem, rpt
+            if block_smem(c, threads) <= _SMEM_LIMIT:
                 return threads
-            threads //= 2
     raise ValueError(f"evolve_block: {c.E} event lanes of {c.N} slots do not fit one block")
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_config(cfg: EvoConfig, opset: OperatorSet, spec, F: int, R: int, ldx: int):
+    """(SrBlockCfg, threads, shared-memory bytes) of a launch, made once per
+    configuration: each later launch of it only makes its tensors."""
+    c = _make_cfg(cfg, opset, spec, F, R, ldx)
+    threads = _geometry(c)
+    return c, threads, block_smem(c, threads)
 
 
 def evolve_block_reference(words, consts, length, loss, score, birth, fnorm, seed, step0,
@@ -183,8 +214,7 @@ def evolve_block(words, consts, length, loss, score, birth, fnorm, seed, step0, 
     if R == 0:
         raise ValueError("evolve_block: no rows")
     lib = kernel_lib()
-    c = _make_cfg(cfg, opset, loss_elem, F, R, X.stride(0))
-    threads = _geometry(lib, c)
+    c, threads, smem = _launch_config(cfg, opset, kernel_loss_spec(loss_elem), F, R, X.stride(0))
     iscal = torch.stack([seed.reshape(()).to(torch.int64), step0.reshape(()).to(torch.int64),
                          curmaxsize.reshape(()).to(torch.int64)])
     fscal = norm.reshape(1).to(torch.float32)
@@ -202,7 +232,7 @@ def evolve_block(words, consts, length, loss, score, birth, fnorm, seed, step0, 
         torch.empty((I, S1), dtype=torch.int32, device=dev),
     )
     err = lib.sr_evolve_block(
-        c, threads, words.data_ptr(), consts.data_ptr(), length.data_ptr(), loss.data_ptr(),
+        c, threads, smem, words.data_ptr(), consts.data_ptr(), length.data_ptr(), loss.data_ptr(),
         score.data_ptr(), birth.data_ptr(), fnorm.data_ptr(), iscal.data_ptr(),
         fscal.data_ptr(), X.data_ptr(), y.data_ptr(), None if w is None else w.data_ptr(),
         *(o.data_ptr() for o in out), torch.cuda.current_stream(dev).cuda_stream,

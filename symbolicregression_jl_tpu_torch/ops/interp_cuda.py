@@ -86,7 +86,8 @@ SOURCES = {
     "evolve_block": CSRC / "evolve_block.cu",
     "eval_preds": CSRC / "eval_preds.cu",
 }
-HEADER = CSRC / "sr_ops.cuh"
+#: the shared headers: operators and losses; the multi-row interpreter core
+HEADERS = (CSRC / "sr_ops.cuh", CSRC / "sr_interp.cuh")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -100,6 +101,12 @@ _SIGNED: set = set()
 _THREADS = 256
 _GRAD_THREADS = 128
 _SMEM_LIMIT = 227 * 1024
+#: B1's block shape: threads, rows per thread (RPT; 1, 2 or 4) and the
+#: number of blocks the row chunks aim for (the card's 132 SMs hold several
+#: blocks each), chosen by measurement on the H100 (PERF.md)
+B1_THREADS = 128
+B1_RPT = 4
+B1_TARGET_BLOCKS = 132 * 32
 
 
 def loss_kernel_eligible(opset: OperatorSet, loss_elem, dtype) -> bool:
@@ -239,24 +246,28 @@ def _nvcc() -> str:
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> None:
-    """What every kernel library shares: the return types and the error
-    string. Each wrapper gives its own argument types through ``build``."""
+    """What every kernel library shares: the entry point's return type and
+    the error string. Each wrapper gives its own argument types through
+    ``build``."""
     getattr(lib, f"sr_{name}").restype = ctypes.c_int
-    getattr(lib, f"sr_{name}_smem").restype = ctypes.c_size_t
     lib.sr_cuda_error_string.argtypes = [ctypes.c_int]
     lib.sr_cuda_error_string.restype = ctypes.c_char_p
 
 
 _vp, _ci, _cf, _cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-#: (kernel argtypes, smem argtypes) of this module's kernels. B1/B2: prog,
-#: prog_ld, vals, optab, n_ops, X, ldx, y, w, P, N, R, threads,
-#: rows_per_block, n_chunks, loss_id, q0..q3, partials, out[, grads], stream.
-#: B4: prog, prog_ld, vals, optab, n_ops, X, ldx, P, N, R, threads,
-#: rows_per_block, n_chunks, preds, stream. smem: N, threads, prog_ld, n_ops.
+#: (kernel argtypes, smem argtypes or None) of this module's kernels. B1:
+#: prog, prog_ld, vals, optab, n_ops, X, ldx, y, w, P, N, R, threads, rpt,
+#: tpb, rows_per_chunk, n_chunks, smem bytes (``loss_smem``), loss_id,
+#: q0..q3, partials, out, stream. B2: prog, prog_ld, vals, optab, n_ops, X,
+#: ldx, y, w, P, N, R, threads, rows_per_block, n_chunks, loss_id, q0..q3,
+#: partials, out, grads, stream. B4: prog, prog_ld, vals, optab, n_ops, X,
+#: ldx, P, N, R, threads, rows_per_block, n_chunks, preds, stream. B2's and
+#: B4's ``sr_*_smem``: N, threads, prog_ld, n_ops.
 _LOSS_ARGS = [_vp, _ci, _vp, _vp, _ci, _vp, _cl, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci,
               _cf, _cf, _cf, _cf, _vp, _vp]
 _SIGNATURES = {
-    "fused_loss": (_LOSS_ARGS + [_vp], [_ci] * 4),
+    "fused_loss": ([_vp, _ci, _vp, _vp, _ci, _vp, _cl, _vp, _vp] + [_ci] * 8
+                   + [ctypes.c_size_t, _ci] + [_cf] * 4 + [_vp, _vp, _vp], None),
     "fused_loss_grad": (_LOSS_ARGS + [_vp, _vp], [_ci] * 4),
     "eval_preds": ([_vp, _ci, _vp, _vp, _ci, _vp, _cl, _ci, _ci, _ci, _ci, _ci, _ci, _vp, _vp],
                    [_ci] * 4),
@@ -264,7 +275,7 @@ _SIGNATURES = {
 
 
 def _lib_path(name: str) -> Path:
-    src = SOURCES[name].read_bytes() + HEADER.read_bytes()
+    src = SOURCES[name].read_bytes() + b"".join(h.read_bytes() for h in HEADERS)
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"libsr_{name}_{tag}.so"
 
@@ -291,12 +302,15 @@ def build_all(names=tuple(SOURCES)) -> dict:
                                 text=True)
         jobs[name] = (lib_path, tmp, proc)
     for name, (lib_path, tmp, proc) in jobs.items():
-        log = ""
+        log_path = lib_path.with_suffix(".log")
         if proc is not None:
             log, _ = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {name} ({proc.returncode}):\n{log}")
+            log_path.write_text(log)
             os.replace(tmp, lib_path)
+        else:  # built earlier: its ptxas report was kept beside it
+            log = log_path.read_text() if log_path.exists() else ""
         lib = ctypes.CDLL(str(lib_path))
         _bind(name, lib)
         BUILD_INFO[name] = dict(
@@ -308,13 +322,17 @@ def build_all(names=tuple(SOURCES)) -> dict:
 
 def build(name: str = "fused_loss", signature=None) -> ctypes.CDLL:
     """The loaded library of one kernel, built at first use. ``signature``,
-    (kernel argtypes, smem argtypes), is set on its two entry points the
-    first time it is given."""
+    (kernel argtypes, smem argtypes or None), is set on its entry point and,
+    for a kernel whose library sizes its own shared memory, on
+    ``sr_<name>_smem``, the first time it is given."""
     lib = _LIBS.get(name)
     if lib is None:
         lib = build_all((name,))[name]
     if signature is not None and name not in _SIGNED:
-        getattr(lib, f"sr_{name}").argtypes, getattr(lib, f"sr_{name}_smem").argtypes = signature
+        getattr(lib, f"sr_{name}").argtypes = signature[0]
+        if signature[1] is not None:
+            smem_fn = getattr(lib, f"sr_{name}_smem")
+            smem_fn.argtypes, smem_fn.restype = signature[1], ctypes.c_size_t
         _SIGNED.add(name)
     return lib
 
@@ -337,6 +355,55 @@ def _geometry(smem_fn, P: int, N: int, R: int, prog_ld: int, n_ops: int,
     while -(-R // rows_per_block) > 65535:
         rows_per_block *= 2
     return threads, rows_per_block, max(1, -(-R // rows_per_block))
+
+
+def loss_smem(N: int, threads: int, tpb: int, rpt: int, n_ops: int) -> int:
+    """B1's dynamic shared memory per block in bytes, as its kernel carves
+    it (csrc/fused_loss.cu), passed to the launch: the reduction slots,
+    ``tpb`` trees' decoded instructions (16 bytes a slot), the value buffer
+    of D = N // 2 + 2 stack positions x threads x RPT f32, and the staged
+    programs, constants, slot stacks, operator table and lengths."""
+    D = N // 2 + 2
+    return (3 * 8 * 8 + tpb * N * 16 + D * threads * rpt * 4
+            + 4 * (tpb * (4 * N + 1) + tpb * N + tpb * D + n_ops + tpb))
+
+
+def loss_geometry(P: int, N: int, R: int, n_ops: int = 64):
+    """B1's launch shape for P trees of N slots on R rows: (threads, rpt,
+    tpb, rows_per_chunk, n_chunks).
+
+    A thread evaluates ``rpt`` rows per tile, so a tree's group of threads
+    covers ``group x rpt`` rows per tile. The group is the fewest whole warps
+    (a power of two, at most ``threads``) that cover R in one tile; when that
+    leaves room, a block holds ``tpb = threads / group`` trees. Otherwise
+    (one tree per block) the rows are cut into chunks of whole tiles, as few
+    as give about B1_TARGET_BLOCKS blocks in all, and the chunks of a tree
+    get equal numbers of tiles. Threads and RPT shrink while the value
+    buffer does not fit in shared memory."""
+    threads, rpt = B1_THREADS, B1_RPT
+    while rpt > 1 and loss_smem(N, threads, 1, rpt, n_ops) > _SMEM_LIMIT:
+        rpt //= 2
+    while threads > 32 and loss_smem(N, threads, 1, rpt, n_ops) > _SMEM_LIMIT:
+        threads //= 2
+    if loss_smem(N, threads, 1, rpt, n_ops) > _SMEM_LIMIT:
+        raise ValueError(f"programs of {N} slots do not fit in shared memory")
+    group = 32
+    while group < threads and group * rpt < R:
+        group *= 2
+    tpb = threads // group
+    while tpb > 1 and loss_smem(N, threads, tpb, rpt, n_ops) > _SMEM_LIMIT:
+        tpb //= 2
+        group *= 2
+    tile = group * rpt
+    n_tiles = max(1, -(-R // tile))
+    if tpb > 1 or n_tiles == 1:
+        return threads, rpt, tpb, n_tiles * tile, 1
+    n_chunks = min(n_tiles, max(1, -(-B1_TARGET_BLOCKS // max(P, 1))))
+    per_chunk = -(-n_tiles // n_chunks)
+    n_chunks = -(-n_tiles // per_chunk)
+    if n_chunks > 65535:
+        raise ValueError(f"{R} rows need more than 65535 row chunks")
+    return threads, rpt, tpb, per_chunk * tile, n_chunks
 
 
 def _checked_launch_args(kernel: str, prog, vals, X, y, w, opset, loss_elem):
@@ -364,21 +431,19 @@ def _checked_launch_args(kernel: str, prog, vals, X, y, w, opset, loss_elem):
     return optab, spec, P, N, R, prog_ld
 
 
-def _launch(kernel: str, prog, vals, X, y, w, optab, spec, P, N, R, prog_ld, outs,
-            n_partials: int, max_threads: int) -> None:
+def _launch(kernel: str, prog, vals, X, y, w, optab, spec, P, N, R, prog_ld, geometry,
+            partials_shape, outs) -> None:
+    """One launch of B1 or B2 on the current stream: ``geometry`` holds the
+    launch-shape arguments the kernel takes after R, ``partials_shape`` the
+    shape of its f64 scratch, ``outs`` its outputs. Raises if it fails."""
     lib = build(kernel, _SIGNATURES[kernel])
-    n_ops = len(optab)
-    threads, rows_per_block, n_chunks = _geometry(
-        getattr(lib, f"sr_{kernel}_smem"), P, N, R, prog_ld, n_ops, max_threads
-    )
     dev = X.device
-    optab_t = _optab_tensor(optab, dev)
-    partials = torch.empty((P, n_chunks, n_partials), dtype=torch.float64, device=dev)
+    partials = torch.empty(partials_shape, dtype=torch.float64, device=dev)
     q = list(spec[1]) + [0.0] * (4 - len(spec[1]))
     err = getattr(lib, f"sr_{kernel}")(
-        prog.data_ptr(), prog_ld, vals.data_ptr(), optab_t.data_ptr(), n_ops,
-        X.data_ptr(), X.stride(0), y.data_ptr(), None if w is None else w.data_ptr(),
-        P, N, R, threads, rows_per_block, n_chunks, spec[0], *q,
+        prog.data_ptr(), prog_ld, vals.data_ptr(), _optab_tensor(optab, dev).data_ptr(),
+        len(optab), X.data_ptr(), X.stride(0), y.data_ptr(),
+        None if w is None else w.data_ptr(), P, N, R, *geometry, spec[0], *q,
         partials.data_ptr(), *(o.data_ptr() for o in outs),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -455,7 +520,11 @@ def fused_loss(prog, vals, X, y, w, opset: OperatorSet, loss_elem) -> torch.Tens
     """Per-tree losses [P] f32 of packed programs on (X [F, R], y [R], w).
 
     CPU tensors take ``fused_loss_reference``. CUDA tensors launch the kernel
-    on the current stream (no synchronisation) or raise."""
+    on the current stream (no synchronisation) or raise. The kernel evaluates
+    on the postfix stack, so it takes stack-sound programs, as every
+    postorder flattening of a tree is (``flatten_trees``, the device
+    engine's packing): a program whose children are not the stack's top
+    entries scores inf there."""
     if X.device.type == "cpu":
         return fused_loss_reference(prog, vals, X, y, w, opset, loss_elem)
     optab, spec, P, N, R, prog_ld = _checked_launch_args(
@@ -466,8 +535,11 @@ def fused_loss(prog, vals, X, y, w, opset: OperatorSet, loss_elem) -> torch.Tens
         return out
     if R == 0:
         return out.fill_(torch.inf)
-    _launch("fused_loss", prog, vals, X, y, w, optab, spec, P, N, R, prog_ld, (out,),
-            3, _THREADS)
+    threads, rpt, tpb, rows_per_chunk, n_chunks = loss_geometry(P, N, R, len(optab))
+    smem = loss_smem(N, threads, tpb, rpt, len(optab))
+    _launch("fused_loss", prog, vals, X, y, w, optab, spec, P, N, R, prog_ld,
+            (threads, rpt, tpb, rows_per_chunk, n_chunks, smem),
+            (P, n_chunks, 3) if n_chunks > 1 else (1,), (out,))
     fused_loss.launches += 1
     return out
 
@@ -493,8 +565,11 @@ def fused_loss_grad(prog, vals, X, y, w, opset: OperatorSet, loss_elem):
         return out, grads
     if R == 0:
         return out.fill_(torch.inf), grads
+    lib = build("fused_loss_grad", _SIGNATURES["fused_loss_grad"])
+    threads, rows_per_block, n_chunks = _geometry(lib.sr_fused_loss_grad_smem, P, N, R, prog_ld,
+                                                  len(optab), _GRAD_THREADS)
     _launch("fused_loss_grad", prog, vals, X, y, w, optab, spec, P, N, R, prog_ld,
-            (out, grads), 3 + N, _GRAD_THREADS)
+            (threads, rows_per_block, n_chunks), (P, n_chunks, 3 + N), (out, grads))
     fused_loss_grad.launches += 1
     return out, grads
 

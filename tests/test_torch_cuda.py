@@ -216,7 +216,8 @@ def test_device_engine_on_the_card(cuda, monkeypatch):
     assert st["block"] is None
 
 
-def _block_inputs(device, ncycles, weighted, populations=6, population_size=20):
+def _block_inputs(device, ncycles, weighted, populations=6, population_size=20, maxsize=14,
+                  trees=None):
     import dataclasses
 
     from symbolicregression_jl_tpu_torch.models.device_search import build_evo_config
@@ -224,7 +225,7 @@ def _block_inputs(device, ncycles, weighted, populations=6, population_size=20):
     from symbolicregression_jl_tpu_torch.ops.interp_cuda import unpack_programs_fused
 
     opts = Options(binary_operators=["+", "-", "*", "/"], unary_operators=["cos", "exp"],
-                   populations=populations, population_size=population_size, maxsize=14,
+                   populations=populations, population_size=population_size, maxsize=maxsize,
                    device="cuda")
     rng = np.random.default_rng(ncycles)
     X = torch.from_numpy(rng.normal(size=(3, 300)).astype(np.float32)).to(device)
@@ -234,8 +235,9 @@ def _block_inputs(device, ncycles, weighted, populations=6, population_size=20):
     cfg = dataclasses.replace(
         build_evo_config(opts, 3, 1.0, True, 1, n_rows=300), ncycles=ncycles)
     I, P, N = cfg.n_islands, cfg.pop_size, cfg.n_slots
-    prog, vals = pack_programs_fused(
-        flatten_trees(_trees(opts.operators, I * P, 3, ncycles, N), N), opts.operators)
+    if trees is None:
+        trees = _trees(opts.operators, I * P, 3, ncycles, N)
+    prog, vals = pack_programs_fused(flatten_trees(trees, N), opts.operators)
     flat = unpack_programs_fused(prog, vals, opts.operators)
     words, consts = pack_state_words(*(torch.from_numpy(np.asarray(a)).to(device)
                                        for a in (flat.kind, flat.op, flat.feat, flat.val)))
@@ -258,13 +260,14 @@ def _block_inputs(device, ncycles, weighted, populations=6, population_size=20):
 ], ids=["1-plain", "8-plain", "1-weighted", "8-weighted", "population-in-device-memory"])
 def test_block_kernel_matches_plain_version(cuda, ncycles, weighted, size):
     from symbolicregression_jl_tpu_torch.ops.evolve_block_cuda import (
-        _geometry, _make_cfg, evolve_block, evolve_block_reference, kernel_lib,
+        _launch_config, evolve_block, evolve_block_reference,
     )
+    from symbolicregression_jl_tpu_torch.ops.losses import kernel_loss_spec
 
     args = _block_inputs(cuda, ncycles, weighted, 2 if size > 100 else 6, size)
     cfg, X = args[-3], args[11]
-    c = _make_cfg(cfg, *args[-2:], X.shape[0], X.shape[1], X.stride(0))
-    _geometry(kernel_lib(), c)
+    c, _, _ = _launch_config(cfg, args[-2], kernel_loss_spec(args[-1]), X.shape[0], X.shape[1],
+                             X.stride(0))
     # 1100 members do not fit in shared memory beside the lanes: the kernel
     # keeps that island in the output arrays
     assert c.use_smem == (1 if size < 100 else 0)
@@ -390,3 +393,119 @@ def test_device_engine_on_the_block(cuda, monkeypatch):
     assert fused_loss.launches - b1 == st["score_calls"]
     assert fused_loss_grad.launches - b2 == st["grad_calls"] >= 2
     assert np.isfinite(min(m.loss for m in res.pareto_frontier))
+
+
+def _close(got, want):
+    got, want = got.cpu().double().numpy(), want.cpu().double().numpy()
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+    m = np.isfinite(want)
+    np.testing.assert_allclose(got[m], want[m], rtol=1e-5, atol=1e-6)
+
+
+def test_kernel_matches_plain_version_at_the_engine_shape(cuda):
+    """B1 at the device engine's constant-optimization shape: 4,200 trees x
+    10k rows, unweighted and weighted."""
+    opts = Options(binary_operators=["+", "-", "*", "/"], unary_operators=["cos", "exp", "abs"],
+                   maxsize=20, device="cuda")
+    prog, vals, X, y, w = _inputs(opts, 4200, 10_000, seed=42, device=cuda)
+    for wt in (None, w):
+        before = fused_loss.launches
+        got = fused_loss(prog, vals, X, y, wt, opts.operators, opts.loss)
+        assert fused_loss.launches == before + 1
+        _close(got, fused_loss_reference(prog, vals, X, y, wt, opts.operators, opts.loss))
+
+
+@pytest.mark.parametrize("n_rows", [50, 2047, 4099])
+def test_kernel_matches_plain_version_on_odd_minibatches(cuda, n_rows):
+    """Minibatch widths whose rows (X's leading dimension) are odd, gathered
+    from a larger X as the scorer does: no row load is aligned."""
+    opts = Options(binary_operators=list(BINARY_OPS), unary_operators=list(UNARY_OPS),
+                   maxsize=20, device="cuda")
+    prog, vals, X, y, w = _inputs(opts, 500, 10_000, seed=n_rows, device=cuda)
+    idx = torch.from_numpy(np.random.default_rng(n_rows).integers(0, 10_000, n_rows)).to(cuda)
+    Xb, yb, wb = X[:, idx].contiguous(), y[idx].contiguous(), w[idx].contiguous()
+    assert Xb.stride(0) == n_rows
+    for wt in (None, wb):
+        _close(fused_loss(prog, vals, Xb, yb, wt, opts.operators, opts.loss),
+               fused_loss_reference(prog, vals, Xb, yb, wt, opts.operators, opts.loss))
+
+
+def _deepest_stack_trees(n, max_nodes):
+    """x + (c + (x + ...)) chains of 2k + 1 <= max_nodes slots: the postorder
+    pushes every leaf before the first operator, the largest stack height a
+    program of its length can reach."""
+    from symbolicregression_jl_tpu_torch import tree as TR
+
+    out = []
+    for j in range(n):
+        k = (max_nodes - 1) // 2 - j % 3
+        t = TR.feature(k % 3)
+        for i in range(k - 1, -1, -1):
+            leaf = TR.feature(i % 3) if i % 2 else TR.constant(0.5 + i)
+            t = TR.binary(j % 2, leaf, t)
+        out.append(t)
+    return out
+
+
+def _assert_block_equal(got, want):
+    for g, r in zip(got, want):
+        g, r = g.cpu(), r.cpu()
+        if not r.dtype.is_floating_point:
+            assert torch.equal(g, r)
+        else:
+            g, r = g.double().numpy(), r.double().numpy()
+            np.testing.assert_array_equal(np.isnan(g), np.isnan(r))
+            np.testing.assert_array_equal(np.isinf(g), np.isinf(r))
+            m = np.isfinite(r)
+            np.testing.assert_allclose(g[m], r[m], rtol=1e-5, atol=1e-6)
+
+
+def test_kernels_at_the_maximum_stack_depth(cuda):
+    """Programs that push every leaf before their first operator, in B1 and
+    in B3's scoring: equal to the plain versions."""
+    from symbolicregression_jl_tpu_torch.ops.evolve_block_cuda import (
+        evolve_block, evolve_block_reference,
+    )
+
+    opts = Options(binary_operators=["+", "-", "*", "/"], unary_operators=["cos", "exp"],
+                   maxsize=14, device="cuda")
+    N = opts.max_nodes
+    trees = _deepest_stack_trees(120, N)
+    prog, vals = pack_programs_fused(flatten_trees(trees, N), opts.operators)
+    assert prog[:, 4 * N].max() >= N - 1
+    rng = np.random.default_rng(0)
+    X = torch.from_numpy(rng.normal(size=(3, 1000)).astype(np.float32)).to(cuda)
+    y = torch.cos(X[0])
+    p, v = torch.from_numpy(prog).to(cuda), torch.from_numpy(vals).to(cuda)
+    _close(fused_loss(p, v, X, y, None, opts.operators, opts.loss),
+           fused_loss_reference(p, v, X, y, None, opts.operators, opts.loss))
+    args = _block_inputs(cuda, 4, False, populations=6, population_size=20, trees=trees)
+    _assert_block_equal(evolve_block(*args), evolve_block_reference(*args))
+
+
+@pytest.mark.parametrize("population_size, maxsize", [(20, 40), (400, 14)],
+                         ids=["N>32", "E>32"])
+def test_block_kernel_wide_programs_and_many_lanes(cuda, population_size, maxsize):
+    """B3 with more than 32 slots per program, and with more than 32 event
+    lanes per cycle (more lanes than the block has warps): every integer
+    output equal to the plain version's, two launches bit-identical."""
+    from symbolicregression_jl_tpu_torch.ops.evolve_block_cuda import (
+        _launch_config, evolve_block, evolve_block_reference,
+    )
+    from symbolicregression_jl_tpu_torch.ops.losses import kernel_loss_spec
+
+    args = _block_inputs(cuda, 3, True, populations=2, population_size=population_size,
+                         maxsize=maxsize)
+    cfg, X = args[-3], args[11]
+    _, threads, _ = _launch_config(cfg, args[-2], kernel_loss_spec(args[-1]), X.shape[0],
+                                   X.shape[1], X.stride(0))
+    if maxsize == 40:
+        assert cfg.n_slots > 32
+    else:
+        assert cfg.events_per_cycle > 32 and cfg.events_per_cycle > threads // 32
+    got = evolve_block(*args)
+    _assert_block_equal(got, evolve_block_reference(*args))
+    again = evolve_block(*args)
+    for a, b in zip(got, again):
+        assert torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                           b.view(torch.int32) if b.is_floating_point() else b)
