@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time kernels B1 (fused eval+loss) and B3 (evolve block) of one checkout of
-the PyTorch port on one NVIDIA GPU, with the timing code of this
-repository's ``chip_smoke.py``.
+"""Time kernels B1 (fused eval+loss), B2 (fused loss+gradient), B3 (evolve
+block) and B4 (prediction matrix) of one checkout of the PyTorch port on one
+NVIDIA GPU, with the timing code of this repository's ``chip_smoke.py``.
 
     python3 chip_kernel_timing.py [--root DIR] [--label NAME]
     python3 chip_kernel_timing.py --pairs DIR [--n-pairs 10]
@@ -17,11 +17,17 @@ change, change, parent):
     python3 chip_kernel_timing.py --label change
 
 This prints what ``chip_smoke.py`` prints for its timings (B1 at P = 1024
-and 4,200 programs x 10k rows with slot-evals/s; B3's 1- and 100-cycle times
-at config3 width on 256, 2,500 and 10,000 rows with the row sweep's
-intercept and slope), the ptxas lines of the two kernels' builds, and as its
-last line one JSON object with the label, the card's name and power limit,
-and the numbers.
+and 4,200 programs x 10k rows with slot-evals/s; B2 at P = 4,200 x 10k rows,
+the engine's constant-optimization shape, and at P = 1024 x 50 rows, a
+minibatch; B3's 1- and 100-cycle times at config3 width on 256, 2,500 and
+10,000 rows with the row sweep's intercept and slope; B4 at P = 1024 x 10k
+rows; B2 and B4 also as the device's time alone), the ptxas lines of the
+four kernels' builds, and as its last line one JSON object with the label,
+the card's name and power limit, and the numbers.
+
+``--shapes ROUNDS`` instead times B2 (at both shapes) and B4 of this
+checkout at each launch shape (threads x rows per thread) in ``SHAPES``,
+ROUNDS times over all shapes: how the launched shapes were chosen.
 
 ``--pairs DIR`` instead loads the package of the checkout under DIR beside
 this repository's, in one process, and times one launch of one B3 cycle at
@@ -57,6 +63,8 @@ def main() -> int:
     ap.add_argument("--pairs", default=None,
                     help="root of a second checkout: time one B3 cycle of both, alternating")
     ap.add_argument("--n-pairs", type=int, default=10)
+    ap.add_argument("--shapes", type=int, default=0, metavar="ROUNDS",
+                    help="time B2 and B4 at each launch shape in SHAPES, ROUNDS times")
     args = ap.parse_args()
     import torch
 
@@ -86,25 +94,64 @@ def main() -> int:
         out = pairs(chip_smoke, device, os.path.abspath(args.pairs), args.n_pairs)
         print(json.dumps({"label": args.label, "card": smi, "pairs": out}), flush=True)
         return 0
-    interp_cuda.build_all(("fused_loss", "evolve_block"))
+    interp_cuda.build_all()
     ptxas = {}
     for name, info in interp_cuda.BUILD_INFO.items():
         ptxas[name] = [ln.strip() for ln in info["log"].splitlines()
                        if "Function properties" in ln or "spill" in ln or "registers" in ln]
         for line in ptxas[name]:
             print(f"  [{args.label}] {name}: {line}", flush=True)
-    out = measure(chip_smoke, device)
+    out = shapes(chip_smoke, device, args.shapes) if args.shapes else measure(chip_smoke, device)
     print(json.dumps({"label": args.label, "card": smi, "ptxas": ptxas, **out}), flush=True)
     return 0
 
 
 def measure(chip_smoke, device) -> dict:
-    """B1 at chip_smoke.B1_TIMED_P and B3's row sweep, as chip_smoke.py times
-    them."""
+    """B1 at chip_smoke.B1_TIMED_P, B2 at chip_smoke.B2_TIMED, B3's row
+    sweep and B4 at P = 1024, as chip_smoke.py times them."""
     b1 = {P: chip_smoke.b1_timing(device, P) for P in chip_smoke.B1_TIMED_P}
+    b2 = {(P, R): chip_smoke.b2_timing(device, P, R) for P, R in chip_smoke.B2_TIMED}
     b3 = chip_smoke.b3_timing(device, plain=False)
-    return {"b1": {str(P): {k: t[k] for k in ("ms", "slot_evals_per_s")} for P, t in b1.items()},
-            "b3": {k: b3[k] for k in ("ms", "ms_per_cycle", "sweep")}}
+    b4 = chip_smoke.b4_timing(device, 1024)
+    rate = ("ms", "slot_evals_per_s")
+    return {"b1": {str(P): {k: t[k] for k in rate} for P, t in b1.items()},
+            "b2": {f"{P}x{R}": {k: t[k] for k in rate + ("device_ms",)}
+                   for (P, R), t in b2.items()},
+            "b3": {k: b3[k] for k in ("ms", "ms_per_cycle", "sweep")},
+            "b4": {k: b4[k] for k in rate + ("device_ms", "entry_ms")}}
+
+
+#: the (threads, RPT) launch shapes ``--shapes`` times for B2 and B4
+SHAPES = ((256, 4), (128, 4), (256, 2), (128, 2), (64, 4), (256, 1))
+
+
+def shapes(chip_smoke, device, rounds: int) -> dict:
+    """B2 (at chip_smoke.B2_TIMED) and B4 (P = 1024) at each launch shape of
+    SHAPES, set through interp_cuda's B2_THREADS / B2_RPT and B4_THREADS /
+    B4_RPT, which the geometry reads at every launch; ``rounds`` rounds over
+    all shapes, so that drift in the call shows. Each entry lists the rounds'
+    (ms, device ms)."""
+    from symbolicregression_jl_tpu_torch.ops import interp_cuda as ic
+
+    saved = ic.B2_THREADS, ic.B2_RPT, ic.B4_THREADS, ic.B4_RPT
+    out: dict = {}
+    try:
+        for _ in range(rounds):
+            for threads, rpt in SHAPES:
+                ic.B2_THREADS, ic.B2_RPT = ic.B4_THREADS, ic.B4_RPT = threads, rpt
+                for P, R in chip_smoke.B2_TIMED:
+                    t = chip_smoke.b2_timing(device, P, R)
+                    out.setdefault(f"b2 {P}x{R} {threads}x{rpt}", []).append(
+                        (t["ms"], t["device_ms"]))
+                t = chip_smoke.b4_timing(device, 1024)
+                out.setdefault(f"b4 1024x{chip_smoke.CONFIG3_ROWS} {threads}x{rpt}", []).append(
+                    (t["ms"], t["device_ms"]))
+    finally:
+        ic.B2_THREADS, ic.B2_RPT, ic.B4_THREADS, ic.B4_RPT = saved
+    for k, v in out.items():
+        print(f"{k}: ms " + ", ".join(f"{a:.4f}" for a, _ in v) + "; device ms "
+              + ", ".join(f"{b:.4f}" for _, b in v), flush=True)
+    return {"shapes": out}
 
 
 def load_package(root: str, alias: str):
@@ -155,19 +202,6 @@ def pairs(chip_smoke, device, other_root: str, n_pairs: int, rows: int = 256) ->
         if not torch.equal(a, b):
             raise SystemExit("chip_kernel_timing: parent and change disagree on one cycle")
 
-    def device_ms(fn, a):
-        times = []
-        for _ in range(20):
-            torch.cuda.synchronize()
-            torch.cuda._sleep(5_000_000)  # ~2.5 ms: the host enqueues the launch meanwhile
-            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            e0.record()
-            fn(*a)
-            e1.record()
-            e1.synchronize()
-            times.append(e0.elapsed_time(e1))
-        return statistics.median(times)
-
     def host_ms(fn, a):
         times = []
         for _ in range(20):
@@ -184,7 +218,7 @@ def pairs(chip_smoke, device, other_root: str, n_pairs: int, rows: int = 256) ->
         for k in order:
             fn, a = sides[k]
             rec[k]["wall"].append(chip_smoke.time_ms(lambda: fn(*a)))
-            rec[k]["device"].append(device_ms(fn, a))
+            rec[k]["device"].append(chip_smoke.device_time_ms(lambda: fn(*a)))
             rec[k]["host"].append(host_ms(fn, a))
         print(f"pair {i} ({order[0]} first): " + "; ".join(
             f"{k} wall {rec[k]['wall'][-1]:.4f} device {rec[k]['device'][-1]:.4f} "

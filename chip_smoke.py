@@ -20,7 +20,10 @@ JAX or of the JAX package. Phases, each of which raises on failure:
    constant-optimization shape (4,200), with slot evaluations per second;
 3. kernel check of B2, the fused loss+gradient kernel
    (``fused_loss_grad``), the same way, at the device engine's
-   constant-optimization shape (4,200 instances x 10,000 rows); then one
+   constant-optimization shape (4,200 instances x 10,000 rows), where two
+   launches must give identical bits and rows that are not stack-sound
+   must score inf with zero gradients; its timing there and at a 50-row
+   minibatch (1024 programs), each with the device's time alone; then one
    tree per built-in operator on U(-2, 2) and U(-20, 20) rows through B4
    and its plain version, which must give equal values on every row;
    kernel check of B3, the evolve block (``evolve_block``): after 1 and 8
@@ -80,6 +83,9 @@ ENGINE_ITERATIONS, ENGINE_CYCLES = 3, 100
 # times the same config3 block at these widths: the fitted intercept is the
 # per-cycle cost that does not scale with rows, the slope the scoring
 B1_TIMED_P = (1024, 4200)
+# B2 (P programs, rows) at the engine's constant-optimization shape and at a
+# minibatch of the default batch_size (50 rows)
+B2_TIMED = ((4200, CONFIG3_ROWS), (1024, 50))
 B3_SWEEP_ROWS = (256, 2500, 10_000)
 # README quick start: 200 x 2, + - *, cos; README budget is 20 iterations,
 # cut to QUICKSTART_ITERATIONS (lockstep) and DEVICE_QUICKSTART_ITERATIONS
@@ -148,6 +154,26 @@ def time_ms(fn, warmup=3, reps=20):
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def device_time_ms(fn, reps=20):
+    """Median of ``reps`` CUDA-event timings of fn() queued behind a sleeping
+    kernel, so that the host's part (the wrapper's Python) is hidden: the
+    device time alone."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(5_000_000)  # ~2.5 ms: the host enqueues the launch meanwhile
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         fn()
@@ -451,7 +477,7 @@ def grad_kernel_check(device, n_instances=4200):
     from symbolicregression_jl_tpu_torch import Options
     from symbolicregression_jl_tpu_torch.ops import losses as L
     from symbolicregression_jl_tpu_torch.ops.interp_cuda import (
-        fused_loss, fused_loss_grad, fused_loss_grad_reference, grad_work_counts,
+        fused_loss, fused_loss_grad, fused_loss_grad_reference,
     )
     from symbolicregression_jl_tpu_torch.ops.operators import (
         BINARY_OPS, UNARY_OPS, resolve_operators,
@@ -516,39 +542,120 @@ def grad_kernel_check(device, n_instances=4200):
         atol = float(ws.max() / ws.sum()) if name == "ZeroOneLoss" else ATOL
         check(f"loss {name}", prog_s, vals_s, Xs, ys, None, small_ops, loss, atol)
         check(f"loss {name} weighted", prog_s, vals_s, Xs, ys, ws, small_ops, loss, atol)
+    # two launches on the same inputs give identical bits: the engine's shape
+    # (row chunks and the finalize kernel) and the minibatch (several trees
+    # per block)
+    for tag, p_np, v_np, Xc, yc, wc in (
+            ("engine shape", prog, vals, X, y, w),
+            ("minibatch R=50", prog_m, vals_m, X[:, idx].contiguous(), y[idx].contiguous(),
+             w[idx].contiguous())):
+        pt, vt = torch.from_numpy(p_np).to(device), torch.from_numpy(v_np).to(device)
+        first = fused_loss_grad(pt, vt, Xc, yc, wc, opset, L.L2DistLoss)
+        again = fused_loss_grad(pt, vt, Xc, yc, wc, opset, L.L2DistLoss)
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(first, again)):
+            _fail(f"B2 {tag}: two launches on the same inputs differ")
+    # rows that are not stack-sound score inf with zero gradients; the
+    # batch's other rows keep the plain version's values
+    bad, rows = unsound_rows(prog_m, opset)
+    pt, vt = torch.from_numpy(bad).to(device), torch.from_numpy(vals_m).to(device)
+    lk, gk = fused_loss_grad(pt, vt, X, y, None, opset, L.L2DistLoss)
+    lr, gr = fused_loss_grad_reference(torch.from_numpy(prog_m).to(device), vt, X, y, None,
+                                       opset, L.L2DistLoss)
+    torch.cuda.synchronize()
+    if not (bool(torch.isinf(lk[rows]).all()) and bool((gk[rows] == 0).all())):
+        _fail(f"B2 on unsound rows {rows}: losses {lk[rows].tolist()}, not inf with zero "
+              "gradients")
+    keep = torch.ones(len(bad), dtype=torch.bool, device=device)
+    keep[rows] = False
+    compare("unsound batch, other rows", lk[keep], lr[keep])
+    compare_grads("unsound batch, other rows", gk[keep], gr[keep])
     print(f"grad kernel check: {n_cases} cases, max abs err losses {errs['loss']:.3e}, "
           f"gradients {errs['grad']:.3e} (losses rtol {RTOL}, atol {ATOL}; gradients rtol "
-          f"{GRAD_RTOL} + {GRAD_SCALE_ATOL} x tree scale)", flush=True)
+          f"{GRAD_RTOL} + {GRAD_SCALE_ATOL} x tree scale); two launches bit-identical at the "
+          f"engine shape and R=50; unsound rows {rows} inf with zero gradients", flush=True)
 
-    # timing at the engine's shape
-    prog_t = torch.from_numpy(prog).to(device)
-    vals_t = torch.from_numpy(vals).to(device)
-    saved = fused_loss_grad.launches, fused_loss.launches
-    ms = time_ms(lambda: fused_loss_grad(prog_t, vals_t, X, y, None, opset, L.L2DistLoss))
-    plain_ms = time_ms(
-        lambda: fused_loss_grad_reference(prog_t, vals_t, X, y, None, opset, L.L2DistLoss),
-        warmup=1, reps=20,
-    )
-    fused_loss_grad.launches, fused_loss.launches = saved
-    work = grad_work_counts(prog, CONFIG3_ROWS, CONFIG3_FEATURES, weighted=False)
-    bound_ops = work["operations"] / PEAK_F32_FLOPS * 1e3
-    bound_bytes = work["bytes"] / PEAK_BYTES * 1e3
-    print(f"fused_loss_grad timing (P={n_instances}, R={CONFIG3_ROWS}, N={N}): kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {max(bound_ops, bound_bytes):.5f} ms, "
-          f"slot evals (forward + reverse) {work['slot_evals']}, "
-          f"{work['slot_evals'] / (ms * 1e-3):.4g} slot-evals/s", flush=True)
+    # timing at the engine's shape and at a minibatch of the default batch_size
+    t = b2_timing(device, n_instances, CONFIG3_ROWS, plain=True)
+    for P, rows in B2_TIMED[1:]:
+        b2_timing(device, P, rows)
     return {
         "name": "fused_loss_grad",
         "route": "cuda",
         "source": "symbolicregression_jl_tpu_torch/csrc/fused_loss_grad.cu",
         "replaces": "symbolicregression_jl_tpu/ops/interp_pallas.py:725",
         "max_abs_err": max(errs.values()),
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bound_ops, bound_bytes),
-        "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
         "library_ms": None,
     }
+
+
+def unsound_rows(prog, opset):
+    """A copy of a packed batch (numpy) with two rows made not stack-sound:
+    the first binary-rooted row's root children swapped, the second's root
+    cut off. Returns (copy, [the two rows])."""
+    import numpy as np
+
+    N = (prog.shape[1] - 1) // 4
+    length = prog[:, 4 * N]
+    root = prog[np.arange(len(prog)), np.maximum(length - 1, 0)]
+    a, b = np.nonzero((length > 1) & (root >= 2 + opset.n_unary))[0][:2].tolist()
+    bad = prog.copy()
+    i = length[a] - 1
+    bad[a, N + i], bad[a, 2 * N + i] = prog[a, 2 * N + i], prog[a, N + i]
+    bad[b, 4 * N] = length[b] - 1
+    return bad, [a, b]
+
+
+def b2_timing(device, P, rows, plain=False):
+    """B2 on P random config3 programs (seed P), unweighted, on config3's
+    10k rows or, for fewer ``rows``, on a minibatch of them drawn with
+    replacement (seed ``rows``), as the engine's batching draws them: the
+    median kernel ms (as ``time_ms`` takes it, the wrapper's host time
+    included) and the device's alone (``device_time_ms``), slot evaluations
+    (forward + reverse) per second, the bound and, with ``plain``, the plain
+    version's ms. Timing launches are not counted."""
+    import numpy as np
+    import torch
+
+    from symbolicregression_jl_tpu_torch import Options
+    from symbolicregression_jl_tpu_torch.ops import losses as L
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import (
+        fused_loss_grad, fused_loss_grad_reference, grad_work_counts,
+    )
+
+    opts = Options(maxsize=20, device=device.type, **CONFIG3_OPS)
+    opset, N = opts.operators, opts.max_nodes
+    Xn, yn = config3_data()
+    if rows < CONFIG3_ROWS:
+        idx = np.random.default_rng(rows).integers(0, CONFIG3_ROWS, rows)
+        Xn, yn = np.ascontiguousarray(Xn[:, idx]), np.ascontiguousarray(yn[idx])
+    X, y = torch.from_numpy(Xn).to(device), torch.from_numpy(yn).to(device)
+    prog_np, vals_np = random_programs(opset, P, N, CONFIG3_FEATURES, seed=P)
+    prog = torch.from_numpy(prog_np).to(device)
+    vals = torch.from_numpy(vals_np).to(device)
+    l2 = L.L2DistLoss
+    saved = fused_loss_grad.launches
+    ms = time_ms(lambda: fused_loss_grad(prog, vals, X, y, None, opset, l2))
+    dev_ms = device_time_ms(lambda: fused_loss_grad(prog, vals, X, y, None, opset, l2))
+    plain_ms = (time_ms(lambda: fused_loss_grad_reference(prog, vals, X, y, None, opset, l2),
+                        warmup=1, reps=20) if plain else None)
+    fused_loss_grad.launches = saved  # timing launches are not the main path's
+    work = grad_work_counts(prog_np, rows, CONFIG3_FEATURES, weighted=False)
+    bound_ops = work["operations"] / PEAK_F32_FLOPS * 1e3
+    bound_bytes = work["bytes"] / PEAK_BYTES * 1e3
+    rate = work["slot_evals"] / (ms * 1e-3)
+    print(f"fused_loss_grad timing (P={P}, R={rows}, N={N}): kernel {ms:.4f} ms (device alone "
+          f"{dev_ms:.4f} ms)" + (f", plain {plain_ms:.4f} ms" if plain else "")
+          + f", bound {max(bound_ops, bound_bytes):.5f} ms, slot evals (forward + reverse) "
+          f"{work['slot_evals']}, {rate:.4g} slot-evals/s", flush=True)
+    return {"P": P, "rows": rows, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "slot_evals_per_s": rate,
+            "bound_ms": max(bound_ops, bound_bytes),
+            "bound_by": "operations" if bound_ops >= bound_bytes else "bytes"}
 
 
 def block_setup(device, options, X, y, w, n_islands, ncycles, seed=0):
@@ -829,16 +936,14 @@ def b3_timing(device, islands=100, sweep=B3_SWEEP_ROWS, plain=True):
 def preds_kernel_check(device, rows=CONFIG3_ROWS):
     """Phase 3: B4 (the prediction matrix) against ops/interp.eval_trees at
     1024 trees x ``rows`` rows, every prediction within RTOL/ATOL with equal
-    non-finite positions. ``ms`` times the kernel's launch alone
-    (``eval_preds`` on programs already on the card); the entry point's
-    time, with its host packing and upload, is printed beside it. Returns
-    the record (without launches)."""
+    non-finite positions; then ``b4_timing`` at P = 1024. Returns the
+    record (without launches)."""
     import torch
 
     from symbolicregression_jl_tpu_torch import Options
     from symbolicregression_jl_tpu_torch.ops.interp import eval_trees
     from symbolicregression_jl_tpu_torch.ops.interp_cuda import (
-        eval_preds, eval_trees_kernel, preds_work_counts, unpack_programs_fused,
+        eval_trees_kernel, unpack_programs_fused,
     )
     from symbolicregression_jl_tpu_torch.ops.operators import (
         BINARY_OPS, UNARY_OPS, resolve_operators,
@@ -857,35 +962,65 @@ def preds_kernel_check(device, rows=CONFIG3_ROWS):
         ref = eval_trees(flat, X, ops)
         torch.cuda.synchronize()
         max_err = max(max_err, compare(f"eval_preds {tag}", got.reshape(-1), ref.reshape(-1)))
-    prog, vals = random_programs(opts.operators, 1024, N, CONFIG3_FEATURES, seed=1024)
-    flat = unpack_programs_fused(prog, vals, opts.operators)
-    prog_t, vals_t = torch.from_numpy(prog).to(device), torch.from_numpy(vals).to(device)
-    saved = eval_trees_kernel.launches
-    ms = time_ms(lambda: eval_preds(prog_t, vals_t, X, opts.operators))
-    entry_ms = time_ms(lambda: eval_trees_kernel(flat, X, opts.operators))
-    plain_ms = time_ms(lambda: eval_trees(flat, X, opts.operators), warmup=1, reps=20)
-    eval_trees_kernel.launches = saved
-    work = preds_work_counts(prog, rows, CONFIG3_FEATURES)
-    bound_ops = work["operations"] / PEAK_F32_FLOPS * 1e3
-    bound_bytes = work["bytes"] / PEAK_BYTES * 1e3
+    t = b4_timing(device, 1024, rows, plain=True)
     print(f"eval_preds check: config3 and every-operator corpora (1024 trees x "
           f"{rows} rows) equal eval_trees within rtol {RTOL}, atol {ATOL}, every tree held, "
-          f"max abs err {max_err:.3e}; timing (P=1024): kernel {ms:.4f} ms (programs on the "
-          f"card), entry point {entry_ms:.4f} ms (with host packing and upload), plain "
-          f"{plain_ms:.4f} ms, bound {max(bound_ops, bound_bytes):.5f} ms "
-          f"({'bytes' if bound_bytes >= bound_ops else 'operations'})", flush=True)
+          f"max abs err {max_err:.3e}", flush=True)
     return {
         "name": "eval_preds",
         "route": "cuda",
         "source": "symbolicregression_jl_tpu_torch/csrc/eval_preds.cu",
         "replaces": "symbolicregression_jl_tpu/ops/interp_pallas.py:73",
         "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bound_ops, bound_bytes),
-        "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
         "library_ms": None,
     }
+
+
+def b4_timing(device, P, rows=CONFIG3_ROWS, plain=False):
+    """B4 on P random config3 programs (seed P) x ``rows`` rows: the median
+    ms of the launch alone (``eval_preds`` on programs already on the card;
+    also the device's time alone, ``device_time_ms``), of the entry point (``eval_trees_kernel``, with its host packing and
+    upload), the bound and, with ``plain``, the plain version's ms. Timing
+    launches are not counted."""
+    import torch
+
+    from symbolicregression_jl_tpu_torch import Options
+    from symbolicregression_jl_tpu_torch.ops.interp import eval_trees
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import (
+        eval_preds, eval_trees_kernel, preds_work_counts, unpack_programs_fused,
+    )
+
+    Xn, _ = config3_data(n_rows=rows)
+    X = torch.from_numpy(Xn).to(device)
+    opts = Options(maxsize=20, device=device.type, **CONFIG3_OPS)
+    prog, vals = random_programs(opts.operators, P, opts.max_nodes, CONFIG3_FEATURES, seed=P)
+    flat = unpack_programs_fused(prog, vals, opts.operators)
+    prog_t, vals_t = torch.from_numpy(prog).to(device), torch.from_numpy(vals).to(device)
+    saved = eval_trees_kernel.launches
+    ms = time_ms(lambda: eval_preds(prog_t, vals_t, X, opts.operators))
+    dev_ms = device_time_ms(lambda: eval_preds(prog_t, vals_t, X, opts.operators))
+    entry_ms = time_ms(lambda: eval_trees_kernel(flat, X, opts.operators))
+    plain_ms = (time_ms(lambda: eval_trees(flat, X, opts.operators), warmup=1, reps=20)
+                if plain else None)
+    eval_trees_kernel.launches = saved
+    work = preds_work_counts(prog, rows, CONFIG3_FEATURES)
+    bound_ops = work["operations"] / PEAK_F32_FLOPS * 1e3
+    bound_bytes = work["bytes"] / PEAK_BYTES * 1e3
+    rate = work["slot_evals"] / (ms * 1e-3)
+    print(f"eval_preds timing (P={P}, R={rows}): kernel {ms:.4f} ms (programs on the card; "
+          f"device alone {dev_ms:.4f} ms), "
+          f"entry point {entry_ms:.4f} ms (with host packing and upload)"
+          + (f", plain {plain_ms:.4f} ms" if plain else "")
+          + f", bound {max(bound_ops, bound_bytes):.5f} ms "
+          f"({'bytes' if bound_bytes >= bound_ops else 'operations'}), "
+          f"{rate:.4g} slot-evals/s", flush=True)
+    return {"P": P, "ms": ms, "device_ms": dev_ms, "entry_ms": entry_ms, "plain_ms": plain_ms,
+            "slot_evals_per_s": rate, "bound_ms": max(bound_ops, bound_bytes),
+            "bound_by": "operations" if bound_ops >= bound_bytes else "bytes"}
 
 
 def operator_isolation(device, n_rows=10_000, spans=(2.0, 20.0)):

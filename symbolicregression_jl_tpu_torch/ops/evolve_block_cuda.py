@@ -66,10 +66,10 @@ class SrBlockCfg(ctypes.Structure):
     )
 
 
-#: (kernel argtypes, no smem entry point): cfg, threads, smem bytes
-#: (``block_smem``), the 6 population inputs, fnorm, iscal, fscal, X, y, w,
-#: the 11 outputs, stream
-_SIGNATURE = ([SrBlockCfg, ctypes.c_int, ctypes.c_size_t] + [ctypes.c_void_p] * 24, None)
+#: the entry point's argtypes: cfg, threads, smem bytes (``block_smem``),
+#: the 6 population inputs, fnorm, iscal, fscal, X, y, w, the 11 outputs,
+#: stream
+_SIGNATURE = [SrBlockCfg, ctypes.c_int, ctypes.c_size_t] + [ctypes.c_void_p] * 24
 
 
 def kernel_lib() -> ctypes.CDLL:

@@ -1,7 +1,7 @@
 """The fused tree kernels: CUDA kernels, plain versions, build, launch counts.
 
-Two hand-written CUDA kernels, each with a wrapper, a plain PyTorch version
-in this module and a launch count (``<wrapper>.launches``):
+Three hand-written CUDA kernels, each with a wrapper, a plain PyTorch version
+and a launch count (``<wrapper>.launches``):
 
 - B1, ``fused_loss`` (``csrc/fused_loss.cu``), replaces the TPU kernel
   ``symbolicregression_jl_tpu/ops/interp_pallas.py:258``
@@ -17,21 +17,24 @@ in this module and a launch count (``<wrapper>.launches``):
   ``pallas_diff_loss`` custom VJP: its forward is B1, and a call that needs
   the gradient makes one B2 launch instead, whose gradients the backward
   returns.
-
-The source files' headers say what bounds each kernel on the H100 and what
-its design does about that. A tensor on the CPU takes the plain version (the
-interpreter of ops/interp.py plus the same loss and reduction, and for B2
-its reverse sweep and autograd of the loss); a CUDA tensor launches the
-kernel or raises. Each source is built with ``nvcc`` into a shared library
-with a plain C interface, at first use, under ``_build/`` beside the package
-(listed in .gitignore), and bound with ``ctypes``.
-
 - B4, ``eval_trees_kernel`` (``csrc/eval_preds.cu``), replaces
   ``interp_pallas.py:73`` (``_make_kernel`` via ``_eval_pallas``): B1's
   forward pass writing the prediction matrix [P, R] instead of a loss. Its
   plain version is ``ops/interp.eval_trees``; ``eval_preds`` launches it on
   packed programs already on the card. As in the JAX package, only tests
   (and ``chip_smoke.py``) call it.
+
+All four kernels of the repo, these three and the evolve block, evaluate on
+one multi-row interpreter core, ``csrc/sr_interp.cuh``; they take
+stack-sound programs, as every postorder flattening of a tree is, and score
+any other program inf (B2: with zero gradients; B4 predicts NaN). The source
+files' headers say what bounds each kernel on the H100 and what its design
+does about that. A tensor on the CPU takes the plain version (the
+interpreter of ops/interp.py plus the same loss and reduction, and for B2
+its reverse sweep and autograd of the loss); a CUDA tensor launches the
+kernel or raises. Each source is built with ``nvcc`` into a shared library
+with a plain C interface, at first use, under ``_build/`` beside the package
+(listed in .gitignore), and bound with ``ctypes``.
 
 The evolve block B3 (``csrc/evolve_block.cu``) is built here with the others;
 its wrapper is ``ops/evolve_block_cuda.evolve_block``.
@@ -98,15 +101,15 @@ NVCC_FLAGS = (
 BUILD_INFO: dict = {}
 _LIBS: dict = {}
 _SIGNED: set = set()
-_THREADS = 256
-_GRAD_THREADS = 128
 _SMEM_LIMIT = 227 * 1024
-#: B1's block shape: threads, rows per thread (RPT; 1, 2 or 4) and the
+#: each kernel's block shape on the shared core, threads and rows per thread
+#: (RPT; 1, 2 or 4), chosen by measurement on the H100 (PERF.md), and the
 #: number of blocks the row chunks aim for (the card's 132 SMs hold several
-#: blocks each), chosen by measurement on the H100 (PERF.md)
-B1_THREADS = 128
-B1_RPT = 4
-B1_TARGET_BLOCKS = 132 * 32
+#: blocks each)
+B1_THREADS, B1_RPT = 128, 4
+B2_THREADS, B2_RPT = 256, 4
+B4_THREADS, B4_RPT = 128, 4
+TARGET_BLOCKS = 132 * 32
 
 
 def loss_kernel_eligible(opset: OperatorSet, loss_elem, dtype) -> bool:
@@ -255,22 +258,19 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
 
 
 _vp, _ci, _cf, _cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-#: (kernel argtypes, smem argtypes or None) of this module's kernels. B1:
-#: prog, prog_ld, vals, optab, n_ops, X, ldx, y, w, P, N, R, threads, rpt,
-#: tpb, rows_per_chunk, n_chunks, smem bytes (``loss_smem``), loss_id,
-#: q0..q3, partials, out, stream. B2: prog, prog_ld, vals, optab, n_ops, X,
-#: ldx, y, w, P, N, R, threads, rows_per_block, n_chunks, loss_id, q0..q3,
-#: partials, out, grads, stream. B4: prog, prog_ld, vals, optab, n_ops, X,
-#: ldx, P, N, R, threads, rows_per_block, n_chunks, preds, stream. B2's and
-#: B4's ``sr_*_smem``: N, threads, prog_ld, n_ops.
-_LOSS_ARGS = [_vp, _ci, _vp, _vp, _ci, _vp, _cl, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci,
-              _cf, _cf, _cf, _cf, _vp, _vp]
+_cs = ctypes.c_size_t
+#: the entry points' argtypes. B1: prog, prog_ld, vals, optab, n_ops, X,
+#: ldx, y, w, P, N, R, threads, rpt, tpb, rows_per_chunk, n_chunks, smem
+#: bytes (``loss_smem``), loss_id, q0..q3, partials, out, stream. B2: the
+#: same with smem bytes from ``grad_smem`` and grads after out. B4: prog,
+#: prog_ld, vals, optab, n_ops, X, ldx, P, N, R, threads, rpt, tpb,
+#: rows_per_chunk, n_chunks, smem bytes (``preds_smem``), preds, stream.
 _SIGNATURES = {
     "fused_loss": ([_vp, _ci, _vp, _vp, _ci, _vp, _cl, _vp, _vp] + [_ci] * 8
-                   + [ctypes.c_size_t, _ci] + [_cf] * 4 + [_vp, _vp, _vp], None),
-    "fused_loss_grad": (_LOSS_ARGS + [_vp, _vp], [_ci] * 4),
-    "eval_preds": ([_vp, _ci, _vp, _vp, _ci, _vp, _cl, _ci, _ci, _ci, _ci, _ci, _ci, _vp, _vp],
-                   [_ci] * 4),
+                   + [_cs, _ci] + [_cf] * 4 + [_vp, _vp, _vp]),
+    "fused_loss_grad": ([_vp, _ci, _vp, _vp, _ci, _vp, _cl, _vp, _vp] + [_ci] * 8
+                        + [_cs, _ci] + [_cf] * 4 + [_vp, _vp, _vp, _vp]),
+    "eval_preds": [_vp, _ci, _vp, _vp, _ci, _vp, _cl] + [_ci] * 8 + [_cs, _vp, _vp],
 }
 
 
@@ -320,90 +320,104 @@ def build_all(names=tuple(SOURCES)) -> dict:
     return {name: _LIBS[name] for name in names}
 
 
-def build(name: str = "fused_loss", signature=None) -> ctypes.CDLL:
-    """The loaded library of one kernel, built at first use. ``signature``,
-    (kernel argtypes, smem argtypes or None), is set on its entry point and,
-    for a kernel whose library sizes its own shared memory, on
-    ``sr_<name>_smem``, the first time it is given."""
+def build(name: str = "fused_loss", argtypes=None) -> ctypes.CDLL:
+    """The loaded library of one kernel, built at first use. ``argtypes``
+    are set on its entry point the first time they are given."""
     lib = _LIBS.get(name)
     if lib is None:
         lib = build_all((name,))[name]
-    if signature is not None and name not in _SIGNED:
-        getattr(lib, f"sr_{name}").argtypes = signature[0]
-        if signature[1] is not None:
-            smem_fn = getattr(lib, f"sr_{name}_smem")
-            smem_fn.argtypes, smem_fn.restype = signature[1], ctypes.c_size_t
+    if argtypes is not None and name not in _SIGNED:
+        getattr(lib, f"sr_{name}").argtypes = argtypes
         _SIGNED.add(name)
     return lib
 
 
-def _geometry(smem_fn, P: int, N: int, R: int, prog_ld: int, n_ops: int,
-              max_threads: int = _THREADS):
-    """(threads, rows_per_block, n_chunks): a power of two up to
-    ``max_threads`` (fewer for tiny R or wide programs), 4 rows per thread
-    unless that leaves the card with too few blocks."""
-    threads = 32
-    while threads < max_threads and threads < R:
-        threads *= 2
-    while threads > 32 and smem_fn(N, threads, prog_ld, n_ops) > _SMEM_LIMIT:
-        threads //= 2
-    if smem_fn(N, threads, prog_ld, n_ops) > _SMEM_LIMIT:
-        raise ValueError(f"programs of {N} slots do not fit in shared memory")
-    rows_per_block = threads * 4
-    if P * -(-R // rows_per_block) < 4 * 132:
-        rows_per_block = threads
-    while -(-R // rows_per_block) > 65535:
-        rows_per_block *= 2
-    return threads, rows_per_block, max(1, -(-R // rows_per_block))
+def _staged(N: int, tpb: int, n_ops: int) -> int:
+    """Bytes of what every core kernel stages per block beside its buffers:
+    ``tpb`` trees' decoded instructions (16 bytes a slot), programs,
+    constants and slot stacks, the operator table and the lengths."""
+    D = N // 2 + 2
+    return tpb * N * 16 + 4 * (tpb * (4 * N + 1) + tpb * N + tpb * D + n_ops + tpb)
 
 
 def loss_smem(N: int, threads: int, tpb: int, rpt: int, n_ops: int) -> int:
     """B1's dynamic shared memory per block in bytes, as its kernel carves
-    it (csrc/fused_loss.cu), passed to the launch: the reduction slots,
-    ``tpb`` trees' decoded instructions (16 bytes a slot), the value buffer
-    of D = N // 2 + 2 stack positions x threads x RPT f32, and the staged
-    programs, constants, slot stacks, operator table and lengths."""
+    it (csrc/fused_loss.cu), passed to the launch: the reduction slots, the
+    value buffer of D = N // 2 + 2 stack positions x threads x RPT f32, and
+    what ``_staged`` counts."""
     D = N // 2 + 2
-    return (3 * 8 * 8 + tpb * N * 16 + D * threads * rpt * 4
-            + 4 * (tpb * (4 * N + 1) + tpb * N + tpb * D + n_ops + tpb))
+    return 3 * 8 * 8 + D * threads * rpt * 4 + _staged(N, tpb, n_ops)
 
 
-def loss_geometry(P: int, N: int, R: int, n_ops: int = 64):
-    """B1's launch shape for P trees of N slots on R rows: (threads, rpt,
-    tpb, rows_per_chunk, n_chunks).
+def grad_smem(N: int, threads: int, tpb: int, rpt: int, n_ops: int) -> int:
+    """B2's dynamic shared memory per block in bytes, as its kernel carves
+    it (csrc/fused_loss_grad.cu): the reduction slots, the tape of N slots x
+    threads x RPT f32, the [slot][warp] f64 gradient sums, and what
+    ``_staged`` counts."""
+    return (3 * 8 * 8 + N * threads * rpt * 4 + N * (threads // 32) * 8
+            + _staged(N, tpb, n_ops))
+
+
+def preds_smem(N: int, threads: int, tpb: int, rpt: int, n_ops: int) -> int:
+    """B4's dynamic shared memory per block in bytes, as its kernel carves
+    it (csrc/eval_preds.cu): B1's without the reduction slots."""
+    return loss_smem(N, threads, tpb, rpt, n_ops) - 3 * 8 * 8
+
+
+def _core_geometry(P: int, N: int, R: int, smem, threads: int, rpt: int):
+    """A core kernel's launch shape for P trees of N slots on R rows:
+    (threads, rpt, tpb, rows_per_chunk, n_chunks); ``smem(threads, tpb,
+    rpt)`` is its shared memory per block.
 
     A thread evaluates ``rpt`` rows per tile, so a tree's group of threads
     covers ``group x rpt`` rows per tile. The group is the fewest whole warps
     (a power of two, at most ``threads``) that cover R in one tile; when that
     leaves room, a block holds ``tpb = threads / group`` trees. Otherwise
     (one tree per block) the rows are cut into chunks of whole tiles, as few
-    as give about B1_TARGET_BLOCKS blocks in all, and the chunks of a tree
-    get equal numbers of tiles. Threads and RPT shrink while the value
-    buffer does not fit in shared memory."""
-    threads, rpt = B1_THREADS, B1_RPT
-    while rpt > 1 and loss_smem(N, threads, 1, rpt, n_ops) > _SMEM_LIMIT:
+    as give about TARGET_BLOCKS blocks in all, and the chunks of a tree
+    get equal numbers of tiles. RPT and threads shrink while the buffers do
+    not fit in shared memory."""
+    while rpt > 1 and smem(threads, 1, rpt) > _SMEM_LIMIT:
         rpt //= 2
-    while threads > 32 and loss_smem(N, threads, 1, rpt, n_ops) > _SMEM_LIMIT:
+    while threads > 32 and smem(threads, 1, rpt) > _SMEM_LIMIT:
         threads //= 2
-    if loss_smem(N, threads, 1, rpt, n_ops) > _SMEM_LIMIT:
+    if smem(threads, 1, rpt) > _SMEM_LIMIT:
         raise ValueError(f"programs of {N} slots do not fit in shared memory")
     group = 32
     while group < threads and group * rpt < R:
         group *= 2
     tpb = threads // group
-    while tpb > 1 and loss_smem(N, threads, tpb, rpt, n_ops) > _SMEM_LIMIT:
+    while tpb > 1 and smem(threads, tpb, rpt) > _SMEM_LIMIT:
         tpb //= 2
         group *= 2
     tile = group * rpt
     n_tiles = max(1, -(-R // tile))
     if tpb > 1 or n_tiles == 1:
         return threads, rpt, tpb, n_tiles * tile, 1
-    n_chunks = min(n_tiles, max(1, -(-B1_TARGET_BLOCKS // max(P, 1))))
+    n_chunks = min(n_tiles, max(1, -(-TARGET_BLOCKS // max(P, 1))))
     per_chunk = -(-n_tiles // n_chunks)
     n_chunks = -(-n_tiles // per_chunk)
     if n_chunks > 65535:
         raise ValueError(f"{R} rows need more than 65535 row chunks")
     return threads, rpt, tpb, per_chunk * tile, n_chunks
+
+
+def loss_geometry(P: int, N: int, R: int, n_ops: int = 64):
+    """B1's launch shape (``_core_geometry``) at B1_THREADS x B1_RPT."""
+    return _core_geometry(P, N, R, lambda t, tpb, rpt: loss_smem(N, t, tpb, rpt, n_ops),
+                          B1_THREADS, B1_RPT)
+
+
+def grad_geometry(P: int, N: int, R: int, n_ops: int = 64):
+    """B2's launch shape (``_core_geometry``) at B2_THREADS x B2_RPT."""
+    return _core_geometry(P, N, R, lambda t, tpb, rpt: grad_smem(N, t, tpb, rpt, n_ops),
+                          B2_THREADS, B2_RPT)
+
+
+def preds_geometry(P: int, N: int, R: int, n_ops: int = 64):
+    """B4's launch shape (``_core_geometry``) at B4_THREADS x B4_RPT."""
+    return _core_geometry(P, N, R, lambda t, tpb, rpt: preds_smem(N, t, tpb, rpt, n_ops),
+                          B4_THREADS, B4_RPT)
 
 
 def _checked_launch_args(kernel: str, prog, vals, X, y, w, opset, loss_elem):
@@ -498,13 +512,12 @@ def eval_preds(prog, vals, X, opset: OperatorSet) -> torch.Tensor:
     if P == 0 or R == 0:
         return preds
     lib = build("eval_preds", _SIGNATURES["eval_preds"])
-    threads, rows_per_block, n_chunks = _geometry(lib.sr_eval_preds_smem, P, N, R, prog_ld,
-                                                  len(optab))
-    optab_t = _optab_tensor(optab, dev)
+    threads, rpt, tpb, rows_per_chunk, n_chunks = preds_geometry(P, N, R, len(optab))
     err = lib.sr_eval_preds(
-        prog.data_ptr(), prog_ld, vals.data_ptr(), optab_t.data_ptr(), len(optab),
-        X.data_ptr(), X.stride(0), P, N, R, threads, rows_per_block, n_chunks,
-        preds.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        prog.data_ptr(), prog_ld, vals.data_ptr(), _optab_tensor(optab, dev).data_ptr(),
+        len(optab), X.data_ptr(), X.stride(0), P, N, R, threads, rpt, tpb, rows_per_chunk,
+        n_chunks, preds_smem(N, threads, tpb, rpt, len(optab)), preds.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"eval_preds kernel launch failed: "
@@ -553,23 +566,25 @@ def fused_loss_grad(prog, vals, X, y, w, opset: OperatorSet, loss_elem):
     every slot of a tree whose loss is not ok).
 
     CPU tensors take ``fused_loss_grad_reference``. CUDA tensors launch the
-    kernel on the current stream (no synchronisation) or raise."""
+    kernel on the current stream (no synchronisation) or raise. As
+    ``fused_loss``, the kernel takes stack-sound programs: any other scores
+    inf with zero gradients there."""
     if X.device.type == "cpu":
         return fused_loss_grad_reference(prog, vals, X, y, w, opset, loss_elem)
     optab, spec, P, N, R, prog_ld = _checked_launch_args(
         "fused_loss_grad", prog, vals, X, y, w, opset, loss_elem
     )
     out = torch.empty((P,), dtype=torch.float32, device=X.device)
-    grads = torch.zeros((P, N), dtype=torch.float32, device=X.device)
+    grads = torch.empty((P, N), dtype=torch.float32, device=X.device)
     if P == 0:
         return out, grads
     if R == 0:
-        return out.fill_(torch.inf), grads
-    lib = build("fused_loss_grad", _SIGNATURES["fused_loss_grad"])
-    threads, rows_per_block, n_chunks = _geometry(lib.sr_fused_loss_grad_smem, P, N, R, prog_ld,
-                                                  len(optab), _GRAD_THREADS)
+        return out.fill_(torch.inf), grads.zero_()
+    threads, rpt, tpb, rows_per_chunk, n_chunks = grad_geometry(P, N, R, len(optab))
+    smem = grad_smem(N, threads, tpb, rpt, len(optab))
     _launch("fused_loss_grad", prog, vals, X, y, w, optab, spec, P, N, R, prog_ld,
-            (threads, rows_per_block, n_chunks), (P, n_chunks, 3 + N), (out, grads))
+            (threads, rpt, tpb, rows_per_chunk, n_chunks, smem),
+            (P, n_chunks, 3 + N) if n_chunks > 1 else (1,), (out, grads))
     fused_loss_grad.launches += 1
     return out, grads
 

@@ -15,7 +15,10 @@ gradients: rtol 1e-4 plus 1e-6 times the largest gradient of the same tree,
 with equal non-finite positions. B3 (the evolve block) against its plain
 version: every integer output equal, float outputs to the same rtol. B4
 (the prediction matrix): predictions to rtol 1e-5 on every operator, and
-each operator alone equal to the plain version on every row.
+each operator alone equal to the plain version on every row. B2 and B4
+evaluate on the postfix stack: a row that is not stack-sound scores inf
+with zero gradients (B2) or predicts NaN (B4); two B2 launches on the same
+inputs give identical bits.
 """
 
 import numpy as np
@@ -28,12 +31,15 @@ from symbolicregression_jl_tpu_torch.models.scorer import BatchScorer
 from symbolicregression_jl_tpu_torch.ops.flat import flatten_trees
 from symbolicregression_jl_tpu_torch.ops.interp_cuda import (
     DiffLoss,
+    eval_preds,
     eval_trees_kernel,
     fused_loss,
     fused_loss_grad,
     fused_loss_grad_reference,
     fused_loss_reference,
+    grad_geometry,
     pack_programs_fused,
+    preds_geometry,
 )
 from symbolicregression_jl_tpu_torch.ops.operators import BINARY_OPS, UNARY_OPS
 
@@ -461,8 +467,8 @@ def _assert_block_equal(got, want):
 
 
 def test_kernels_at_the_maximum_stack_depth(cuda):
-    """Programs that push every leaf before their first operator, in B1 and
-    in B3's scoring: equal to the plain versions."""
+    """Programs that push every leaf before their first operator, in B1, B2,
+    B4 and in B3's scoring: equal to the plain versions."""
     from symbolicregression_jl_tpu_torch.ops.evolve_block_cuda import (
         evolve_block, evolve_block_reference,
     )
@@ -479,6 +485,11 @@ def test_kernels_at_the_maximum_stack_depth(cuda):
     p, v = torch.from_numpy(prog).to(cuda), torch.from_numpy(vals).to(cuda)
     _close(fused_loss(p, v, X, y, None, opts.operators, opts.loss),
            fused_loss_reference(p, v, X, y, None, opts.operators, opts.loss))
+    lk, gk = fused_loss_grad(p, v, X, y, None, opts.operators, opts.loss)
+    lr, gr = fused_loss_grad_reference(p, v, X, y, None, opts.operators, opts.loss)
+    _close(lk, lr)
+    assert_grads_close(gk, gr)
+    _close(eval_preds(p, v, X, opts.operators), _plain_preds(p, v, X, opts.operators))
     args = _block_inputs(cuda, 4, False, populations=6, population_size=20, trees=trees)
     _assert_block_equal(evolve_block(*args), evolve_block_reference(*args))
 
@@ -509,3 +520,99 @@ def test_block_kernel_wide_programs_and_many_lanes(cuda, population_size, maxsiz
     for a, b in zip(got, again):
         assert torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
                            b.view(torch.int32) if b.is_floating_point() else b)
+
+
+def _plain_preds(prog, vals, X, opset):
+    """B4's plain version on X's device (on the card, torch's CUDA math, which
+    each operator of the kernel equals)."""
+    from symbolicregression_jl_tpu_torch.ops.interp import eval_trees
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import unpack_programs_fused
+
+    flat = unpack_programs_fused(prog.cpu().numpy(), vals.cpu().numpy(), opset)
+    return eval_trees(flat, X, opset)
+
+
+def _unsound(prog, opset):
+    """A copy of prog with two rows made not stack-sound (their binary
+    root's children swapped; a binary root cut off) and those rows."""
+    p = prog.clone()
+    N = (p.shape[1] - 1) // 4
+    length = p[:, 4 * N]
+    root = p[torch.arange(len(p), device=p.device), (length - 1).clamp_min(0)]
+    rows = torch.nonzero((length > 1) & (root >= 2 + opset.n_unary)).flatten()[:2].tolist()
+    a, b = rows
+    i = int(length[a]) - 1
+    p[a, N + i], p[a, 2 * N + i] = prog[a, 2 * N + i], prog[a, N + i]
+    p[b, 4 * N] = length[b] - 1
+    return p, rows
+
+
+@pytest.mark.parametrize("n_rows", [50, 10_000])
+def test_grad_kernel_is_deterministic(cuda, n_rows):
+    """Two B2 launches on the same inputs give identical bits: several trees
+    per block at 50 rows, row chunks summed by the finalize kernel at 10k."""
+    opts = Options(binary_operators=list(BINARY_OPS), unary_operators=list(UNARY_OPS),
+                   maxsize=20, device="cuda")
+    prog, vals, X, y, w = _inputs(opts, 300, n_rows, seed=7, device=cuda)
+    geom = grad_geometry(300, opts.max_nodes, n_rows)
+    assert (geom[2] > 1) if n_rows == 50 else (geom[4] > 1)
+    first = fused_loss_grad(prog, vals, X, y, w, opts.operators, opts.loss)
+    again = fused_loss_grad(prog, vals, X, y, w, opts.operators, opts.loss)
+    for a, b in zip(first, again):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_grad_kernel_unsound_rows(cuda):
+    """B2 evaluates on the postfix stack: a row that is not stack-sound
+    scores inf with zero gradients; the batch's other rows keep the plain
+    version's values."""
+    opts = Options(maxsize=20, device="cuda")
+    prog, vals, X, y, w = _inputs(opts, 64, 300, seed=9, device=cuda)
+    bad, rows = _unsound(prog, opts.operators)
+    lk, gk = fused_loss_grad(bad, vals, X, y, w, opts.operators, opts.loss)
+    lr, gr = fused_loss_grad_reference(prog, vals, X, y, w, opts.operators, opts.loss)
+    torch.cuda.synchronize()
+    keep = torch.ones(64, dtype=torch.bool)
+    keep[rows] = False
+    assert torch.isinf(lk[rows]).all() and (gk[rows] == 0).all()
+    _close(lk.cpu()[keep], lr.cpu()[keep])
+    assert_grads_close(gk.cpu()[keep], gr.cpu()[keep])
+
+
+@pytest.mark.parametrize("n_rows", [1, 33, 50])
+def test_kernels_several_trees_per_block(cuda, n_rows):
+    """Minibatch widths, where B2 and B4 pack several trees per block: equal
+    to the plain versions, weighted and unweighted."""
+    opts = Options(binary_operators=list(BINARY_OPS), unary_operators=list(UNARY_OPS),
+                   maxsize=20, device="cuda")
+    prog, vals, X, y, w = _inputs(opts, 301, n_rows, seed=n_rows + 3, device=cuda)
+    N = opts.max_nodes
+    assert grad_geometry(301, N, n_rows)[2] > 1 and preds_geometry(301, N, n_rows)[2] > 1
+    for wt in (None, w):
+        lk, gk = fused_loss_grad(prog, vals, X, y, wt, opts.operators, opts.loss)
+        lr, gr = fused_loss_grad_reference(prog, vals, X, y, wt, opts.operators, opts.loss)
+        _close(lk, lr)
+        assert_grads_close(gk, gr)
+    got = eval_preds(prog, vals, X, opts.operators).cpu().double().numpy()
+    want = _plain_preds(prog, vals, X, opts.operators).cpu().double().numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    m = np.isfinite(want)
+    np.testing.assert_allclose(got[m], want[m], rtol=1e-5, atol=1e-6)
+
+
+def test_preds_kernel_empty_and_unsound_programs(cuda):
+    """B4 writes 0 for an empty program on every row, as the plain version
+    does, and NaN for a row that is not stack-sound, which B1 scores inf."""
+    opts = Options(maxsize=20, device="cuda")
+    prog, vals, X, _, _ = _inputs(opts, 64, 777, seed=11, device=cuda)
+    N = opts.max_nodes
+    bad, rows = _unsound(prog, opts.operators)
+    empty = min(set(range(64)) - set(rows))
+    bad[empty, 4 * N] = 0
+    got = eval_preds(bad, vals, X, opts.operators).cpu()
+    assert (got[empty] == 0).all()
+    assert torch.isnan(got[rows]).all()
+    keep = torch.ones(64, dtype=torch.bool)
+    keep[rows + [empty]] = False
+    _close(got[keep], _plain_preds(prog, vals, X, opts.operators).cpu()[keep])

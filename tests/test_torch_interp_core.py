@@ -1,12 +1,16 @@
-"""The multi-row interpreter core of kernels B1 and B3
+"""The multi-row interpreter core of the kernels B1-B4
 (``csrc/sr_interp.cuh``), compiled for the host, and the host-side launch
-geometry of both kernels, on the CPU.
+geometry of the kernels, on the CPU.
 
-The core's decode (``decode_code`` for B1's packed programs, ``decode_words``
-for B3's packed words: stack positions from the postfix walk, unsound rows to
-a NaN constant) and its row walk (``tile_loss``: RPT interleaved rows
-per thread, rows ``r, r + g, ...`` for a group of g threads, the loss applied
-once per RPT rows) are plain ``__host__ __device__`` code. Here they are
+The core's decode (``decode_code`` for the packed programs of B1, B2 and B4,
+on the stack or on B2's tape with each binary operator's left child;
+``decode_words`` for B3's packed words: stack positions from the postfix
+walk, unsound rows to a NaN constant), its row walk (``tile_loss``: RPT
+interleaved rows per thread, rows ``r, r + g, ...`` for a group of g
+threads, the loss applied once per RPT rows) and B2's (``tile_loss_grad``:
+the forward on the tape, the loss's derivative, the reverse sweep handing
+each constant slot's adjoint sum to a sink) are plain ``__host__
+__device__`` code. Here they are
 compiled with the system C++ compiler (``-ffp-contract=off``, as the kernels
 are built with ``--fmad=false``) and driven the way a group of threads walks
 the rows on the card, thread by thread, for RPT 1, 2 and 4 and row counts
@@ -26,8 +30,18 @@ themselves agree to 1e-5 and stay below 1e6 are compared: XLA's CPU cosine
 loses accuracy at huge arguments (cos of an exp; 2% on a few config3
 trees), and gamma, tan and pow amplify an ulp past any fixed rtol.
 
-B1 evaluates on the postfix stack, so every batch a small lockstep,
-event-leg and block search hands it is held to the core's stack-sound rule.
+B2's losses and constant gradients are held to ``fused_loss_grad_reference``
+and to ``jax.value_and_grad`` of the JAX package's interpreter in
+tests/test_torch_lossgrad.py's convention (the row sum differentiated, then
+divided by w_sum): losses as above; gradients with equal non-finite
+positions and within rtol 1e-4 plus 1e-6 (plain version) or 1e-5 (JAX)
+times the largest finite gradient of the same tree, on the trees whose
+predictions the two packages agree on to 1e-6 relative, all finite and
+below 1e3 (every tree of the config3 corpus against the plain version).
+
+B1 and B2 evaluate on the postfix stack, so every batch a small lockstep,
+event-leg and block search hands them is held to the core's stack-sound
+rule.
 
 The geometry tests need no compiler: every row of every tree is evaluated
 exactly once, shared memory fits the H100's 227 KB, B3's warp split covers
@@ -69,6 +83,7 @@ from symbolicregression_jl_tpu_torch.ops.operators import (
 
 CSRC = Path(ic.__file__).resolve().parent.parent / "csrc"
 RTOL, ATOL = 1e-4, 1e-5
+GRAD_RTOL, GRAD_SCALE_ATOL = 1e-4, 1e-6
 CONFIG3 = dict(binary_operators=["add", "sub", "mult", "div"],
                unary_operators=["cos", "exp", "abs"])
 EVERY = dict(binary_operators=list(BINARY_OPS), unary_operators=list(UNARY_OPS))
@@ -155,6 +170,53 @@ void b1(const int* prog, int P, int N, const float* vals, const int* optab, cons
   }
 }
 
+// B2 on the core: the tape-mode decode, then each thread's tiles through
+// tile_loss_grad (forward on the tape, loss and its derivative, reverse
+// sweep), each thread summing its constants' adjoints per slot in f64; the
+// threads' sums are added in thread order. grads [P, N]: G / W where the
+// tree is ok, else 0.
+template <int RPT, sr::Dispatch DISPATCH>
+void b2(const int* prog, int P, int N, const float* vals, const int* optab, const float* X,
+        long long ldx, const float* y, const float* w, int R, int loss_id, const float* q,
+        int gs, float* out, float* grads) {
+  struct Sink {
+    double* g;
+    void operator()(int i, double s) { g[i] += s; }
+  };
+  const int stride = gs * RPT;
+  std::vector<sr::Instr> ins(N > 0 ? N : 1);
+  std::vector<int> st(sr::stack_slots(N));
+  const size_t n_tape = (size_t)N * stride + 4;
+  float* tape = static_cast<float*>(aligned_alloc(16, sizeof(float) * ((n_tape + 3) / 4 * 4)));
+  for (int p = 0; p < P; ++p) {
+    const int len = sr::decode_code(prog + (long long)p * (4 * N + 1), N, optab,
+                                    vals + (long long)p * N, stride, st.data(), ins.data(), true);
+    std::vector<sr::Acc> acc(gs, sr::Acc{0.0, 0.0, 0.0});
+    std::vector<double> gsum((size_t)gs * N, 0.0);
+    for (int base = 0; base < R; base += stride)
+      for (int gt = 0; gt < gs; ++gt) {
+        Sink sink{gsum.data() + (size_t)gt * N};
+        sr::tile_loss_grad<RPT, DISPATCH>(ins.data(), len, tape + gt * RPT, stride, X, ldx, y, w,
+                                          base + gt, gs, R, R, loss_id, q[0], q[1], q[2], q[3],
+                                          acc[gt], sink);
+      }
+    double L = 0.0, W = 0.0, C = 0.0;
+    for (int gt = 0; gt < gs; ++gt) {
+      L += acc[gt].l;
+      W += acc[gt].w;
+      C += acc[gt].n;
+    }
+    out[p] = sr::finish(L, W, C);
+    const bool ok = C == 0.0 && W > 0.0;
+    for (int i = 0; i < N; ++i) {
+      double G = 0.0;
+      for (int gt = 0; gt < gs; ++gt) G += gsum[(size_t)gt * N + i];
+      grads[(long long)p * N + i] = ok ? (float)(G / W) : 0.0f;
+    }
+  }
+  free(tape);
+}
+
 template <int RPT>
 void b3(const int* words, const float* consts, const int* length, int P, int N, int F,
         int n_unary, int n_binary, const int* optab, const float* X, long long ldx,
@@ -180,6 +242,26 @@ void h_b1(int rpt, const int* prog, int P, int N, const float* vals, const int* 
   if (rpt == 1) b1<1>(prog, P, N, vals, optab, X, ldx, y, w, R, loss_id, q, gs, out, preds, lens);
   if (rpt == 2) b1<2>(prog, P, N, vals, optab, X, ldx, y, w, R, loss_id, q, gs, out, preds, lens);
   if (rpt == 4) b1<4>(prog, P, N, vals, optab, X, ldx, y, w, R, loss_id, q, gs, out, preds, lens);
+}
+
+void h_b2(int rpt, int tree, const int* prog, int P, int N, const float* vals,
+          const int* optab, const float* X, long long ldx, const float* y, const float* w, int R,
+          int loss_id, const float* q, int gs, float* out, float* grads) {
+#define SR_B2(r)                                                                           \
+  if (rpt == r && tree)                                                                    \
+    b2<r, sr::kTree>(prog, P, N, vals, optab, X, ldx, y, w, R, loss_id, q, gs, out, grads); \
+  if (rpt == r && !tree)                                                                   \
+    b2<r, sr::kSwitch>(prog, P, N, vals, optab, X, ldx, y, w, R, loss_id, q, gs, out, grads);
+  SR_B2(1) SR_B2(2) SR_B2(4)
+#undef SR_B2
+}
+
+// The instructions decode_code gives one packed row, on the stack or on a
+// tape (`tape`), with stride 1: ins [N, 4] (op, a, w, l); returns the count.
+int h_decode(const int* prog, int N, const float* vals, const int* optab, int tape, int* ins) {
+  std::vector<int> st(sr::stack_slots(N));
+  return sr::decode_code(prog, N, optab, vals, 1, st.data(), reinterpret_cast<sr::Instr*>(ins),
+                         tape != 0);
 }
 
 void h_b3(int rpt, const int* words, const float* consts, const int* length, int P, int N,
@@ -411,6 +493,177 @@ def test_core_decode_rejects_unsound_programs(core):
     _assert_close(got[~unsound], want[~unsound])
 
 
+def _core_b2(core, rpt, topts, prog, vals, X, y, w, gs=32, tree=False):
+    """B2's walk on the core: (losses [P], grads [P, N])."""
+    optab = kernel_op_table(topts.operators).astype(np.int32)
+    loss_id, params = kernel_loss_spec(topts.loss)
+    q = np.zeros(4, np.float32)
+    q[: len(params)] = params
+    P, L = prog.shape
+    N, R = (L - 1) // 4, X.shape[1]
+    out = np.zeros(P, np.float32)
+    grads = np.full((P, N), np.nan, np.float32)
+    core.h_b2(ctypes.c_int(rpt), ctypes.c_int(int(tree)), _p(np.ascontiguousarray(prog)),
+              ctypes.c_int(P), ctypes.c_int(N), _p(vals), _p(optab), _p(np.ascontiguousarray(X)),
+              ctypes.c_longlong(R), _p(y), None if w is None else _p(w), ctypes.c_int(R),
+              ctypes.c_int(loss_id), _p(q), ctypes.c_int(gs), _p(out), _p(grads))
+    return out, grads
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_value_and_grad(ops: str):
+    """jit(vmap(value_and_grad)) of the row sum of w * loss through the JAX
+    package's scan interpreter, in tests/test_torch_lossgrad.py's convention
+    (B2's: the sum is differentiated, then divided by w_sum)."""
+    from symbolicregression_jl_tpu.ops.constant_opt import _eval_one
+
+    jopts = _case(ops, 1)[0]
+
+    def total(v, s, X, y, w):
+        return jnp.sum(jopts.loss(_eval_one(jopts.operators, s, v, X), y) * w)
+
+    return jax.jit(jax.vmap(jax.value_and_grad(total), in_axes=(0, 0, None, None, None)))
+
+
+def _jax_loss_grad(ops, jflat, X, y, w):
+    from symbolicregression_jl_tpu.ops.interp import _Structure
+
+    struct = _Structure(*(jnp.asarray(np.asarray(getattr(jflat, f))) for f in
+                          ("kind", "op", "lhs", "rhs", "feat", "length")))
+    wj = np.ones_like(y) if w is None else w
+    lj, gj = _jax_value_and_grad(ops)(jnp.asarray(jflat.val), struct, jnp.asarray(X),
+                                      jnp.asarray(y), jnp.asarray(wj))
+    wsum = float(np.sum(wj, dtype=np.float64))
+    return np.asarray(lj) / wsum, np.asarray(gj) / wsum
+
+
+def _well_conditioned(jopts, topts, jflat, X):
+    """Trees whose predictions the JAX package and the port's plain
+    interpreter agree on to 1e-6 relative, all finite and below 1e3: where
+    a gradient comparison tests the sweep, not the conditioning of a
+    composed tree (tests/test_torch_lossgrad.py's rule)."""
+    pj = np.asarray(j_eval_trees(jflat, jnp.asarray(X), jopts.operators), np.float64)
+    pt = t_eval_trees(convert.flat_trees(jflat), torch.from_numpy(X),
+                      topts.operators).double().numpy()
+    with np.errstate(invalid="ignore"):
+        close = np.abs(pj - pt) <= 1e-6 * np.maximum(np.abs(pj), 1e-3)
+        return (np.isfinite(pj) & close & (np.abs(pj) < 1e3)).all(axis=1)
+
+
+def _assert_grads_close(got, want, trees, scale_atol):
+    """Gradients of the selected trees: equal NaN and inf positions, and
+    |got - want| <= GRAD_RTOL |want| + scale_atol x the tree's largest
+    finite |want|."""
+    got, want = np.asarray(got, np.float64)[trees], np.asarray(want, np.float64)[trees]
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    fin = np.isfinite(want)
+    scale = np.max(np.where(fin, np.abs(want), 0.0), axis=1, keepdims=True)
+    err = np.where(fin, np.abs(got - want), 0.0)
+    lim = GRAD_RTOL * np.abs(want) + scale_atol * scale
+    assert not (fin & (err > lim)).any(), np.max(np.where(fin, err - lim, -np.inf))
+
+
+@pytest.mark.parametrize("ops", ["config3", "every"])
+@pytest.mark.parametrize("weighted", [False, True], ids=["plain", "weighted"])
+@pytest.mark.parametrize("n_rows", [1, 33, 1000])
+@pytest.mark.parametrize("rpt", [1, 2, 4])
+def test_core_grads_match_jax_and_plain(core, rpt, n_rows, weighted, ops):
+    """B2's tape forward and reverse sweep: losses and constant gradients
+    against fused_loss_grad_reference and against jax.value_and_grad of the
+    JAX package's interpreter; gradients only on constant slots."""
+    jopts, topts, jflat, prog, vals, X, y, w = _case(ops, n_rows)
+    wt = w if weighted else None
+    lk, gk = _core_b2(core, rpt, topts, prog, vals, X, y, wt)
+    lr, gr = (a.numpy() for a in ic.fused_loss_grad_reference(
+        *(torch.from_numpy(a) for a in (prog, vals, X, y)),
+        None if wt is None else torch.from_numpy(wt), topts.operators, topts.loss))
+    lj, gj = _jax_loss_grad(ops, jflat, X, y, wt)
+    const = np.asarray(jflat.kind) == 1
+    np.testing.assert_array_equal(gk[~const], 0.0)
+    keep = _well_conditioned(jopts, topts, jflat, X) & (np.abs(lj) < 1e6)
+    assert keep.sum() >= 20 and (gj[keep][const[keep]] != 0).sum() >= 10
+    every = np.ones(len(prog), bool)
+    _assert_close(lk, lr, None if ops == "config3" else keep)
+    _assert_grads_close(gk, gr, every if ops == "config3" else keep, GRAD_SCALE_ATOL)
+    _assert_close(lk, lj, keep)
+    _assert_grads_close(np.where(const, gk, 0.0), gj, keep, 1e-5)
+
+
+def test_core_grads_dispatch_tree_equals_switch(core):
+    """The reverse sweep's two dispatches run the same derivatives: the tree
+    and the switch give identical bits."""
+    for ops in ("config3", "every"):
+        jopts, topts, jflat, prog, vals, X, y, w = _case(ops, 1000)
+        a = _core_b2(core, 4, topts, prog, vals, X, y, w, tree=False)
+        b = _core_b2(core, 4, topts, prog, vals, X, y, w, tree=True)
+        for u, v in zip(a, b):
+            np.testing.assert_array_equal(u.view(np.int32), v.view(np.int32))
+
+
+@pytest.mark.parametrize("ops, maxsize", [("config3", 20), ("every", 20), ("config3", 40)])
+def test_core_decode_records_left_children(core, ops, maxsize):
+    """decode_code on a tape (stride 1): each slot's values go to its own
+    slot (a == i) and a binary operator's `l` is its left child's slot from
+    the postfix walk, which is the program's lhs; on the stack a binary's
+    result and left operand share its stack position `a`, and `l` is 0."""
+    jopts, topts, jflat, prog, vals, X, y, w = _case(ops, 33, maxsize=maxsize,
+                                                      n_trees=96 if maxsize == 20 else 48)
+    P, L = prog.shape
+    N = (L - 1) // 4
+    nu = topts.operators.n_unary
+    optab = kernel_op_table(topts.operators).astype(np.int32)
+    binaries = 0
+    for p in range(P):
+        row = np.ascontiguousarray(prog[p])
+        v = np.ascontiguousarray(vals[p])
+        length = int(row[4 * N])
+        tape = np.zeros((max(N, 1), 4), np.int32)
+        stack = np.zeros((max(N, 1), 4), np.int32)
+        assert core.h_decode(_p(row), ctypes.c_int(N), _p(v), _p(optab), ctypes.c_int(1),
+                             _p(tape)) == length
+        assert core.h_decode(_p(row), ctypes.c_int(N), _p(v), _p(optab), ctypes.c_int(0),
+                             _p(stack)) == length
+        walk, height = [], 0
+        for i in range(length):
+            code = int(row[i])
+            binary = code >= 2 + nu
+            if code >= 2:
+                right = walk.pop()
+                left = walk.pop() if binary else None
+            assert tape[i, 1] == i
+            if binary:
+                binaries += 1
+                assert tape[i, 3] == left == row[N + i] and right == row[2 * N + i]
+                assert stack[i, 1] == height - 2 and stack[i, 3] == 0
+            else:
+                assert tape[i, 3] == 0 and stack[i, 3] == 0
+            height += 1 if code <= 1 else (-1 if binary else 0)
+            walk.append(i)
+    assert binaries >= 50
+
+
+def test_core_grads_unsound_rows(core):
+    """A row that is not stack-sound scores inf with zero gradients in B2's
+    walk; the batch's other rows keep the plain version's values."""
+    jopts, topts, jflat, prog, vals, X, y, w = _case("config3", 33)
+    N = (prog.shape[1] - 1) // 4
+    length = prog[:, 4 * N]
+    root = prog[np.arange(len(prog)), length - 1]
+    swapped, cut = np.nonzero((length > 1) & (root >= 2 + topts.operators.n_unary))[0][:2]
+    bad = prog.copy()
+    i = length[swapped] - 1
+    bad[swapped, N + i], bad[swapped, 2 * N + i] = prog[swapped, 2 * N + i], prog[swapped, N + i]
+    bad[cut, 4 * N] = length[cut] - 1
+    lk, gk = _core_b2(core, 4, topts, bad, vals, X, y, w)
+    lr, gr = (a.numpy() for a in ic.fused_loss_grad_reference(
+        *(torch.from_numpy(a) for a in (prog, vals, X, y, w)), topts.operators, topts.loss))
+    unsound = np.isin(np.arange(len(prog)), [swapped, cut])
+    assert np.isinf(lk[unsound]).all() and (gk[unsound] == 0).all()
+    _assert_close(lk[~unsound], lr[~unsound])
+    _assert_grads_close(gk, gr, ~unsound, GRAD_SCALE_ATOL)
+
+
 def _sound(core, topts, prog, vals):
     """Per row of a packed B1 batch: whether the core decodes it stack-sound."""
     P, L = prog.shape
@@ -424,26 +677,28 @@ def _sound(core, topts, prog, vals):
 
 @pytest.mark.parametrize("path", ["lockstep", "device-events", "device-block"])
 def test_main_path_batches_decode_sound(core, monkeypatch, path):
-    """B1 evaluates on the postfix stack, so it scores a program whose
-    children are not the stack's top entries as inf, where the plain version
-    and B2 follow lhs/rhs. Every batch the main paths hand B1 on a small
-    search must therefore decode stack-sound: lockstep scoring
-    (``pack_programs_fused`` of ``flatten_trees``), and the device engine's
-    ``pack_batch`` of its state (initial scoring, event-leg candidates,
-    constant optimization's line searches, simplify rescoring), on the event
-    leg and on the block (its plain version here)."""
+    """B1 and B2 evaluate on the postfix stack, so they score a program whose
+    children are not the stack's top entries as inf (B2 with zero
+    gradients), where the plain versions follow lhs/rhs. Every batch the
+    main paths hand B1 or B2 on a small search must therefore decode
+    stack-sound: lockstep scoring (``pack_programs_fused`` of
+    ``flatten_trees``), and the device engine's ``pack_batch`` of its state
+    (initial scoring, event-leg candidates, constant optimization's line
+    searches and its gradients through ``DiffLoss``, simplify rescoring), on
+    the event leg and on the block (its plain version here)."""
     import symbolicregression_jl_tpu_torch.models.device_search as ds
     import symbolicregression_jl_tpu_torch.models.scorer as scorer_mod
 
-    seen = []
-    for mod in (ds, scorer_mod):
-        real = mod.fused_loss
+    seen, seen_grad = [], []
+    for mod, name, into in ((ds, "fused_loss", seen), (scorer_mod, "fused_loss", seen),
+                            (ic, "fused_loss_grad", seen_grad)):
+        real = getattr(mod, name)
 
-        def rec(prog, vals, *a, _real=real, **k):
-            seen.append((prog.cpu().numpy().copy(), vals.detach().cpu().numpy().copy()))
+        def rec(prog, vals, *a, _real=real, _into=into, **k):
+            _into.append((prog.cpu().numpy().copy(), vals.detach().cpu().numpy().copy()))
             return _real(prog, vals, *a, **k)
 
-        monkeypatch.setattr(mod, "fused_loss", rec)
+        monkeypatch.setattr(mod, name, rec)
     monkeypatch.setenv("SR_ENGINE_BLOCK", "1" if path == "device-block" else "0")
     rng = np.random.default_rng(1)
     X = rng.normal(size=(2, 64)).astype(np.float32)
@@ -454,8 +709,10 @@ def test_main_path_batches_decode_sound(core, monkeypatch, path):
                      scheduler="lockstep" if path == "lockstep" else "device")
     T.equation_search(X, y, options=opts, niterations=2, verbosity=0)
     assert len(seen) >= 3
+    # constant optimization's gradients: B2 on the device engine only
+    assert (len(seen_grad) >= 2) == (path != "lockstep")
     rows = 0
-    for prog, vals in seen:
+    for prog, vals in seen + seen_grad:
         sound = _sound(core, opts, prog, vals)
         assert sound.all(), prog[~sound][:3]
         rows += len(prog)
@@ -531,13 +788,49 @@ def test_b1_geometry_covers_every_row_once(P, N, R):
 
 def test_b1_geometry_fills_the_card_at_the_engine_shapes():
     """At the lockstep (1024 x 10k) and constant-optimization (4,200 x 10k)
-    shapes the chunks give some B1_TARGET_BLOCKS blocks, with equal tiles per
+    shapes the chunks give some TARGET_BLOCKS blocks, with equal tiles per
     chunk."""
     for P in (1024, 4200):
         threads, rpt, tpb, rows_per_chunk, n_chunks = ic.loss_geometry(P, 24, 10_000)
         assert tpb == 1 and rows_per_chunk % (threads * rpt) == 0
         blocks = P * n_chunks
-        assert ic.B1_TARGET_BLOCKS <= blocks < ic.B1_TARGET_BLOCKS + 2 * P
+        assert ic.TARGET_BLOCKS <= blocks < ic.TARGET_BLOCKS + 2 * P
+
+
+_CORE_GEOMETRY = {"b2": (lambda: ic.grad_geometry, lambda: ic.grad_smem),
+                  "b4": (lambda: ic.preds_geometry, lambda: ic.preds_smem)}
+
+
+@pytest.mark.parametrize("P, N, R", [(1024, 24, 10_000), (4200, 24, 10_000), (1024, 24, 50),
+                                     (300, 24, 1), (300, 24, 33), (7, 24, 1000),
+                                     (1024, 24, 2048), (64, 44, 777), (16, 60, 10_000),
+                                     (1, 255, 5), (4200, 24, 20_001)])
+@pytest.mark.parametrize("kernel", ["b2", "b4"])
+def test_core_geometry_covers_every_row_once(kernel, P, N, R):
+    """B2's and B4's launch shapes, B1's rule on their own shared memory:
+    every row of every tree evaluated once, within the H100's 227 KB,
+    minibatches packed several trees to a block."""
+    geometry, smem = (f() for f in _CORE_GEOMETRY[kernel])
+    geom = geometry(P, N, R)
+    threads, rpt, tpb, rows_per_chunk, n_chunks = geom
+    assert rpt in (1, 2, 4) and threads <= 256 and threads % 32 == 0
+    assert tpb >= 1 and threads % (32 * tpb) == 0
+    assert smem(N, threads, tpb, rpt, 64) <= 227 * 1024
+    assert 1 <= n_chunks <= 65535 and n_chunks * rows_per_chunk >= R
+    assert (n_chunks - 1) * rows_per_chunk < R  # no empty chunk
+    assert (_rows_of_b1(geom, R) == 1).all()
+    if R <= 32 * rpt:  # minibatches: one warp per tree, the block full of trees
+        assert tpb == threads // 32 and n_chunks == 1
+
+
+@pytest.mark.parametrize("kernel, P", [("b2", 4200), ("b4", 1024)])
+def test_core_geometry_fills_the_card_at_the_engine_shapes(kernel, P):
+    """B2 at constant optimization's 4,200 x 10k rows and B4 at 1024 x 10k:
+    one tree per block, chunks of whole tiles, some TARGET_BLOCKS blocks."""
+    geometry, _ = (f() for f in _CORE_GEOMETRY[kernel])
+    threads, rpt, tpb, rows_per_chunk, n_chunks = geometry(P, 24, 10_000)
+    assert tpb == 1 and rows_per_chunk % (threads * rpt) == 0
+    assert ic.TARGET_BLOCKS <= P * n_chunks < ic.TARGET_BLOCKS + 2 * P
 
 
 def _block_cfg(islands=100, pop=100, maxsize=20, n_rows=10_000, **kw):
