@@ -49,7 +49,18 @@ JAX or of the JAX package. Phases, each of which raises on failure:
    torch.profiler (kernel time by name, the device's idle share);
 6. the README quick start through ``SRRegressor`` on the card, under the
    lockstep scheduler, then twice under ``scheduler="device"`` with one
-   seed, through B3 (the two frontiers must be identical).
+   seed, through B3 (the two frontiers must be identical);
+7. ``resume``, kill and resume on the card: (a) lockstep at the quick
+   start's size run twice uninterrupted (identical frontiers), then killed
+   at iteration 2 by ``peer_death`` and resumed from its snapshot: the
+   frontier must equal the uninterrupted run's string for string, and
+   num_evals too; (b) the device engine at config3 width on the block,
+   killed at iteration 2 and resumed from its ``exact=False`` snapshot: no
+   frontier lost, more evaluations, the block's kernel, and each
+   snapshot's host ms; (c) the engine with ``nan_flood@1:frac=0.75`` and a
+   snapshot after every iteration: a finite frontier; (d) ``ckpt_crash@1`` on lockstep: the first snapshot
+   stays loadable and a resume from it finishes. The resumed runs' launches
+   are the kernels' ``resume`` path.
 
 The last lines are the kernels JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}`` (``count`` is the number of cards the
@@ -92,6 +103,9 @@ B3_SWEEP_ROWS = (256, 2500, 10_000)
 # (each of the two device-engine runs) to fit the time limit.
 QUICKSTART_ITERATIONS = 6
 DEVICE_QUICKSTART_ITERATIONS = 3
+# the resume phase's lockstep runs: the quick start's size (200 x 2, 15 x 33)
+# at RESUME_ITERATIONS iterations of RESUME_CYCLES cycles
+RESUME_ITERATIONS, RESUME_CYCLES = 3, 10
 
 # H100 SXM peaks (NVIDIA data sheet; at the 700 W power limit)
 PEAK_F32_FLOPS = 67e12
@@ -762,10 +776,19 @@ def block_kernel_check(device, islands=100, rows=CONFIG3_ROWS):
     max_err = 0.0
     n_cases = 0
 
-    def check(tag, options, Xc, yc, wc, n_islands, cycles=(1, 8), seed=0):
+    def check(tag, options, Xc, yc, wc, n_islands, cycles=(1, 8), seed=0, flood=None):
         nonlocal max_err, n_cases
         for ncyc in cycles:
             cfg, pop, scal = block_setup(device, options, Xc, yc, wc, n_islands, ncyc, seed)
+            if flood is not None:
+                # what a nan_flood fault leaves: the losses of the leading
+                # islands NaN, and a third of their scores (the NaN members
+                # the const-opt leg tuned)
+                k = max(1, int(round(n_islands * flood)))
+                loss, score = pop[3].clone(), pop[4].clone()
+                loss[:k] = float("nan")
+                score[:k, ::3] = float("nan")
+                pop = pop[:3] + (loss, score) + pop[5:]
             args = (*pop, *scal, Xc, yc, wc, cfg, options.operators, options.loss)
             got = evolve_block(*args)
             ref = evolve_block_reference(*args)
@@ -773,8 +796,10 @@ def block_kernel_check(device, islands=100, rows=CONFIG3_ROWS):
             max_err = max(max_err, compare_block(f"{tag}, {ncyc} cycles", got, ref))
             n_cases += 1
 
-    # (a) config3 width: 100 islands x 100 members, 10k rows x 5 features
+    # (a) config3 width: 100 islands x 100 members, 10k rows x 5 features;
+    # and after a nan_flood fault over 75% of the islands
     check("config3", c3, X, y, None, islands)
+    check("config3 nan_flood", c3, X, y, None, islands, seed=5, flood=0.75)
     # (c) the quick-start shape, weighted and unweighted; the all-operator
     # corpus; every built-in real loss at a small shape
     rng = np.random.default_rng(0)
@@ -802,7 +827,8 @@ def block_kernel_check(device, islands=100, rows=CONFIG3_ROWS):
         check(f"loss {name}", lo, Xs, ys, ws, 4, cycles=(8,), seed=13)
     print(f"block kernel check: {n_cases} cases equal to the plain version on every integer "
           f"output, max abs err of float outputs {max_err:.3e} (rtol {RTOL}, atol {ATOL}; "
-          f"all {len(BINARY_OPS) + len(UNARY_OPS)} operators in the all-operator corpus)", flush=True)
+          f"all {len(BINARY_OPS) + len(UNARY_OPS)} operators in the all-operator corpus; "
+          f"config3 with 75% of the islands' losses NaN)", flush=True)
 
     # (b) a whole block of ENGINE_CYCLES cycles at config3 width: the
     # kernel's own consistency
@@ -1275,6 +1301,215 @@ def quick_start_device(device, niterations=DEVICE_QUICKSTART_ITERATIONS):
           f"ran on B3 ({evolve_block.launches} launches)", flush=True)
 
 
+def _frontier(res):
+    o = res.options
+    return [(m.get_complexity(o), m.loss, m.tree.string_tree(o.operators, precision=17))
+            for m in res.pareto_frontier]
+
+
+def resume_lockstep(device, tmp):
+    """Phase 7 (a) and (d): lockstep at the quick start's size. (a) Run
+    uninterrupted twice (identical frontiers), then with a snapshot after
+    every iteration and ``peer_death@2:mode=raise``, then resumed from the
+    snapshot: the frontier string for string and the evaluation count equal
+    the uninterrupted run's. (d) ``ckpt_crash@1``: the first snapshot stays
+    loadable and a resume from it finishes. Returns B1's launches in the
+    resumed run of (a)."""
+    import numpy as np
+
+    from symbolicregression_jl_tpu_torch import Options, equation_search, load_checkpoint
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import fused_loss
+    from symbolicregression_jl_tpu_torch.utils.faults import CheckpointWriteCrash, FaultInjected
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(2, 200)).astype(np.float32)
+    y = (2 * np.cos(X[1]) + X[0] ** 2 - 2).astype(np.float32)
+    base = os.path.join(tmp, "lockstep.pkl")
+
+    def opts(checkpoint_file=base, **kw):
+        return Options(binary_operators=["+", "-", "*"], unary_operators=["cos"],
+                       ncycles_per_iteration=RESUME_CYCLES, seed=0, save_to_file=False,
+                       progress=False, device=device.type, checkpoint_file=checkpoint_file,
+                       **kw)
+
+    n = RESUME_ITERATIONS
+    t0 = time.perf_counter()
+    full = [equation_search(X, y, options=opts(), niterations=n, verbosity=0)
+            for _ in range(2)]
+    if _frontier(full[0]) != _frontier(full[1]):
+        _fail("two uninterrupted lockstep runs with one seed gave different frontiers")
+    try:
+        equation_search(X, y, options=opts(checkpoint_every=1,
+                                           fault_spec="peer_death@2:mode=raise"),
+                        niterations=n, verbosity=0)
+        _fail("the peer_death fault did not stop the lockstep run")
+    except FaultInjected:
+        pass
+    ck = load_checkpoint(base)
+    if (ck.iteration, ck.exact, ck.scheduler) != (2, True, "lockstep"):
+        _fail(f"lockstep snapshot: iteration {ck.iteration}, exact {ck.exact}, {ck.scheduler}")
+    fused_loss.launches = 0
+    resumed = equation_search(X, y, options=opts(), niterations=n, verbosity=0,
+                              resume_from=base)
+    b1 = fused_loss.launches
+    if _frontier(resumed) != _frontier(full[0]):
+        _fail("the resumed lockstep frontier differs from the uninterrupted run's")
+    if resumed.num_evals != full[0].num_evals:
+        _fail(f"resumed num_evals {resumed.num_evals} != {full[0].num_evals}")
+    if b1 == 0 or b1 != resumed.scoring_dispatches:
+        _fail(f"{b1} B1 launches in the resumed lockstep run for "
+              f"{resumed.scoring_dispatches} scoring dispatches")
+    print(f"resume (a), lockstep: 200 x 2, 15 x 33, {n} iterations x {RESUME_CYCLES} cycles: "
+          f"two uninterrupted runs identical; killed at iteration 2 (peer_death), resumed "
+          f"from the snapshot of iteration {ck.iteration}: frontier identical string for "
+          f"string ({len(full[0].pareto_frontier)} members), num_evals {resumed.num_evals:.0f} "
+          f"equal; B1 {b1} launches in the resumed run; {time.perf_counter() - t0:.3f} s",
+          flush=True)
+
+    t0 = time.perf_counter()
+    crash = os.path.join(tmp, "crash.pkl")
+    try:
+        equation_search(X, y, options=opts(checkpoint_every=1, fault_spec="ckpt_crash@1",
+                                           checkpoint_file=crash),
+                        niterations=n, verbosity=0)
+        _fail("the ckpt_crash fault did not stop the lockstep run")
+    except CheckpointWriteCrash:
+        pass
+    orphans = [f for f in os.listdir(tmp) if f.startswith("crash.pkl.") and f.endswith(".tmp")]
+    ck = load_checkpoint(crash)
+    if ck.iteration != 1 or not orphans:
+        _fail(f"after ckpt_crash: snapshot of iteration {ck.iteration}, orphans {orphans}")
+    after = equation_search(X, y, options=opts(checkpoint_file=crash), niterations=n,
+                            verbosity=0, resume_from=crash)
+    if not all(np.isfinite(m.loss) for m in after.pareto_frontier) or not after.pareto_frontier:
+        _fail("the resume after ckpt_crash gave no finite frontier")
+    print(f"resume (d), ckpt_crash@1 on lockstep: the second write died before its rename "
+          f"({orphans[0]} left), the snapshot of iteration 1 loaded and the resume from it "
+          f"finished (best loss {min(m.loss for m in after.pareto_frontier):.6g}); "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    return b1
+
+
+def resume_engine(device, tmp, iterations=4, cycles=ENGINE_CYCLES, rows=CONFIG3_ROWS):
+    """Phase 7 (b) and (c): the device engine at config3 width on the block.
+    (b) A snapshot after every iteration and ``peer_death@2:mode=raise``;
+    the snapshot of iteration 2 (exact=False, scheduler "device") resumes as
+    a warm start on the block without losing its frontier. (c)
+    ``nan_flood@1:frac=0.75``, with a snapshot after every iteration: the
+    search ends with a finite frontier.
+    Returns the launches of B1, B2 and B3 in the resumed run of (b)."""
+    import numpy as np
+
+    import symbolicregression_jl_tpu_torch.models.device_search as ds
+    from symbolicregression_jl_tpu_torch import Options, equation_search, load_checkpoint
+    from symbolicregression_jl_tpu_torch.ops.evolve_block_cuda import evolve_block
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import fused_loss, fused_loss_grad
+    from symbolicregression_jl_tpu_torch.utils.faults import FaultInjected
+
+    X, y = config3_data(n_rows=rows)
+    base = os.path.join(tmp, "engine.pkl")
+
+    def opts(checkpoint_file=base, **kw):
+        return Options(populations=100, population_size=100, maxsize=20,
+                       ncycles_per_iteration=cycles, seed=0, save_to_file=False,
+                       progress=False, device=device.type, scheduler="device",
+                       checkpoint_file=checkpoint_file, **CONFIG3_OPS, **kw)
+
+    # a snapshot's host time splits into the decode of the live state (its
+    # readback and unflattening) and the write (flatten, pickle, fsync)
+    decode_s = []
+    decode = ds._decode_state_populations
+
+    def timed_decode(*args, **kwargs):
+        t = time.perf_counter()
+        out = decode(*args, **kwargs)
+        decode_s.append(time.perf_counter() - t)
+        return out
+
+    t0 = time.perf_counter()
+    with engine_block_env(True):
+        try:
+            equation_search(X, y, options=opts(checkpoint_every=1,
+                                               fault_spec="peer_death@2:mode=raise"),
+                            niterations=iterations, verbosity=0)
+            _fail("the peer_death fault did not stop the engine")
+        except FaultInjected:
+            pass
+        ck = load_checkpoint(base)
+        if (ck.iteration, ck.exact, ck.scheduler) != (2, False, "device"):
+            _fail(f"engine snapshot: iteration {ck.iteration}, exact {ck.exact}, "
+                  f"{ck.scheduler}")
+        # the resumed run snapshots every iteration too: its engine_stats
+        # time each snapshot on the host
+        fused_loss.launches = fused_loss_grad.launches = evolve_block.launches = 0
+        ds._decode_state_populations = timed_decode
+        try:
+            res = equation_search(X, y, options=opts(checkpoint_every=1),
+                                  niterations=iterations, verbosity=0, resume_from=base)
+        finally:
+            ds._decode_state_populations = decode
+        b1, b2, b3 = fused_loss.launches, fused_loss_grad.launches, evolve_block.launches
+    st = res.engine_stats
+    ck_best = min(m.loss for m in ck.pareto_frontier)
+    best = min(m.loss for m in res.pareto_frontier)
+    if st["block"] != "kernel" or st["iterations"] != iterations - 2:
+        _fail(f"resumed engine: block {st['block']!r}, {st['iterations']} iterations")
+    if not best <= ck_best + 1e-5:
+        _fail(f"resumed engine best loss {best} above the snapshot's {ck_best}")
+    if not res.num_evals > ck.num_evals:
+        _fail(f"resumed engine num_evals {res.num_evals} <= the snapshot's {ck.num_evals}")
+    if b1 != st["score_calls"] or b2 != st["grad_calls"] or b3 != st["iterations"] or not b2:
+        _fail(f"resumed engine launches B1 {b1}, B2 {b2}, B3 {b3} for {st['score_calls']} "
+              f"scoring calls, {st['grad_calls']} gradient calls, {st['iterations']} iterations")
+    ck_ms = [round(t * 1e3, 3) for t in st["checkpoint_seconds"]]
+    dec_ms = [round(t * 1e3, 3) for t in decode_s[:len(ck_ms)]]
+    legs_ms = {k: round(v / st["iterations"] * 1e3, 3) for k, v in st["host_seconds"].items()}
+    print(f"resume (b), device engine on the block: 100x100, {rows} rows, {iterations} "
+          f"iterations x {cycles} cycles, killed at iteration 2 (peer_death); snapshot of "
+          f"iteration {ck.iteration} (exact {ck.exact}, {sum(p.n for p in ck.populations)} "
+          f"members, best {ck_best:.6g}, num_evals {ck.num_evals:.0f}); resumed for "
+          f"{st['iterations']} iterations: best {best:.6g}, num_evals {res.num_evals:.0f}; "
+          f"launches B1 {b1}, B2 {b2}, B3 {b3}; snapshot host ms per iteration "
+          f"{ck_ms} (decode of the live state {dec_ms}, the rest the write); the "
+          f"iteration's legs, host ms per iteration: {legs_ms}; "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    t0 = time.perf_counter()
+    with engine_block_env(True):
+        flooded = equation_search(X, y, options=opts(
+            checkpoint_file=os.path.join(tmp, "flood.pkl"), checkpoint_every=1,
+            fault_spec="nan_flood@1:frac=0.75"), niterations=3, verbosity=0)
+    fst = flooded.engine_stats
+    front = flooded.pareto_frontier
+    if fst["block"] != "kernel" or fst["nan_flooded_islands"] != 75:
+        _fail(f"nan_flood engine: block {fst['block']!r}, "
+              f"{fst['nan_flooded_islands']} islands flooded")
+    if not front or not all(np.isfinite(m.loss) for m in front):
+        _fail("the nan_flood engine run gave no finite frontier")
+    finite = np.mean([np.isfinite(m.loss) for p in flooded.populations for m in p.members])
+    print(f"resume (c), nan_flood@1:frac=0.75 on the engine (block): "
+          f"{fst['nan_flooded_islands']} of 100 islands flooded at iteration 2 of 3; finite "
+          f"frontier of {len(front)} members, best {min(m.loss for m in front):.6g}; "
+          f"{finite:.1%} of the final members finite; snapshot host ms per iteration "
+          f"{[round(t * 1e3, 3) for t in fst['checkpoint_seconds']]}; "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    return b1, b2, b3
+
+
+def resume_path(device):
+    """Phase 7: kill and resume of both schedulers, and the two faults of
+    the checkpoint writer and the NaN storm. Returns the launches of B1, B2
+    and B3 on the resumed runs."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        lock_b1 = resume_lockstep(device, tmp)
+        b1, b2, b3 = resume_engine(device, tmp)
+    print(f"resume phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    return lock_b1 + b1, b2, b3
+
+
 def main() -> int:
     try:
         import torch
@@ -1326,10 +1561,12 @@ def main() -> int:
                               "device SR_ENGINE_BLOCK=0": event_b3}
     # B4 is on no main path: as in the JAX package, only tests call it
     b4["launches_by_path"] = {"lockstep": 0, "device": 0, "device SR_ENGINE_BLOCK=0": 0}
-    for rec in (b1, b2, b3, b4):
-        rec["launches"] = sum(rec["launches_by_path"].values())
     quick_start(device)
     quick_start_device(device)
+    resume_b1, resume_b2, resume_b3 = resume_path(device)
+    for rec, n in ((b1, resume_b1), (b2, resume_b2), (b3, resume_b3), (b4, 0)):
+        rec["launches_by_path"]["resume"] = n
+        rec["launches"] = sum(rec["launches_by_path"].values())
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path"]

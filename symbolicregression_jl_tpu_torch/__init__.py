@@ -1,7 +1,8 @@
-"""PyTorch port of the symbolic regression framework (first slice).
+"""PyTorch port of the symbolic regression framework.
 
-The lockstep ``equation_search`` / ``SRRegressor`` path of
-``symbolicregression_jl_tpu`` in PyTorch: host regularized evolution over
+The ``equation_search`` / ``SRRegressor`` paths of ``symbolicregression_jl_tpu``
+in PyTorch (the lockstep scheduler and the device-resident engine, with
+checkpoints, ``resume_from`` and fault injection): host regularized evolution over
 island populations, batched scoring through a hand-written CUDA fused
 eval+loss kernel (``csrc/fused_loss.cu``), batched constant optimization
 through the interpreter's reverse-sweep gradient, and a complexity-indexed
@@ -25,8 +26,45 @@ from .ops import (
     flatten_trees,
     resolve_operators,
 )
-from .ops.losses import loss_zoo, make_loss
+# the loss zoo's re-exports, as the JAX root has them (the reference
+# re-exports the LossFunctions.jl names, SymbolicRegression.jl
+# src/SymbolicRegression.jl:101-127): accepted by
+# Options(elementwise_loss=...), by object or by string ("LPDistLoss(3)")
+from .ops.losses import (
+    DWDMarginLoss,
+    ExpLoss,
+    HuberLoss,
+    L1DistLoss,
+    L1EpsilonInsLoss,
+    L1HingeLoss,
+    L2DistLoss,
+    L2EpsilonInsLoss,
+    L2HingeLoss,
+    L2MarginLoss,
+    LogCoshLoss,
+    LogisticLoss,
+    LogitDistLoss,
+    LogitMarginLoss,
+    LPDistLoss,
+    ModifiedHuberLoss,
+    PerceptronLoss,
+    PeriodicLoss,
+    QuantileLoss,
+    SigmoidLoss,
+    SmoothedL1HingeLoss,
+    ZeroOneLoss,
+    loss_zoo,
+    make_loss,
+)
 from .analysis.ir_verify import FlatIRError, verify_flat_trees
+from .utils.checkpoint import (
+    CheckpointError,
+    SearchCheckpoint,
+    SearchCheckpointer,
+    latest_checkpoint,
+    load_checkpoint,
+    load_saved_state,
+)
 
 __version__ = "0.1.0"
 
@@ -51,9 +89,37 @@ __all__ = [
     "eval_trees_with_ok",
     "flatten_trees",
     "resolve_operators",
+    "load_saved_state",
+    "CheckpointError",
+    "FlatIRError",
+    "SearchCheckpoint",
+    "SearchCheckpointer",
+    "latest_checkpoint",
+    "load_checkpoint",
+    "verify_flat_trees",
+    "DWDMarginLoss",
+    "ExpLoss",
+    "HuberLoss",
+    "L1DistLoss",
+    "L1EpsilonInsLoss",
+    "L1HingeLoss",
+    "L2DistLoss",
+    "L2EpsilonInsLoss",
+    "L2HingeLoss",
+    "L2MarginLoss",
+    "LogCoshLoss",
+    "LogitDistLoss",
+    "LogitMarginLoss",
+    "LPDistLoss",
+    "ModifiedHuberLoss",
+    "PerceptronLoss",
+    "PeriodicLoss",
+    "QuantileLoss",
+    "SigmoidLoss",
+    "SmoothedL1HingeLoss",
+    "ZeroOneLoss",
+    "LogisticLoss",
     "loss_zoo",
     "make_loss",
-    "FlatIRError",
-    "verify_flat_trees",
     "__version__",
 ]

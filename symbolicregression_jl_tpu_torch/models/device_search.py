@@ -39,6 +39,16 @@ copies iteration i's packed tensor into pinned host memory without
 blocking and consumes iteration i-1's while the card runs iteration i, so
 the hall of fame, the simplify pool and the stop conditions lag one
 iteration (the JAX package's documented staleness).
+
+Checkpoints and faults (the JAX package's ``device_search.py:1851-1867,
+2710-2725, 2841-2866``): ``peer_death`` fires at the top of each iteration
+and ``nan_flood`` writes NaN into the losses of the leading islands on the
+device; a due snapshot (``Options.checkpoint_every``) decodes the live
+state after the iteration's legs — one full readback, never inside the
+evolve leg — into an ``exact=False`` SearchCheckpoint. Resuming from it is
+a rescored warm start through ``saved_state``; the engine's generator is
+seeded anew from the search's numpy stream, so the resumed run keeps the
+snapshot's frontier but not the uninterrupted run's trajectory.
 """
 
 from __future__ import annotations
@@ -727,12 +737,17 @@ def device_search_one_output(
     verbosity: int = 1,
     output_file: str | None = None,
     stdin_reader=None,
+    out_j: int = 1,
+    checkpoint_base: str | None = None,
 ):
     """Run one output's search on the device engine. Returns SearchResult
     (the contract of search._search_one_output), with ``engine_stats``:
-    scoring and gradient calls, legs run, and seconds per leg (host clock,
-    and device time from CUDA events on the card)."""
+    scoring and gradient calls, legs run, seconds per leg (host clock, and
+    device time from CUDA events on the card), the host seconds of each
+    snapshot written and the islands a ``nan_flood`` fault poisoned."""
     from ..search import SearchResult  # late import (module cycle)
+    from ..utils import faults
+    from ..utils.checkpoint import SearchCheckpoint, SearchCheckpointer, options_fingerprint
     from ..utils.export_csv import save_hall_of_fame
     from ..utils.progress import ProgressReporter
     from ..utils.stdin_reader import StdinReader
@@ -744,6 +759,9 @@ def device_search_one_output(
     N = options.max_nodes
     eng_dt = np.dtype(options.dtype)
     vdt = getattr(torch, eng_dt.name)
+    injector = faults.install(options.fault_spec) if options.fault_spec else faults.active()
+    ckptr = (SearchCheckpointer.from_options(options, checkpoint_base)
+             if checkpoint_base else None)
 
     # baseline loss of the constant mean predictor (reference
     # update_baseline_loss!, SymbolicRegression.jl src/LossFunctions.jl:201-215),
@@ -832,6 +850,8 @@ def device_search_one_output(
     start_time = time.time()
     stop_reason = None
     iterations_run = 0
+    checkpoint_seconds = []
+    flooded_islands = 0
 
     def consume(buf: np.ndarray):
         """Fold one iteration's packed readback into the hall of fame, then
@@ -852,6 +872,17 @@ def device_search_one_output(
                 )
 
     for it in range(niterations):
+        # simulated preemption (fault-injection harness): one call per
+        # iteration, before its legs
+        injector.maybe_die("peer_death")
+        if injector.armed("nan_flood"):
+            hit = injector.fire("nan_flood")
+            if hit is not None:
+                # poison the leading islands' losses on the device: the NaN
+                # storm selection and the pool injections must wash out
+                flooded_islands = max(1, int(round(I * float(hit.get("frac", 0.75)))))
+                bad = (torch.arange(I, device=device) < flooded_islands)[:, None]
+                state = state._replace(loss=torch.where(bad, torch.nan, state.loss))
         state = run_iteration_fused(state, data, ctx, copt=const_opt, leg=timer.leg,
                                     block=block_fn)
         with timer.leg("readback"):
@@ -867,6 +898,18 @@ def device_search_one_output(
         if output_file and options.save_to_file:
             save_hall_of_fame(output_file, hof, options, dataset.variable_names,
                               num_evals=num_evals)
+        if ckptr is not None and ckptr.due(it + 1):
+            # best-effort snapshot (exact=False) of the live state; in the
+            # pipelined loop the hall of fame and num_evals lag one iteration
+            t_ck = time.perf_counter()
+            ck_pops, _, _ = _decode_state_populations(state, I, P, cfg, options)
+            ckptr.save(SearchCheckpoint(
+                iteration=it + 1, niterations=niterations, scheduler="device", exact=False,
+                populations=ck_pops, hall_of_fame=hof.copy(), num_evals=float(num_evals),
+                options_fingerprint=options_fingerprint(options),
+                wall_time=time.time() - start_time, out_j=out_j,
+            ))
+            checkpoint_seconds.append(time.perf_counter() - t_ck)
         reporter.update(hof, num_evals, dataset.variable_names,
                         force=it == niterations - 1, y_variable_name=dataset.y_variable_name)
 
@@ -927,6 +970,8 @@ def device_search_one_output(
         "grad_calls": scorer.grad_calls,
         "host_seconds": dict(timer.host),
         "device_seconds": timer.device_seconds(),
+        "checkpoint_seconds": checkpoint_seconds,
+        "nan_flooded_islands": flooded_islands,
     }
     return result
 

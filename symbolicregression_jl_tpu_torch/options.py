@@ -206,15 +206,24 @@ class Options:
     # iteration's readback is consumed before the next iteration starts)
     async_readback: bool | None = None
 
-    # -- fault tolerance: later slices. Setting checkpoint_every*, fault_spec,
-    # on_peer_loss or exchange_topology raises; the rest only serve those.
+    # -- fault tolerance -------------------------------------------------------
+    # full-state checkpoint cadence: every N iterations and/or every S
+    # wall-clock seconds (either alone enables checkpointing). Snapshots are
+    # written atomically as {checkpoint_file}.{seq:06d} with a rolling window
+    # of checkpoint_keep files (utils/checkpoint.py). equation_search(
+    # resume_from=...) restores the newest: bit-exact continuation on the
+    # lockstep scheduler, rescored warm start on the device engine.
     checkpoint_every: int | None = None
     checkpoint_every_seconds: float | None = None
-    checkpoint_file: str | None = None
+    checkpoint_file: str | None = None  # base path; default "sr_checkpoint.pkl"
     checkpoint_keep: int = 3
+    # multi-host exchange policies: a later slice (setting on_peer_loss or
+    # exchange_topology raises); heartbeat_every_seconds only serves them
     on_peer_loss: str = "raise"
     heartbeat_every_seconds: float = 5.0
     exchange_topology: str = "flat"
+    # deterministic fault injection (utils/faults.py) — same grammar as the
+    # SR_FAULT_SPEC env var, e.g. "nan_flood@2:frac=0.9;ckpt_crash@1"
     fault_spec: str | None = None
     # flat-IR invariant verification (analysis/ir_verify.py) of every scoring
     # batch: True/False overrides, None defers to the SR_DEBUG_CHECKS env
@@ -309,6 +318,12 @@ class Options:
             )
         if self.checkpoint_keep < 1:
             raise ValueError("checkpoint_keep must be >= 1")
+        if self.fault_spec:
+            # validate the grammar eagerly — a typo'd spec that never fires
+            # would silently test nothing
+            from .utils.faults import parse_fault_spec
+
+            parse_fault_spec(self.fault_spec)
         if self.use_recorder and self.crossover_probability > 0:
             # recorder lineage is single-parent; same constraint as the
             # reference (SymbolicRegression.jl/src/RegularizedEvolution.jl:26-28)
@@ -433,10 +448,6 @@ def _reject_out_of_slice(o: Options) -> None:
                           "A, slice 2: NelderMead in the device engine")
     if o.data_sharding is not None:
         raise _not_ported(f"data_sharding={o.data_sharding!r}", "A, slice 4: parallel/sharding.py")
-    if o.checkpoint_every is not None or o.checkpoint_every_seconds is not None:
-        raise _not_ported("checkpointing", "A, slice 3: utils/checkpoint.py")
-    if o.fault_spec:
-        raise _not_ported("fault injection", "A, slice 3: utils/faults.py")
     if o.on_peer_loss != "raise" or o.exchange_topology != "flat":
         raise _not_ported("multi-host exchange policies", "A, slice 4: parallel/")
     if np.dtype(o.dtype).kind == "c":

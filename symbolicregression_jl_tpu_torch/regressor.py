@@ -1,6 +1,7 @@
 """Scikit-learn-style estimators: SRRegressor / MultitargetSRRegressor.
 
-Copy of ``symbolicregression_jl_tpu/regressor.py`` over the PyTorch search.
+Copy of ``symbolicregression_jl_tpu/regressor.py`` over the PyTorch search
+(``from_file`` reads hall-of-fame CSVs through utils/checkpoint.py).
 
 The framework's counterpart of the reference's MLJ interface
 (SymbolicRegression.jl/src/MLJInterface.jl): `SRRegressor` embeds every search
@@ -110,12 +111,55 @@ class SRRegressor:
         n_outputs: int | None = None,
         **option_kwargs: Any,
     ):
-        """Restore an estimator from hall-of-fame CSV checkpoint(s) — not
-        ported yet (it loads through utils/checkpoint.py)."""
-        raise NotImplementedError(
-            "SRRegressor.from_file is not ported to the PyTorch package yet "
-            "(ROADMAP.md, A, slice 3: utils/checkpoint.py)"
+        """Restore an estimator from hall-of-fame CSV checkpoint(s) written
+        by a previous fit (``save_to_file`` / ``output_file``) of either
+        package — the PySR-style resume path; the reference ecosystem's
+        ``from_file`` counterpart (its core CSV is write-only).
+        ``option_kwargs`` must recreate the operator set the file was
+        written with.
+
+        ``predict`` / ``equations_`` / ``full_report`` work immediately on
+        the restored frontier; a subsequent ``fit`` warm-starts from it
+        (losses are rescored against the new data). Multitarget: pass one
+        path per output (the ``{base}.out{j}`` files) plus ``n_outputs`` so
+        a wrong path count fails here instead of on a later fit."""
+        import os
+
+        from .utils.checkpoint import load_saved_state
+
+        option_kwargs.pop("warm_start", None)  # from_file always warm-starts
+        model = cls(
+            niterations=niterations,
+            verbosity=verbosity,
+            selection_method=selection_method,
+            warm_start=True,
+            **option_kwargs,
         )
+        options = model._make_options()
+        paths = (
+            [path]
+            if isinstance(path, (str, bytes, os.PathLike))
+            else list(path)
+        )
+        if not cls._multitarget and n_outputs not in (None, 1):
+            raise ValueError(
+                f"SRRegressor is single-output (got n_outputs={n_outputs}); "
+                "use MultitargetSRRegressor.from_file"
+            )
+        if not cls._multitarget and len(paths) != 1:
+            raise ValueError("SRRegressor.from_file takes exactly one path")
+        if cls._multitarget and n_outputs is not None and len(paths) != n_outputs:
+            raise ValueError(
+                f"MultitargetSRRegressor.from_file got {len(paths)} checkpoint "
+                f"path(s) but n_outputs={n_outputs}; pass one path per output"
+            )
+        states = [
+            load_saved_state(p, options, variable_names) for p in paths
+        ]
+        model.state_ = states if cls._multitarget else states[0]
+        model.options_ = options
+        model.feature_names_in_ = variable_names
+        return model
 
     # -- fit / predict -------------------------------------------------------
 

@@ -2,8 +2,9 @@
 
 Counterpart of ``symbolicregression_jl_tpu/search.py`` for the lockstep
 scheduler (below) and the device-resident engine (``scheduler="device"``,
-models/device_search.py); checkpoint/resume, fault injection and the async
-scheduler are later slices of the port and raise NotImplementedError.
+models/device_search.py), with full-state checkpoints, ``resume_from`` and
+fault injection (utils/checkpoint.py, utils/faults.py); the async scheduler
+and the multi-host per-process snapshots are later slices of the port.
 
 Reference: SymbolicRegression.jl/src/SymbolicRegression.jl:360-1129. Keeps the
 6-phase driver shape (validate -> create -> initialize -> warmup -> main loop
@@ -123,6 +124,16 @@ def _rescore_population(
     return pop
 
 
+def _poison_populations(pops: list[Population], frac: float) -> None:
+    """nan_flood fault: overwrite the leading ``frac`` of every population's
+    losses/scores with NaN — the storm the quarantine must absorb."""
+    for pop in pops:
+        k = max(1, int(round(frac * pop.n)))
+        for m in pop.members[:k]:
+            m.loss = float("nan")
+            m.score = float("nan")
+
+
 def _quarantine_nonfinite(
     pops: list[Population], hof: HallOfFame, options: Options
 ) -> int:
@@ -170,9 +181,29 @@ def _search_one_output(
     stdin_reader=None,
     recorder=None,
     out_j: int = 1,
+    resume=None,
+    checkpoint_base: str | None = None,
 ) -> SearchResult:
+    from .models.pop_member import counter_state, restore_counter_state
+    from .utils import faults
+    from .utils.checkpoint import (
+        SearchCheckpoint,
+        SearchCheckpointer,
+        options_fingerprint,
+    )
+
     scorer = BatchScorer(dataset, options)
     nfeatures = dataset.n_features
+    injector = (
+        faults.install(options.fault_spec)
+        if options.fault_spec
+        else faults.active()
+    )
+    ckptr = (
+        SearchCheckpointer.from_options(options, checkpoint_base)
+        if checkpoint_base
+        else None
+    )
     from .utils.recorder import Recorder
 
     # a multi-output equation_search owns ONE shared recorder (dumped once,
@@ -185,7 +216,21 @@ def _search_one_output(
     # -- initialize (warm start re-scores saved members: reference
     #    _initialize_search!, SymbolicRegression.jl/src/SymbolicRegression.jl:722-795)
     hof = HallOfFame(options.maxsize)
-    if saved_state is not None:
+    start_iter = 0
+    if resume is not None:
+        # bit-exact continuation (SearchCheckpoint, exact=True): populations,
+        # hall of fame, RNG stream, and the member id counters are restored
+        # VERBATIM — no rescoring, no refill — so iteration start_iter
+        # proceeds exactly as the uninterrupted run's would have
+        pops = list(resume.populations)
+        hof = resume.hall_of_fame
+        scorer.num_evals = float(resume.num_evals)
+        if resume.rng_state is not None:
+            rng.bit_generator.state = resume.rng_state
+        if resume.counters is not None:
+            restore_counter_state(resume.counters)
+        start_iter = int(resume.iteration)
+    elif saved_state is not None:
         # best-effort continuation: the eval budget spans the whole lineage
         scorer.num_evals = float(getattr(saved_state, "num_evals", 0.0) or 0.0)
         pops = []
@@ -213,6 +258,9 @@ def _search_one_output(
         ]
 
     stats = RunningSearchStatistics(options.maxsize)
+    if resume is not None and resume.stats_frequencies is not None:
+        stats.frequencies[:] = np.asarray(resume.stats_frequencies)
+        stats.normalize()
     stats_list = [stats] * len(pops)  # shared: lockstep updates at barriers only
     early_stop = options.early_stop_fn()
     if options.jit_warmup:
@@ -234,7 +282,11 @@ def _search_one_output(
         niterations, options, use_bar=bool(options.progress), verbosity=verbosity
     )
 
-    for iteration in range(niterations):
+    for iteration in range(start_iter, niterations):
+        # simulated preemption (peer_death fault): fires BEFORE the
+        # iteration's work, so the last completed checkpoint is the resume
+        # point — exactly the window a real kill would leave
+        injector.maybe_die("peer_death")
         curmaxsize = get_cur_maxsize(iteration, niterations, options)
 
         best_seen = s_r_cycle_lockstep(
@@ -249,6 +301,9 @@ def _search_one_output(
             recorder=recorder,
         )
         optimize_and_simplify_populations(pops, scorer, options, rng, recorder)
+        hit = injector.fire("nan_flood")
+        if hit is not None:
+            _poison_populations(pops, float(hit.get("frac", 0.75)))
         if recorder.enabled:
             for i, pop in enumerate(pops):
                 recorder.record_population(out_j, i + 1, iteration, pop, options)
@@ -290,6 +345,26 @@ def _search_one_output(
                 output_file, hof, options, dataset.variable_names,
                 num_evals=scorer.num_evals,
             )
+
+        if ckptr is not None and ckptr.due(iteration + 1):
+            # end-of-iteration boundary: everything iteration+1 will consume
+            # (RNG stream, counters, stats, populations, hof) is captured, so
+            # the resumed run replays the remaining iterations bit-exactly
+            ckptr.save(SearchCheckpoint(
+                iteration=iteration + 1,
+                niterations=niterations,
+                scheduler="lockstep",
+                exact=True,
+                populations=pops,
+                hall_of_fame=hof,
+                num_evals=float(scorer.num_evals),
+                rng_state=rng.bit_generator.state,
+                stats_frequencies=stats.frequencies.copy(),
+                counters=counter_state(),
+                options_fingerprint=options_fingerprint(options),
+                wall_time=time.time() - start_time,
+                out_j=out_j,
+            ))
 
         reporter.update(
             hof,
@@ -399,15 +474,18 @@ def equation_search(
     ``y_variable_names`` names the output variable(s) for rendering (str, or
     list with one entry per output row).
 
-    ``resume_from`` (checkpoint resume) is not ported yet and raises
-    NotImplementedError.
+    ``resume_from`` restores a full-state checkpoint written by a prior run
+    with ``Options.checkpoint_every`` (a snapshot path or the checkpoint
+    base, newest snapshot wins; multi-output runs append ``.out{j}`` like
+    ``output_file``). On the lockstep scheduler, resuming a matching-options
+    run from the port's own snapshot continues BIT-EXACTLY — the final hall
+    of fame is identical to the uninterrupted run's. The device engine, a
+    snapshot the JAX package wrote, and any cross-scheduler resume
+    warm-start instead: populations and hall of fame are rescored and the
+    remaining ``niterations - iteration`` iterations run. Mutually exclusive
+    with ``saved_state``.
     """
     options = options or Options()
-    if resume_from is not None:
-        raise NotImplementedError(
-            "resume_from (checkpoint resume) is not ported to the PyTorch "
-            "package yet (ROADMAP.md, A, slice 3: utils/checkpoint.py)"
-        )
     if parallelism is not None:
         try:
             scheduler = _PARALLELISM_TO_SCHEDULER[parallelism]
@@ -453,6 +531,33 @@ def equation_search(
     if saved is not None and not isinstance(saved, (list, tuple)):
         saved = [saved]
 
+    resumes = None
+    if resume_from is not None:
+        if saved is not None:
+            raise ValueError(
+                "resume_from and saved_state are mutually exclusive: a "
+                "checkpoint already carries the populations and hall of fame"
+            )
+        import warnings
+
+        from .utils.checkpoint import load_checkpoint
+        from .utils.checkpoint import options_fingerprint as _ofp
+
+        resumes = []
+        for j in range(nout):
+            # multi-host runs also write per-process .p{id} snapshots: a
+            # later slice (ROADMAP.md, A, slice 4)
+            ck = load_checkpoint(resume_from if nout == 1 else f"{resume_from}.out{j + 1}")
+            if ck.options_fingerprint and tuple(ck.options_fingerprint) != _ofp(options):
+                warnings.warn(
+                    "resume_from: checkpoint was written with different "
+                    "search options (operators/sizes/seed); continuing as a "
+                    "best-effort warm start — exact resume is not guaranteed",
+                    stacklevel=2,
+                )
+                ck.exact = False  # demote: verbatim state may not even fit
+            resumes.append(ck)
+
     if y_variable_names is None:
         y_names = [None] * nout
     elif isinstance(y_variable_names, str):
@@ -492,6 +597,12 @@ def equation_search(
         base = options.output_file or _default_base
         return base if nout == 1 else f"{base}.out{j + 1}"
 
+    def _ckpt_base(j):
+        # mirrors _output_file's .out{j} convention; the schedulers gate on
+        # Options.checkpoint_every / checkpoint_every_seconds being set
+        base = options.checkpoint_file or "sr_checkpoint.pkl"
+        return base if nout == 1 else f"{base}.out{j + 1}"
+
     # per-output RNG streams: multi-output fits spawn one child stream per
     # output for EVERY scheduler, so serial and concurrent execution of the
     # same fit are seed-for-seed identical (the concurrent path below cannot
@@ -508,24 +619,34 @@ def equation_search(
 
     def _run_one(j, dataset, reader=None, quiet=False):
         saved_j = saved[j] if saved is not None else None
-        if options.scheduler == "device":
-            from .models.device_search import device_search_one_output
-
-            return device_search_one_output(
-                dataset, options, niterations, child_rngs[j],
-                saved_state=saved_j,
-                verbosity=0 if quiet else verbosity,
-                output_file=_output_file(j),
-                stdin_reader=reader,
-            )
-        return _search_one_output(
-            dataset, options, niterations, child_rngs[j],
+        nit = niterations
+        resume_kw = {}
+        if resumes is not None:
+            ck = resumes[j]
+            if options.scheduler == "lockstep" and ck.exact and ck.scheduler == "lockstep":
+                # bit-exact continuation: the lockstep scheduler restores the
+                # snapshot verbatim and runs iterations [ck.iteration,
+                # niterations) on the restored RNG stream
+                resume_kw["resume"] = ck
+            else:
+                # cross-scheduler / non-exact snapshot: rescored warm start
+                # over the REMAINING budget
+                saved_j = ck
+                nit = max(0, niterations - int(ck.iteration))
+        kw = dict(
             saved_state=saved_j,
             verbosity=0 if quiet else verbosity,
             output_file=_output_file(j),
             stdin_reader=reader,
-            recorder=shared_recorder,
             out_j=j + 1,
+            checkpoint_base=_ckpt_base(j),
+        )
+        if options.scheduler == "device":
+            from .models.device_search import device_search_one_output
+
+            return device_search_one_output(dataset, options, nit, child_rngs[j], **kw)
+        return _search_one_output(
+            dataset, options, nit, child_rngs[j], recorder=shared_recorder, **kw, **resume_kw
         )
 
     # --- concurrent multi-output: one search per host

@@ -616,3 +616,77 @@ def test_preds_kernel_empty_and_unsound_programs(cuda):
     keep = torch.ones(64, dtype=torch.bool)
     keep[rows + [empty]] = False
     _close(got[keep], _plain_preds(prog, vals, X, opts.operators).cpu()[keep])
+
+
+def _frontier(res):
+    o = res.options
+    return [(m.get_complexity(o), m.loss, m.tree.string_tree(o.operators, precision=17))
+            for m in res.pareto_frontier]
+
+
+def test_lockstep_kill_and_resume_on_the_card(cuda, tmp_path):
+    """A lockstep search on the card killed at iteration 2 and resumed from
+    its snapshot: the same frontier, string for string, and the same
+    evaluation count as the uninterrupted run (which repeats itself)."""
+    from symbolicregression_jl_tpu_torch import equation_search
+    from symbolicregression_jl_tpu_torch.utils.faults import FaultInjected
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(2, 200)).astype(np.float32)
+    y = (2 * np.cos(X[1]) + X[0] ** 2 - 2).astype(np.float32)
+
+    def opts(**kw):
+        return Options(binary_operators=["+", "-", "*"], unary_operators=["cos"],
+                       populations=3, population_size=16, ncycles_per_iteration=10,
+                       seed=0, save_to_file=False, progress=False, device="cuda",
+                       checkpoint_file=str(tmp_path / "ck.pkl"), **kw)
+
+    full = [equation_search(X, y, options=opts(), niterations=4, verbosity=0)
+            for _ in range(2)]
+    assert _frontier(full[0]) == _frontier(full[1])
+    with pytest.raises(FaultInjected):
+        equation_search(X, y, options=opts(checkpoint_every=1,
+                                           fault_spec="peer_death@2:mode=raise"),
+                        niterations=4, verbosity=0)
+    resumed = equation_search(X, y, options=opts(), niterations=4, verbosity=0,
+                              resume_from=str(tmp_path / "ck.pkl"))
+    assert _frontier(resumed) == _frontier(full[0])
+    assert resumed.num_evals == full[0].num_evals
+
+
+def test_device_engine_kill_and_resume_on_the_block(cuda, tmp_path, monkeypatch):
+    """The engine on the block, killed at iteration 2: its snapshot resumes
+    on the block without losing the frontier; nan_flood leaves a finite
+    frontier."""
+    from symbolicregression_jl_tpu_torch import equation_search, load_checkpoint
+    from symbolicregression_jl_tpu_torch.utils.faults import FaultInjected
+
+    monkeypatch.delenv("SR_ENGINE_BLOCK", raising=False)
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(2, 500)).astype(np.float32)
+    y = (2 * np.cos(X[1]) + X[0] ** 2 - 2).astype(np.float32)
+
+    def opts(**kw):
+        return Options(binary_operators=["+", "-", "*"], unary_operators=["cos"],
+                       populations=4, population_size=16, ncycles_per_iteration=50,
+                       maxsize=14, seed=0, save_to_file=False, progress=False,
+                       scheduler="device", device="cuda",
+                       checkpoint_file=str(tmp_path / "dev.pkl"), **kw)
+
+    with pytest.raises(FaultInjected):
+        equation_search(X, y, options=opts(checkpoint_every=1,
+                                           fault_spec="peer_death@2:mode=raise"),
+                        niterations=4, verbosity=0)
+    ck = load_checkpoint(str(tmp_path / "dev.pkl"))
+    assert (ck.iteration, ck.exact, ck.scheduler) == (2, False, "device")
+    res = equation_search(X, y, options=opts(), niterations=4, verbosity=0,
+                          resume_from=str(tmp_path / "dev.pkl"))
+    st = res.engine_stats
+    assert st["block"] == "kernel" and st["iterations"] == 2
+    assert min(m.loss for m in res.pareto_frontier) <= min(
+        m.loss for m in ck.pareto_frontier) + 1e-5
+    assert res.num_evals > ck.num_evals
+    flooded = equation_search(X, y, options=opts(fault_spec="nan_flood@1:frac=0.75"),
+                              niterations=3, verbosity=0)
+    assert flooded.engine_stats["nan_flooded_islands"] == 3
+    assert all(np.isfinite(m.loss) for m in flooded.pareto_frontier)

@@ -355,11 +355,33 @@ def _population(cfg, seed):
 def test_block_cycle_trajectory_matches_jax(kw, monkeypatch):
     """Ten cycles from one numpy population, one seed, one fnorm, one exact
     evaluator: every integer field equal after every cycle."""
+    _trajectory_matches_jax(kw, monkeypatch)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(annealing=False, use_frequency=False,
+                                             use_frequency_in_tournament=False)],
+                         ids=["annealing_frequency", "plain"])
+def test_block_cycle_nan_flooded_matches_jax(kw, monkeypatch):
+    """The trajectory test on a population a ``nan_flood`` fault left: the
+    losses of the leading round(0.75 I) islands are NaN, and a third of
+    their scores too (what the const-opt leg writes for the NaN members it
+    tuned). Tournaments, accepts, best-seen merges and replacement see NaN
+    and stay equal to JAX's."""
+    _trajectory_matches_jax(kw, monkeypatch, flood=0.75)
+
+
+def _trajectory_matches_jax(kw, monkeypatch, flood=None):
     # the integer pointer pass compiled (exact either way), for speed
     monkeypatch.setattr(jb, "_block_pointers", jax.jit(jb._block_pointers))
     jcfg, tcfg = _cfgs(**kw)
     I = tcfg.n_islands
     pop, fnorm = _population(dict(CFG, **kw), seed=5)
+    if flood is not None:
+        k = max(1, int(round(I * flood)))
+        loss, score = pop[3].copy(), pop[4].copy()
+        loss[:k] = np.nan
+        score[:k, ::3] = np.nan
+        pop = pop[:3] + (loss, score) + pop[5:]
     seed, step0, cms, norm = 0xDEADBEEF, 40, 11, np.float32(1.5)
     j_eval = _exact_eval(jnp, lambda n: jnp.arange(n, dtype=jnp.int32))
     t_eval = _exact_eval(torch, lambda n: torch.arange(n, dtype=torch.int32))
