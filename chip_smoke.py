@@ -60,7 +60,21 @@ JAX or of the JAX package. Phases, each of which raises on failure:
    snapshot's host ms; (c) the engine with ``nan_flood@1:frac=0.75`` and a
    snapshot after every iteration: a finite frontier; (d) ``ckpt_crash@1`` on lockstep: the first snapshot
    stays loadable and a resume from it finishes. The resumed runs' launches
-   are the kernels' ``resume`` path.
+   are the kernels' ``resume`` path;
+8. ``engine_options``, the device engine's single-card options: (a) config3
+   on the block with ``profile=True`` (every iteration profiled, top-level
+   fractions summing to 1, the frontier equal to the unprofiled run's in
+   the synchronous readback the profile forces; each stage beside the leg
+   timers, the iteration wall beside the unprofiled ones); (b) units on the
+   planted y = x0 x1^2 / x2 (kg, m/s, m -> N, 10,000 rows) on lockstep and
+   on the engine's event leg: every frontier member the host oracle flags
+   carries the penalty, and the engine's batched check equals the oracle on
+   every member of its final populations; (c) the quick start on the
+   engine with the recorder: every evolve leg free of host syncs, the
+   replay's mirror equal to the engine's populations after every
+   iteration, the record's mutation count exact; (d) the quick start on
+   the engine with NelderMead: no B2 launch, a finite frontier. Each run's
+   launches are the kernels' path of the same name.
 
 The last lines are the kernels JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}`` (``count`` is the number of cards the
@@ -1220,7 +1234,8 @@ def engine_path(device, lockstep=None, block=True, iterations=ENGINE_ITERATIONS,
     n_cycles = iterations * cycles
     evolve_s = dev_s.get("evolve", host_s["evolve"])
     stats = {"ms_per_cycle": evolve_s / n_cycles * 1e3,
-             "evals_per_s": res.num_evals / res.iteration_seconds}
+             "evals_per_s": res.num_evals / res.iteration_seconds,
+             "main_loop_s": res.iteration_seconds}
     print(f"config3 device engine, {leg_name}: {populations}x{population_size}, {rows} rows, "
           f"{iterations} iterations x {cycles} cycles (cut from 550; the last under "
           f"torch.profiler): wall {wall:.3f} s (set-up "
@@ -1510,6 +1525,299 @@ def resume_path(device):
     return lock_b1 + b1, b2, b3
 
 
+# the engine_options phase's units run: x0 kg, x1 m/s, x2 m, all U(1, 5), and
+# y = x0 * x1^2 / x2 in N, at the quick start's width with 100-cycle
+# iterations
+UNITS_ROWS, UNITS_X, UNITS_Y = 10_000, ["kg", "m/s", "m"], "N"
+OPTIONS_ITERATIONS, OPTIONS_CYCLES = 3, 100
+
+
+def _counted(run):
+    """Run ``run()`` with the launch counts of B1, B2 and B3 set to 0 just
+    before; returns (its result, B1, B2, B3 launches)."""
+    from symbolicregression_jl_tpu_torch.ops.evolve_block_cuda import evolve_block
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import fused_loss, fused_loss_grad
+
+    fused_loss.launches = fused_loss_grad.launches = evolve_block.launches = 0
+    out = run()
+    return out, fused_loss.launches, fused_loss_grad.launches, evolve_block.launches
+
+
+def _check_engine_launches(tag, res, b1, b2, b3, block):
+    st = res.engine_stats
+    if b1 != st["score_calls"] or b1 == 0:
+        _fail(f"{tag}: {b1} B1 launches for {st['score_calls']} engine scoring calls")
+    if b2 != st["grad_calls"]:
+        _fail(f"{tag}: {b2} B2 launches for {st['grad_calls']} engine gradient calls")
+    if st["block"] != ("kernel" if block else None) or b3 != (st["iterations"] if block else 0):
+        _fail(f"{tag}: evolve leg {st['block']!r} with {b3} B3 launches in "
+              f"{st['iterations']} iterations")
+
+
+def options_profile(device, block_run_s, iterations=ENGINE_ITERATIONS, cycles=ENGINE_CYCLES):
+    """engine_options (a): config3 on the engine, on the block, with
+    ``profile=True``, and the same search unprofiled in the readback mode
+    the profile forces (synchronous): the frontiers must be equal, the
+    profile must cover every iteration, and its top-level fractions must
+    sum to 1. Prints each stage's mean ms and fraction, the evolve and
+    const-opt stages beside the engine's own leg timers, and the profiled
+    mean iteration wall beside the unprofiled ones (``block_run_s``: phase
+    5's default run on the block, whose legs ran under its timing wrap).
+    Returns the profiled run's launches of B1, B2 and B3."""
+    from symbolicregression_jl_tpu_torch import Options, equation_search
+
+    X, y = config3_data()
+
+    def run(**kw):
+        options = Options(populations=100, population_size=100, maxsize=20,
+                          ncycles_per_iteration=cycles, seed=0, save_to_file=False,
+                          progress=False, device=device.type, scheduler="device",
+                          **CONFIG3_OPS, **kw)
+        return equation_search(X, y, options=options, niterations=iterations, verbosity=0)
+
+    with engine_block_env(True):
+        res, b1, b2, b3 = _counted(lambda: run(profile=True))
+        plain = run(async_readback=False)
+    _check_engine_launches("profile", res, b1, b2, b3, block=True)
+    prof = res.engine_profile
+    stages = prof["stages"]
+    total = sum(v["fraction"] for k, v in stages.items() if "/" not in k)
+    if prof["iterations"] != iterations or not 0.99 <= total <= 1.01:
+        _fail(f"profile: {prof['iterations']} iterations, top-level fractions sum to {total}")
+    if _frontier(res) != _frontier(plain):
+        _fail("profile: the profiled frontier differs from the unprofiled one")
+    st = res.engine_stats
+    print(f"engine_options (a) profile, config3 device engine on the block, {iterations} "
+          f"iterations x {cycles} cycles: stages (mean ms, fraction) "
+          + "; ".join(f"{k} {v['mean_ms']:.3f} ({v['fraction']:.4f})" for k, v in stages.items())
+          + f"; fractions sum {total:.6f}", flush=True)
+    print("engine_options (a) profile: stage vs the engine's leg timer per iteration (host ms "
+          "/ CUDA-event device ms): " + "; ".join(
+              f"{leg} {stages[leg]['mean_ms']:.3f} vs {st['host_seconds'][leg] / iterations * 1e3:.3f}"
+              f" / {st['device_seconds'].get(leg, 0.0) / iterations * 1e3:.3f}"
+              for leg in ("evolve", "const_opt")), flush=True)
+    walls = {"profiled": prof["iteration_mean_ms"],
+             "unprofiled, synchronous readback": plain.iteration_seconds / iterations * 1e3,
+             "phase 5 block run (pipelined readback, timing wrap)": block_run_s / iterations * 1e3}
+    print("engine_options (a) profile: mean iteration wall ms: "
+          + "; ".join(f"{k} {v:.3f}" for k, v in walls.items())
+          + f"; overhead {walls['profiled'] / walls['unprofiled, synchronous readback'] - 1:.2%}"
+          f" against the synchronous run; frontiers of the profiled and unprofiled runs equal "
+          f"({len(res.pareto_frontier)} members); B1 {b1}, B2 {b2}, B3 {b3}", flush=True)
+    return b1, b2, b3
+
+
+def options_units(device, iterations=OPTIONS_ITERATIONS, cycles=OPTIONS_CYCLES):
+    """engine_options (b): the planted units problem on lockstep and on the
+    device engine (whose units runs take the event leg). On each frontier
+    every member the host oracle flags must carry the penalty; on the
+    engine's final populations its batched check must equal the oracle on
+    every member. Returns the launches of B1, B2 and B3 of each run."""
+    import numpy as np
+    import torch
+
+    from symbolicregression_jl_tpu_torch import Options, equation_search
+    from symbolicregression_jl_tpu_torch.dimensional_analysis import (
+        violates_dimensional_constraints,
+    )
+    from symbolicregression_jl_tpu_torch.models.device_search import build_evo_config
+    from symbolicregression_jl_tpu_torch.ops.evolve import dim_violates_batch
+    from symbolicregression_jl_tpu_torch.ops.flat import flatten_trees
+    from symbolicregression_jl_tpu_torch.ops.treeops import Tree
+
+    rng = np.random.default_rng(0)
+    X = rng.uniform(1, 5, size=(3, UNITS_ROWS)).astype(np.float32)
+    y = (X[0] * X[1] ** 2 / X[2]).astype(np.float32)
+    out = {}
+    for scheduler in ("lockstep", "device"):
+        options = Options(binary_operators=["+", "-", "*", "/"],
+                          unary_operators=["sqrt", "cos"], populations=15, population_size=33,
+                          ncycles_per_iteration=cycles, seed=0, save_to_file=False,
+                          progress=False, device=device.type, scheduler=scheduler)
+        t0 = time.perf_counter()
+        res, b1, b2, b3 = _counted(lambda: equation_search(
+            X, y, options=options, niterations=iterations, verbosity=0, X_units=UNITS_X,
+            y_units=UNITS_Y))
+        wall = time.perf_counter() - t0
+        pen = 1000.0
+        front = res.pareto_frontier
+        flagged = [m for m in front
+                   if violates_dimensional_constraints(m.tree, res.dataset, options)]
+        if not front or any(m.loss < pen for m in flagged):
+            _fail(f"units {scheduler}: a frontier member the oracle flags lacks the penalty")
+        best = min(front, key=lambda m: m.loss)
+        line = (f"engine_options (b) units, {scheduler}: 15x33, {UNITS_ROWS} rows, "
+                f"{iterations} iterations x {cycles} cycles in {wall:.3f} s; frontier "
+                f"{len(front)} members, {len(flagged)} flagged (each with the penalty); best "
+                f"loss {best.loss:.6g}: {best.tree.string_tree(options.operators)}; B1 {b1}, "
+                f"B2 {b2}, B3 {b3}")
+        if scheduler == "device":
+            _check_engine_launches("units device", res, b1, b2, b3, block=False)
+            members = [m for pop in res.populations for m in pop.members]
+            flat = flatten_trees([m.tree for m in members], options.max_nodes)
+            batch = Tree(*(torch.from_numpy(np.asarray(getattr(flat, f))).to(device)
+                           for f in ("kind", "op", "lhs", "rhs", "feat", "val", "length")))
+            cfg = build_evo_config(options, 3, 1.0, True, iterations, dataset=res.dataset)
+            got = dim_violates_batch(batch, cfg).cpu().numpy()
+            want = np.array([violates_dimensional_constraints(m.tree, res.dataset, options)
+                             for m in members])
+            bad = [members[i].tree.string_tree(options.operators)
+                   for i in np.flatnonzero(got != want)]
+            if bad:
+                _fail(f"units device: the engine's check and the oracle differ on {bad[:5]}")
+            st = res.engine_stats
+            evolve_s = st["device_seconds"].get("evolve", st["host_seconds"]["evolve"])
+            line += (f"; the engine's check equals the oracle on all {len(members)} final "
+                     f"members ({int(want.sum())} flagged); evolve (event leg) "
+                     f"{evolve_s / (iterations * cycles) * 1e3:.4f} ms/cycle, const-opt "
+                     f"{st['device_seconds'].get('const_opt', 0.0) / iterations * 1e3:.3f} ms "
+                     f"per iteration")
+        print(line, flush=True)
+        out[scheduler] = (b1, b2, b3)
+    return out
+
+
+def options_recorder(device, tmp, iterations=3, cycles=None):
+    """engine_options (c): the README quick start on the engine with the
+    recorder. Every evolve leg runs with host syncs made errors; after
+    every iteration the replay's mirror must equal the engine's populations
+    slot for slot on kind, op, feat, val and length; the recorder file must
+    parse and hold islands x events per cycle x cycles x iterations
+    mutation events. Returns the launches of B1, B2 and B3."""
+    import numpy as np
+    import torch
+
+    import symbolicregression_jl_tpu_torch.models.device_search as ds
+    from symbolicregression_jl_tpu_torch import Options, equation_search
+    from symbolicregression_jl_tpu_torch.models import device_recorder
+    from symbolicregression_jl_tpu_torch.ops.flat import flatten_trees
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(200, 2)).astype(np.float32)
+    y = 2 * np.cos(X[:, 1]) + X[:, 0] ** 2 - 2
+    path = os.path.join(tmp, "recorder.json")
+    readme = {} if cycles is None else {"ncycles_per_iteration": cycles}
+    options = Options(binary_operators=["+", "-", "*"], unary_operators=["cos"], seed=0,
+                      save_to_file=False, progress=False, device=device.type,
+                      scheduler="device", use_recorder=True, recorder_file=path,
+                      crossover_probability=0.0, **readme)
+    checked, no_sync = [], []
+    snapshot = device_recorder.EngineLineageReplay.snapshot_populations
+
+    def mirror_check(replay, arrays, iteration):
+        kind, op, _, _, feat, val, length = arrays[:7]
+        I, P, N = kind.shape
+        flat = flatten_trees(list(replay.trees.reshape(-1)), N, dtype=val.dtype)
+        live = np.arange(N)[None, None, :] < length[:, :, None]
+        for name, got, want in (("kind", flat.kind, kind), ("op", flat.op, op),
+                                ("feat", flat.feat, feat), ("val", flat.val, val)):
+            got = np.asarray(got).reshape(I, P, N)
+            if not np.array_equal(np.where(live, got, 0), np.where(live, want, 0)):
+                _fail(f"recorder: the mirror's {name} differs from the engine's at "
+                      f"iteration {iteration}")
+        if not np.array_equal(np.asarray(flat.length).reshape(I, P), length):
+            _fail(f"recorder: the mirror's lengths differ at iteration {iteration}")
+        checked.append(iteration)
+        snapshot(replay, arrays, iteration)
+
+    @contextlib.contextmanager
+    def sync_free(name):
+        if name != "evolve":
+            yield
+            return
+        no_sync.append(name)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    saved = device_recorder.EngineLineageReplay.snapshot_populations, ds._LEG_WRAP
+    device_recorder.EngineLineageReplay.snapshot_populations = mirror_check
+    ds._LEG_WRAP = sync_free
+    t0 = time.perf_counter()
+    try:
+        res, b1, b2, b3 = _counted(lambda: equation_search(
+            X.T, y, options=options, niterations=iterations, verbosity=0))
+    finally:
+        device_recorder.EngineLineageReplay.snapshot_populations, ds._LEG_WRAP = saved
+    wall = time.perf_counter() - t0
+    _check_engine_launches("recorder", res, b1, b2, b3, block=False)
+    if checked != list(range(1, iterations + 1)) or len(no_sync) != iterations:
+        _fail(f"recorder: mirror checked at {checked}, {len(no_sync)} sync-free evolve legs")
+    with open(path) as fh:
+        data = json.load(fh)
+    events = [e for m in data["mutations"].values() for e in m["events"]]
+    n_mut = sum(e["type"] == "mutate" for e in events)
+    E = -(-options.population_size // min(options.tournament_selection_n,
+                                          options.population_size))
+    want = options.populations * E * options.ncycles_per_iteration * iterations
+    if n_mut != want:
+        _fail(f"recorder: {n_mut} mutation events, expected {want}")
+    print(f"engine_options (c) recorder, README quick start on the engine: {iterations} "
+          f"iterations x {options.ncycles_per_iteration} cycles in {wall:.3f} s; every evolve "
+          f"leg made no host sync; the mirror equalled the engine's populations after each "
+          f"iteration; {os.path.getsize(path)} bytes of record, {n_mut} mutation events = "
+          f"{options.populations} x {E} x {options.ncycles_per_iteration} x {iterations}, "
+          f"{sum(e['type'] == 'death' for e in events)} deaths, "
+          f"{sum(e['type'] == 'tuning' for e in events)} tunings; B1 {b1}, B2 {b2}, B3 {b3}",
+          flush=True)
+    return b1, b2, b3
+
+
+def options_neldermead(device, iterations=3, cycles=None):
+    """engine_options (d): the README quick start on the engine with
+    ``optimizer_algorithm="NelderMead"``: B2 must not launch, B1 must, and
+    the frontier must be finite. Returns the launches of B1, B2 and B3."""
+    import numpy as np
+
+    from symbolicregression_jl_tpu_torch import Options, equation_search
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(200, 2)).astype(np.float32)
+    y = 2 * np.cos(X[:, 1]) + X[:, 0] ** 2 - 2
+    readme = {} if cycles is None else {"ncycles_per_iteration": cycles}
+    options = Options(binary_operators=["+", "-", "*"], unary_operators=["cos"], seed=0,
+                      save_to_file=False, progress=False, device=device.type,
+                      scheduler="device", optimizer_algorithm="NelderMead", **readme)
+    t0 = time.perf_counter()
+    with engine_block_env(True):
+        res, b1, b2, b3 = _counted(lambda: equation_search(
+            X.T, y, options=options, niterations=iterations, verbosity=0))
+    wall = time.perf_counter() - t0
+    _check_engine_launches("neldermead", res, b1, b2, b3, block=True)
+    front = res.pareto_frontier
+    if b2 != 0 or b1 == 0 or not front or not all(np.isfinite(m.loss) for m in front):
+        _fail(f"neldermead: B2 {b2}, B1 {b1} launches, frontier "
+              f"{[m.loss for m in front]}")
+    best = min(front, key=lambda m: m.loss)
+    st = res.engine_stats
+    print(f"engine_options (d) NelderMead, README quick start on the engine (block): "
+          f"{iterations} iterations in {wall:.3f} s; const-opt "
+          f"{st['device_seconds'].get('const_opt', 0.0) / iterations * 1e3:.3f} ms per "
+          f"iteration on the device; best loss {best.loss:.6g}: "
+          f"{best.tree.string_tree(options.operators)}; B1 {b1} = {st['score_calls']} scoring "
+          f"calls, B2 {b2}, B3 {b3}", flush=True)
+    return b1, b2, b3
+
+
+def engine_options(device, block_run_s):
+    """Phase 8: the device engine's single-card options: (a) the stage
+    profile, (b) units on both schedulers, (c) the recorder, (d) NelderMead.
+    Returns {path: (B1, B2, B3 launches)} for the kernels line."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    paths = {"profile": options_profile(device, block_run_s)}
+    units = options_units(device)
+    paths["units lockstep"], paths["units device"] = units["lockstep"], units["device"]
+    with tempfile.TemporaryDirectory() as tmp:
+        paths["recorder"] = options_recorder(device, tmp)
+    paths["neldermead"] = options_neldermead(device)
+    print(f"engine_options phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    return paths
+
+
 def main() -> int:
     try:
         import torch
@@ -1552,7 +1860,8 @@ def main() -> int:
     b4 = preds_kernel_check(device)
     lockstep_b1, lockstep_b2, lockstep_stats = main_path(device)
     event_b1, event_b2, event_b3, _ = engine_path(device, lockstep_stats, block=False)
-    engine_b1, engine_b2, engine_b3, _ = engine_path(device, lockstep_stats, block=True)
+    engine_b1, engine_b2, engine_b3, block_stats = engine_path(device, lockstep_stats,
+                                                                block=True)
     b1["launches_by_path"] = {"lockstep": lockstep_b1, "device": engine_b1,
                               "device SR_ENGINE_BLOCK=0": event_b1}
     b2["launches_by_path"] = {"lockstep": lockstep_b2, "device": engine_b2,
@@ -1566,6 +1875,10 @@ def main() -> int:
     resume_b1, resume_b2, resume_b3 = resume_path(device)
     for rec, n in ((b1, resume_b1), (b2, resume_b2), (b3, resume_b3), (b4, 0)):
         rec["launches_by_path"]["resume"] = n
+    for path, counts in engine_options(device, block_stats["main_loop_s"]).items():
+        for rec, n in zip((b1, b2, b3, b4), (*counts, 0)):
+            rec["launches_by_path"][path] = n
+    for rec in (b1, b2, b3, b4):
         rec["launches"] = sum(rec["launches_by_path"].values())
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -2,8 +2,9 @@
 
 Counterpart of ``symbolicregression_jl_tpu/dataset.py`` (SymbolicRegression.jl
 src/Dataset.jl:53-82): X is feature-major ``(n_features, n)``, y is ``(n,)``,
-optional per-row weights, variable names, weighted ``avg_y`` and the mutable
-baseline loss of the constant-avg_y predictor. Device copies of X/y/weights
+optional per-row weights, variable names, weighted ``avg_y``, the mutable
+baseline loss of the constant-avg_y predictor, and the parsed SI units of X
+and y (units.py). Device copies of X/y/weights
 are cached per (dtype, device) so every scoring call reuses resident buffers.
 """
 
@@ -36,11 +37,6 @@ class Dataset:
     use_baseline: bool = dataclasses.field(init=False, default=False)
 
     def __post_init__(self):
-        if self.X_units is not None or self.y_units is not None:
-            raise NotImplementedError(
-                "units / dimensional analysis are not ported yet "
-                "(ROADMAP.md, A, slice 2: units.py)"
-            )
         self.X = np.asarray(self.X)
         if self.X.ndim != 2:
             raise ValueError(f"X must be (n_features, n); got shape {self.X.shape}")
@@ -69,6 +65,17 @@ class Dataset:
         else:
             self.avg_y = float(np.mean(self.y))
         self._device_cache: dict = {}
+        # parse units into rational-exponent SI quantities (reference:
+        # SymbolicRegression.jl src/InterfaceDynamicQuantities.jl:24-66)
+        from .units import parse_unit, parse_units_vector
+
+        self.X_units_parsed = parse_units_vector(self.X_units, self.n_features)
+        self.y_units_parsed = None if self.y_units is None else parse_unit(self.y_units)
+
+    @property
+    def has_units(self) -> bool:
+        """Reference: has_units, SymbolicRegression.jl src/Dataset.jl:259-261."""
+        return self.X_units_parsed is not None or self.y_units_parsed is not None
 
     def device_arrays(self, dtype=np.float32, device="cuda"):
         """(X, y, weights) as contiguous tensors of ``dtype`` on ``device``,

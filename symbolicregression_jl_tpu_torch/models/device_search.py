@@ -49,6 +49,21 @@ evolve leg — into an ``exact=False`` SearchCheckpoint. Resuming from it is
 a rescored warm start through ``saved_state``; the engine's generator is
 seeded anew from the search's numpy stream, so the resumed run keeps the
 snapshot's frontier but not the uninterrupted run's trajectory.
+
+Options of one card (the JAX package's ``device_search.py:2189-2215,
+2463-2940``): ``profile=True`` opens a ``utils.profiling`` stage around
+each leg where the leg timer sits ("evolve", "const_opt", "finalize") and
+around the parts of the readback leg ("readback_pack", "readback_d2h",
+"decode_hof", "simplify", "migrate") and the snapshot ("checkpoint"); each
+stage ends with a fence, which the disabled profiler never makes, and the
+summary is ``SearchResult.engine_profile``. ``use_recorder=True`` sets
+``record_events``: the legs queue their event logs on the context, the
+readback leg copies them to the host and replays them into the recorder
+(models/device_recorder.py), then records the populations. Either one
+forces the synchronous readback. A dataset with units sets ``units_check``:
+every loss the engine compares carries the dimensional penalty, added after
+the kernel's loss. ``optimizer_algorithm="NelderMead"`` runs the batched
+simplex of ops/constant_opt.py over the engine scorer (B1 only).
 """
 
 from __future__ import annotations
@@ -68,12 +83,14 @@ from ..ops.evolve_block import (
     BLOCK_MAX_ROWS, block_eligible, make_plain_eval, run_block_iteration,
 )
 from ..ops.evolve_block_cuda import evolve_block
+from ..ops.constant_opt import _neldermead
 from ..ops.evolve import (
     EvoConfig,
     EvoContext,
     EvoState,
     _complexity_members,
     _score_of,
+    dim_penalty_batch,
     init_state,
     merge_best_seen,
     migrate_from_pool,
@@ -88,6 +105,7 @@ from ..ops.interp_cuda import (
 )
 from ..ops.treeops import Tree
 from ..options import Options, _not_ported
+from ..utils.profiling import NULL_PROFILER, StageProfiler
 from .hall_of_fame import HallOfFame
 from .pop_member import PopMember
 from .population import Population
@@ -100,13 +118,17 @@ __all__ = [
 
 def device_mode_supported(options: Options) -> str | None:
     """None if the device engine can honor this configuration; else a reason
-    (the JAX package's ``device_mode_supported``; its recorder and graph-node
-    cases raise in Options here)."""
+    (the JAX package's ``device_mode_supported``; its graph-node case raises
+    in Options here)."""
     if options.loss_function is not None:
         return (
             "custom full-objective loss_function (host-callable per-tree "
             "objectives cannot run inside the engine)"
         )
+    if options.use_recorder and options.device_mutation_attempts > 1:
+        # the event log records ONE (kind, candidate) per lane; multi-attempt
+        # lanes would mis-attribute the surviving candidate's kind
+        return "recorder with device_mutation_attempts > 1"
     if np.dtype(options.dtype) not in (np.dtype(np.float32), np.dtype(np.float64)):
         return f"unsupported engine dtype {np.dtype(options.dtype).name}"
     return None
@@ -120,9 +142,10 @@ def build_evo_config(
     niterations: int,
     n_islands: int | None = None,
     n_rows: int | None = None,
+    dataset: Dataset | None = None,
 ) -> EvoConfig:
-    """Translate Options into the engine's static EvoConfig, field for field
-    as the JAX package does."""
+    """Translate Options (and the dataset's units) into the engine's static
+    EvoConfig, field for field as the JAX package does."""
     I = options.populations if n_islands is None else n_islands
     P = options.population_size
     mw = options.mutation_weights
@@ -178,6 +201,47 @@ def build_evo_config(
         ),
         val_dtype=str(np.dtype(options.dtype)),
         complexity_table=_complexity_table(options, n_features),
+        record_events=bool(options.use_recorder),
+        **_units_config(options, dataset, n_features),
+    )
+
+
+_DIM_BASES = ("length", "mass", "time", "current", "temperature", "luminosity", "amount")
+#: exponent multipliers of the power-like unary operators (None: generic)
+_UNA_DIM_POWERS = {
+    "sqrt": 0.5, "sqrt_abs": 0.5, "cbrt": 1.0 / 3.0, "abs": 1.0, "neg": 1.0,
+    "square": 2.0, "cube": 3.0, "inv": -1.0,
+}
+#: binary dim-combination codes: 0 add/sub, 1 mult, 2 div, 3 generic/pow
+_BIN_DIM_CODES = {"add": 0, "sub": 0, "mult": 1, "div": 2}
+
+
+def _units_config(options: Options, dataset, n_features: int) -> dict:
+    """EvoConfig units fields (static tables) from the dataset's parsed SI
+    units and the operator names; empty when the dataset carries no units
+    (the JAX package's ``_units_config``)."""
+    if dataset is None or not dataset.has_units:
+        return {}
+    from ..units import DIMENSIONLESS, Quantity
+
+    def dim_row(dims):
+        return tuple(float(getattr(dims, b)) for b in _DIM_BASES)
+
+    xq = dataset.X_units_parsed
+    if xq is None:
+        xq = [Quantity(1.0, DIMENSIONLESS)] * n_features
+    yq = dataset.y_units_parsed
+    return dict(
+        units_check=True,
+        x_dims=tuple(dim_row(q.dims) for q in xq),
+        y_dims=dim_row(yq.dims) if yq is not None else None,
+        una_dim_pow=tuple(_UNA_DIM_POWERS.get(op.name) for op in options.operators.unary),
+        bin_dim_code=tuple(_BIN_DIM_CODES.get(op.name, 3) for op in options.operators.binary),
+        dim_penalty=(
+            1000.0 if options.dimensional_constraint_penalty is None
+            else float(options.dimensional_constraint_penalty)
+        ),
+        allow_wildcards=not options.dimensionless_constants_only,
     )
 
 
@@ -315,7 +379,9 @@ def _accept_and_scatter(state: EvoState, cfg: EvoConfig, ii, pp, mask_k, val0, v
     back, reset the birth of improved members (SymbolicRegression.jl
     src/ConstantOptimization.jl:70-78); fold the tuned members into the
     best-seen frontier unless batching (there ``fbest`` and ``base_loss``
-    are losses on one minibatch, and finalize rescores on full data)."""
+    are losses on one minibatch, and finalize rescores on full data). Under
+    ``record_events`` the tuning log (the reference's "tuning" events,
+    src/SingleIteration.jl:140-171) goes to ``ctx``."""
     old_loss = state.loss[ii, pp]
     base = old_loss if base_loss is None else base_loss
     improved = (fbest < base) & mask_k.any(1)
@@ -331,6 +397,9 @@ def _accept_and_scatter(state: EvoState, cfg: EvoConfig, ii, pp, mask_k, val0, v
             state, cfg, new_loss, torch.isfinite(new_loss) & (lengths >= 1), fields,
             lengths, comps=comp_m,
         )
+    if ctx is not None:
+        ctx.log("tuning", {"ii": ii, "pp": pp, "improved": improved, "new_loss": new_loss,
+                           "new_val": new_val})
     return state._replace(
         val=torch.index_put(state.val, (ii, pp), new_val),
         loss=torch.index_put(state.loss, (ii, pp), new_loss),
@@ -342,12 +411,34 @@ def _accept_and_scatter(state: EvoState, cfg: EvoConfig, ii, pp, mask_k, val0, v
     )
 
 
+class _PackedObjective:
+    """``ops.constant_opt._neldermead``'s objective over the engine scorer:
+    each value call is one ``packed_losses`` call (one B1 launch on the
+    card) on the packed batch, each row repeated ``repeat`` times for the
+    simplex's vertices."""
+
+    def __init__(self, scorer: EngineScorer, prog, X, y, w):
+        self.scorer = scorer
+        self.X, self.y, self.w = X, y, w
+        self._progs = {1: prog}
+
+    def value(self, v, repeat: int = 1):
+        prog = self._progs.get(repeat)
+        if prog is None:
+            prog = self._progs[repeat] = torch.repeat_interleave(self._progs[1], repeat, dim=0)
+        return self.scorer.packed_losses(prog, v.contiguous(), self.X, self.y, self.w)
+
+
 def make_const_opt_fn(options: Options, cfg: EvoConfig, scorer: EngineScorer,
                       ctx: EvoContext) -> Callable:
     """The engine's constant optimization (the JAX package's
     ``_make_const_opt_fn_pallas``): the whole (member, restart) batch runs
     one BFGS in lockstep with Armijo backtracking, every value+gradient
     evaluation one B2 launch and every line-search evaluation one B1 launch.
+    Under ``optimizer_algorithm="NelderMead"`` (the JAX package's algorithm
+    dispatch, its ``device_search.py:788-793``) the batch runs the masked
+    simplex of ``ops.constant_opt._neldermead`` instead, every evaluation
+    one B1 launch (S·(N+1) vertices per member at once), and no B2.
 
     Semantics as the JAX package's, including its documented deviation
     (BFGS for every tree, where the reference uses Newton for one-constant
@@ -364,6 +455,7 @@ def make_const_opt_fn(options: Options, cfg: EvoConfig, scorer: EngineScorer,
     iters = int(options.optimizer_iterations)
     g_tol = float(options.optimizer_g_tol)
     opset = options.operators
+    neldermead = options.optimizer_algorithm == "NelderMead"
 
     def const_opt(state: EvoState, data: ScoreData) -> EvoState:
         X, y, w = data.X, data.y, data.w
@@ -388,62 +480,86 @@ def make_const_opt_fn(options: Options, cfg: EvoConfig, scorer: EngineScorer,
             f, g = scorer.packed_loss_grad(prog_b, v.contiguous(), X, y, w)
             return f, torch.where(mask_b, g, 0.0)
 
-        eye = torch.eye(N, dtype=x.dtype, device=x.device).expand(B, N, N)
-        f, g = vgrad(x)
-        f0 = f
-        H = eye
-        for _ in range(iters):
-            if g_tol > 0 and bool(g.abs().max() < g_tol):
-                break
-            d = -torch.bmm(H, g[:, :, None])[:, :, 0]
-            d = torch.where(mask_b, d, 0.0)
-            gtd = (g * d).sum(-1)
-            bad = gtd >= 0
-            d = torch.where(bad[:, None], -g, d)
-            gtd = torch.where(bad, -(g * g).sum(-1), gtd)
-            # Armijo backtracking (c1 = 1e-4, halving, <= 12 steps);
-            # satisfied instances keep their step and value
-            alpha = torch.ones((B,), dtype=x.dtype, device=x.device)
-            f_new = vloss(x + d)
-            for _ in range(12):
-                armijo = f_new <= f + 1e-4 * alpha * gtd
-                if bool(armijo.all()):
-                    break
-                alpha = torch.where(armijo, alpha, alpha * 0.5)
-                f_new = torch.where(armijo, f_new, vloss(x + alpha[:, None] * d))
-            ok = torch.isfinite(f_new) & (f_new < f)
-            x_new = torch.where(ok[:, None], x + alpha[:, None] * d, x)
-            f = torch.where(ok, f_new, f)
-            _, g_new = vgrad(x_new)
-            s = x_new - x
-            yk = g_new - g
-            sy = (s * yk).sum(-1)
-            good = sy > 1e-10
-            rho = torch.where(good, 1.0 / torch.where(good, sy, 1.0), 0.0)
-            I_rsy = eye - rho[:, None, None] * (s[:, :, None] * yk[:, None, :])
-            H_new = torch.bmm(torch.bmm(I_rsy, H), I_rsy.transpose(1, 2)) + (
-                rho[:, None, None] * (s[:, :, None] * s[:, None, :])
-            )
-            H = torch.where(good[:, None, None], H_new, H)
-            x, g = x_new, g_new
+        if neldermead:
+            # restart 0 starts at val0: under batching its loss is the
+            # member's loss on this batch
+            f0 = vloss(x) if cfg.batching else None
+            x, f = _neldermead(_PackedObjective(scorer, prog_b, X, y, w), x, mask_b, iters,
+                               g_tol)
+        else:
+            x, f, f0 = _bfgs_lockstep(x, mask_b, vloss, vgrad, iters, g_tol)
         fs = torch.where(torch.isfinite(f), f, torch.inf).reshape(K, S)
         best = torch.argmin(fs, 1)
         rows = torch.arange(K, device=x.device)
-        vals = x.reshape(K, S, N)[rows, best]
-        fbest = fs[rows, best]
+        vals = x.reshape(K, S, N)[rows, best].to(val0.dtype)
+        fbest = fs[rows, best].to(val0.dtype)
         n_ev = float(K * S * 2 * iters)
         base = None
         if cfg.batching:
-            # restart 0 starts at val0: its first loss is the member's loss
-            # on this batch
-            base = f0.reshape(K, S)[:, 0]
+            base = f0.reshape(K, S)[:, 0].to(val0.dtype)
             n_ev *= cfg.eval_fraction
+        if cfg.units_check:
+            # const-opt never changes structure, so the dimensional penalty
+            # is one constant per tree: add it to every loss the accept
+            # rule compares (stored losses already carry it)
+            pen_k = dim_penalty_batch(members, cfg, ctx)
+            fbest = fbest + pen_k
+            if base is not None:
+                base = base + pen_k
         return _accept_and_scatter(
-            state, cfg, ii, pp, mask_k, val0, vals.to(val0.dtype), fbest.to(val0.dtype),
+            state, cfg, ii, pp, mask_k, val0, vals, fbest,
             n_ev, norm=data.norm, base_loss=base, ctx=ctx,
         )
 
     return const_opt
+
+
+def _bfgs_lockstep(x, mask_b, vloss, vgrad, iters: int, g_tol: float):
+    """BFGS over every instance of the batch in lockstep (the JAX package's
+    ``_make_const_opt_fn_pallas`` loop): Armijo backtracking (c1 = 1e-4,
+    halving, at most 12 steps) that syncs once per step to stop when every
+    instance is satisfied, and the g_tol gate, which syncs once per
+    iteration and not at all when it is 0. Returns (x, f, f at the start)."""
+    B, N = x.shape
+    eye = torch.eye(N, dtype=x.dtype, device=x.device).expand(B, N, N)
+    f, g = vgrad(x)
+    f0 = f
+    H = eye
+    for _ in range(iters):
+        if g_tol > 0 and bool(g.abs().max() < g_tol):
+            break
+        d = -torch.bmm(H, g[:, :, None])[:, :, 0]
+        d = torch.where(mask_b, d, 0.0)
+        gtd = (g * d).sum(-1)
+        bad = gtd >= 0
+        d = torch.where(bad[:, None], -g, d)
+        gtd = torch.where(bad, -(g * g).sum(-1), gtd)
+        # Armijo backtracking (c1 = 1e-4, halving, <= 12 steps);
+        # satisfied instances keep their step and value
+        alpha = torch.ones((B,), dtype=x.dtype, device=x.device)
+        f_new = vloss(x + d)
+        for _ in range(12):
+            armijo = f_new <= f + 1e-4 * alpha * gtd
+            if bool(armijo.all()):
+                break
+            alpha = torch.where(armijo, alpha, alpha * 0.5)
+            f_new = torch.where(armijo, f_new, vloss(x + alpha[:, None] * d))
+        ok = torch.isfinite(f_new) & (f_new < f)
+        x_new = torch.where(ok[:, None], x + alpha[:, None] * d, x)
+        f = torch.where(ok, f_new, f)
+        _, g_new = vgrad(x_new)
+        s = x_new - x
+        yk = g_new - g
+        sy = (s * yk).sum(-1)
+        good = sy > 1e-10
+        rho = torch.where(good, 1.0 / torch.where(good, sy, 1.0), 0.0)
+        I_rsy = eye - rho[:, None, None] * (s[:, :, None] * yk[:, None, :])
+        H_new = torch.bmm(torch.bmm(I_rsy, H), I_rsy.transpose(1, 2)) + (
+            rho[:, None, None] * (s[:, :, None] * s[:, None, :])
+        )
+        H = torch.where(good[:, None, None], H_new, H)
+        x, g = x_new, g_new
+    return x, f, f0
 
 
 # ---------------------------------------------------------------------------
@@ -466,15 +582,18 @@ def _count_dispatch(name: str):
 
 class _LegTimer:
     """Host seconds per leg, and device milliseconds per leg from CUDA events
-    recorded around it (summed once, at the end of the search)."""
+    recorded around it (summed once, at the end of the search); with a
+    profiler, the leg is also its stage of the same name, fenced at its
+    end (``stage=False`` for a leg whose parts are stages of their own)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, prof: StageProfiler = NULL_PROFILER):
         self.cuda = device.type == "cuda"
+        self.prof = prof
         self.host: dict = {}
         self.events: dict = {}
 
     @contextlib.contextmanager
-    def leg(self, name: str):
+    def leg(self, name: str, stage: bool = True):
         _count_dispatch(name)
         wrap = _LEG_WRAP(name) if _LEG_WRAP is not None else contextlib.nullcontext()
         # timed inside the wrap: what the wrap itself does is not the leg's
@@ -486,7 +605,10 @@ class _LegTimer:
                 )
                 start.record()
             t0 = time.perf_counter()
-            yield
+            with self.prof.stage(name) if stage else contextlib.nullcontext():
+                yield
+                if stage:
+                    self.prof.fence()
             self.host[name] = self.host.get(name, 0.0) + time.perf_counter() - t0
             if self.cuda:
                 end.record()
@@ -609,7 +731,8 @@ def _simplified_frontier_pool(members, options, cfg: EvoConfig, score_call, hof,
 
     Returns (pool, n_scored): a fixed [maxsize+1]-row migration pool of the
     strictly simplified, rescored trees (None when nothing simplified), and
-    the evaluations spent. Also folds the rescored members into ``hof``."""
+    the evaluations spent. Also folds the rescored members into ``hof``.
+    ``score_call`` adds the dimensional penalty where units are on."""
     from ..complexity import compute_complexity
     from .simplify import combine_operators, simplify_tree
 
@@ -641,17 +764,39 @@ def _simplified_frontier_pool(members, options, cfg: EvoConfig, score_call, hof,
     return pool, len(trees)
 
 
+def _to_host(entry):
+    """An event log (tensors in dicts and tuples) as numpy arrays."""
+    if isinstance(entry, dict):
+        return {k: _to_host(v) for k, v in entry.items()}
+    if isinstance(entry, tuple):
+        return tuple(_to_host(v) for v in entry)
+    return entry.cpu().numpy()
+
+
+def _replay_logs(replay, ctx: EvoContext) -> None:
+    """Read the legs' queued event logs back and replay them, in the order
+    the legs made them."""
+    consume = {"iteration": replay.consume_iteration, "migration": replay.consume_migration,
+               "tuning": replay.consume_tuning}
+    for kind, entry in ctx.take_logs():
+        consume[kind](_to_host(entry))
+
+
+def _state_arrays(state: EvoState):
+    """The population fields and losses as numpy: (kind, op, lhs, rhs, feat,
+    val, length, loss, score)."""
+    return tuple(t.cpu().numpy() for t in (state.kind, state.op, state.lhs, state.rhs,
+                                           state.feat, state.val, state.length, state.loss,
+                                           state.score))
+
+
 def _decode_state_populations(state: EvoState, I: int, P: int, cfg: EvoConfig, options):
     """The live EvoState as host Populations — ONE full readback. Returns
     (pops, slots, arrays): ``slots`` is (island, member, complexity) per live
     member, ``arrays`` the decoded (kind, op, lhs, rhs, feat, val, length,
     loss, score)."""
-    kind, opa, lhs, rhs, feat, val, length = (
-        np.asarray(t.cpu()) for t in (state.kind, state.op, state.lhs, state.rhs,
-                                      state.feat, state.val, state.length)
-    )
-    loss = np.asarray(state.loss.cpu()).astype(np.float64)
-    score = np.asarray(state.score.cpu()).astype(np.float64)
+    kind, opa, lhs, rhs, feat, val, length, loss, score = _state_arrays(state)
+    loss, score = loss.astype(np.float64), score.astype(np.float64)
     if debug_checks_enabled(options):
         from ..analysis import ir_verify
 
@@ -739,20 +884,28 @@ def device_search_one_output(
     stdin_reader=None,
     out_j: int = 1,
     checkpoint_base: str | None = None,
+    recorder=None,
 ):
     """Run one output's search on the device engine. Returns SearchResult
     (the contract of search._search_one_output), with ``engine_stats``:
     scoring and gradient calls, legs run, seconds per leg (host clock, and
     device time from CUDA events on the card), the host seconds of each
-    snapshot written and the islands a ``nan_flood`` fault poisoned."""
+    snapshot written and the islands a ``nan_flood`` fault poisoned; and,
+    under ``Options.profile``, ``engine_profile``: the stage profiler's
+    summary. ``recorder``: a shared ``utils.recorder.Recorder`` (dumped by
+    its owner), or None for one of this search's own."""
     from ..search import SearchResult  # late import (module cycle)
     from ..utils import faults
     from ..utils.checkpoint import SearchCheckpoint, SearchCheckpointer, options_fingerprint
     from ..utils.export_csv import save_hall_of_fame
     from ..utils.progress import ProgressReporter
+    from ..utils.recorder import Recorder
     from ..utils.stdin_reader import StdinReader
 
     _reject_out_of_slice(options)
+    own_recorder = recorder is None
+    if own_recorder:
+        recorder = Recorder(options)
     t_setup = time.perf_counter()
     device = torch.device(options.device)
     I, P = options.populations, options.population_size
@@ -780,6 +933,7 @@ def device_search_one_output(
     cfg = build_evo_config(
         options, n_features=dataset.n_features, baseline_loss=dataset.baseline_loss,
         use_baseline=use_baseline, niterations=niterations, n_islands=I, n_rows=dataset.n,
+        dataset=dataset,
     )
     # engine config: the score normalization travels as data.norm
     ecfg = dataclasses.replace(cfg, baseline_loss=1.0, use_baseline=True)
@@ -789,7 +943,13 @@ def device_search_one_output(
     scorer = EngineScorer(options, use_kernel)
 
     def score_call(batch: Tree) -> torch.Tensor:
-        return scorer.losses(batch, data.X, data.y, data.w)
+        """Losses of a batch the host hands the engine (initial members, the
+        warm start's hall of fame, the simplify pool), with the same
+        structure-only dimensional penalty the legs add."""
+        losses = scorer.losses(batch, data.X, data.y, data.w)
+        if ecfg.units_check:
+            losses = losses.to(vdt) + dim_penalty_batch(batch, ecfg, ctx)
+        return losses
 
     # --- initial populations (host trees -> device state) -------------------
     if saved_state is not None:
@@ -818,6 +978,19 @@ def device_search_one_output(
     comp = _complexity_members(state, ecfg, ctx).to(vdt)
     state = state._replace(score=_score_of(state.loss, comp, cfg))  # real baseline
 
+    replay = None
+    if options.use_recorder:
+        from .device_recorder import EngineLineageReplay
+
+        state0 = tuple(
+            np.asarray(a).reshape((I, P) + np.shape(a)[1:])
+            for a in (bflat.kind, bflat.op, bflat.lhs, bflat.rhs, bflat.feat,
+                      np.asarray(bflat.val, eng_dt), bflat.length)
+        )
+        replay = EngineLineageReplay(state0, options, recorder, out_j=out_j, cfg=cfg,
+                                     loss0=state.loss.cpu().numpy(),
+                                     score0=state.score.cpu().numpy())
+
     hof = HallOfFame(options.maxsize)
     if saved_state is not None:
         # rescore the saved hall of fame on this dataset (the reference
@@ -832,14 +1005,18 @@ def device_search_one_output(
                 m.score = float(_score_of(m.loss, float(m.get_complexity(options)), cfg))
                 hof.update(m, options)
 
-    async_rb = options.async_readback is not False
+    # the pipelined readback, unless lineage replay (which consumes each
+    # iteration's logs in lockstep) or the profiler (whose fences serialize
+    # the pipeline anyway) needs the synchronous one
+    async_rb = options.async_readback is not False and replay is None and not options.profile
+    prof = StageProfiler(device=device) if options.profile else NULL_PROFILER
     early_stop = options.early_stop_fn()
     own_stdin = stdin_reader is None
     if own_stdin:
         stdin_reader = StdinReader()
     reporter = ProgressReporter(niterations, options, use_bar=bool(options.progress),
                                 verbosity=verbosity)
-    timer = _LegTimer(device)
+    timer = _LegTimer(device, prof)
     readback = _Readback(device)
     base_evals = float(getattr(saved_state, "num_evals", 0.0) or 0.0) if saved_state else 0.0
     num_evals = base_evals
@@ -857,19 +1034,23 @@ def device_search_one_output(
         """Fold one iteration's packed readback into the hall of fame, then
         inject the simplify pool into the CURRENT device state."""
         nonlocal state, device_evals, host_evals
-        bs_loss, bs_exists, bs_len, fields, device_evals = _decode_readback(buf, cfg)
-        members = _bs_to_members(bs_loss, bs_exists, bs_len, fields, cfg, options)
-        for m in members:
-            hof.update(m, options)
+        with prof.stage("decode_hof"):
+            bs_loss, bs_exists, bs_len, fields, device_evals = _decode_readback(buf, cfg)
+            members = _bs_to_members(bs_loss, bs_exists, bs_len, fields, cfg, options)
+            for m in members:
+                hof.update(m, options)
         if options.should_simplify:
-            pool, n_scored = _simplified_frontier_pool(
-                members, options, cfg, score_call, hof, device
-            )
+            with prof.stage("simplify"):
+                pool, n_scored = _simplified_frontier_pool(
+                    members, options, cfg, score_call, hof, device
+                )
             host_evals += n_scored
             if pool is not None:
-                state = migrate_from_pool(
-                    state, ctx, pool, float(options.fraction_replaced_hof), data.norm
-                )
+                with prof.stage("migrate"):
+                    state = migrate_from_pool(
+                        state, ctx, pool, float(options.fraction_replaced_hof), data.norm
+                    )
+                    prof.fence()
 
     for it in range(niterations):
         # simulated preemption (fault-injection harness): one call per
@@ -885,14 +1066,27 @@ def device_search_one_output(
                 state = state._replace(loss=torch.where(bad, torch.nan, state.loss))
         state = run_iteration_fused(state, data, ctx, copt=const_opt, leg=timer.leg,
                                     block=block_fn)
-        with timer.leg("readback"):
-            fetch = readback.start(_readback_pack(state))
+        with timer.leg("readback", stage=False):
+            with prof.stage("readback_pack"):
+                rb = _readback_pack(state)
+                prof.fence()
+            fetch = readback.start(rb)
             if async_rb:
                 prev, pending = pending, fetch
                 if prev is not None:
                     consume(prev())
             else:
-                consume(fetch())
+                with prof.stage("readback_d2h"):
+                    buf = fetch()
+                if replay is not None:
+                    # the evolve, const-opt and finalize legs' logs
+                    _replay_logs(replay, ctx)
+                consume(buf)
+                if replay is not None:
+                    # the simplify pool's migration, then the authoritative
+                    # populations (out{j}_pop{i} entries, as the host engines)
+                    _replay_logs(replay, ctx)
+                    replay.snapshot_populations(_state_arrays(state), it + 1)
         iterations_run += 1
         num_evals = base_evals + device_evals + host_evals
         if output_file and options.save_to_file:
@@ -902,16 +1096,18 @@ def device_search_one_output(
             # best-effort snapshot (exact=False) of the live state; in the
             # pipelined loop the hall of fame and num_evals lag one iteration
             t_ck = time.perf_counter()
-            ck_pops, _, _ = _decode_state_populations(state, I, P, cfg, options)
-            ckptr.save(SearchCheckpoint(
-                iteration=it + 1, niterations=niterations, scheduler="device", exact=False,
-                populations=ck_pops, hall_of_fame=hof.copy(), num_evals=float(num_evals),
-                options_fingerprint=options_fingerprint(options),
-                wall_time=time.time() - start_time, out_j=out_j,
-            ))
+            with prof.stage("checkpoint"):
+                ck_pops, _, _ = _decode_state_populations(state, I, P, cfg, options)
+                ckptr.save(SearchCheckpoint(
+                    iteration=it + 1, niterations=niterations, scheduler="device", exact=False,
+                    populations=ck_pops, hall_of_fame=hof.copy(), num_evals=float(num_evals),
+                    options_fingerprint=options_fingerprint(options),
+                    wall_time=time.time() - start_time, out_j=out_j,
+                ))
             checkpoint_seconds.append(time.perf_counter() - t_ck)
         reporter.update(hof, num_evals, dataset.variable_names,
                         force=it == niterations - 1, y_variable_name=dataset.y_variable_name)
+        prof.next_iteration()
 
         # stop conditions (reference SymbolicRegression.jl
         # src/SearchUtils.jl:190-212); in the pipelined loop the hall of fame
@@ -973,6 +1169,10 @@ def device_search_one_output(
         "checkpoint_seconds": checkpoint_seconds,
         "nan_flooded_islands": flooded_islands,
     }
+    if options.profile:
+        result.engine_profile = prof.summary()
+    if own_recorder:
+        recorder.dump()
     return result
 
 

@@ -54,6 +54,16 @@ class BatchScorer:
         from ..analysis.ir_verify import debug_checks_enabled
 
         self._debug_checks = debug_checks_enabled(options)
+        # dimensional regularization (reference SymbolicRegression.jl
+        # src/LossFunctions.jl:217-227): an additive penalty on every scored
+        # tree the host oracle flags, when the dataset carries units
+        self._units_penalty = None
+        if dataset.has_units:
+            self._units_penalty = (
+                1000.0
+                if options.dimensional_constraint_penalty is None
+                else float(options.dimensional_constraint_penalty)
+            )
 
     # -- losses --------------------------------------------------------------
 
@@ -110,7 +120,7 @@ class BatchScorer:
             fetch = batched_loss_bucketed(flat, X, y, w, self.opset, self.loss_elem)
 
         def materialize() -> np.ndarray:
-            return fetch()[:P].astype(np.float64)
+            return self.apply_units_penalty(trees, fetch()[:P].astype(np.float64))
 
         return materialize
 
@@ -141,9 +151,19 @@ class BatchScorer:
         return self.loss_many_async(trees, idx=idx)()
 
     def apply_units_penalty(self, trees: list[Node], losses: np.ndarray) -> np.ndarray:
-        """Units are outside this package's scope (Dataset rejects them), so
-        the dimensional penalty is always zero."""
-        return losses
+        """Add the dimensional-regularization penalty to losses of ``trees``
+        (every scored batch, and the constant optimizer's losses) so that
+        unit-violating trees cannot enter populations or the hall of fame
+        un-penalized."""
+        if self._units_penalty is None or not len(trees):
+            return losses
+        from ..dimensional_analysis import violates_dimensional_constraints
+
+        viol = np.fromiter(
+            (violates_dimensional_constraints(t, self.dataset, self.options) for t in trees),
+            dtype=bool, count=len(trees),
+        )
+        return np.asarray(losses) + viol * self._units_penalty
 
     def batch_indices(self, rng: np.random.Generator) -> np.ndarray | None:
         """With-replacement minibatch row indices (reference: batch_sample,

@@ -22,7 +22,16 @@ this module changes only how they are expressed:
   (``run_iteration``, migration included) reads a tensor back to the
   host: every draw, index and count stays on the device, so the host only
   enqueues work. Constant tables are uploaded once, when the context is
-  built.
+  built;
+- the recorder's event log (``cfg.record_events``), which the JAX package
+  returns from its compiled programs, is written into tensors preallocated
+  on the device once per iteration (one row per cycle) and queued on the
+  context (``EvoContext.logs``) in the order the legs make them; the
+  engine loop (models/device_search.py) reads them back once per
+  iteration, in its readback leg;
+- the dimensional check (``cfg.units_check``) is one batched pass over the
+  postorder slots of every tree of a batch (``dim_violates_batch``), where
+  the JAX package ``vmap``s a per-tree ``fori_loop``.
 """
 
 from __future__ import annotations
@@ -60,6 +69,8 @@ __all__ = [
     "merge_best_seen",
     "complexity_batch",
     "state_tree",
+    "dim_violates_batch",
+    "dim_penalty_batch",
 ]
 
 # Mutation kind indices (subset of the reference's 12; see the JAX module).
@@ -69,9 +80,27 @@ M_CONST, M_OPERATOR, M_SWAP, M_ADD, M_INSERT, M_DELETE, M_RANDOMIZE, M_NOTHING =
 @dataclasses.dataclass(frozen=True)
 class EvoConfig:
     """Static engine configuration: the JAX package's ``EvoConfig`` fields,
-    with the same meaning, less those of features the port does not run
-    (units, the recorder, the ablation switches ``poisson_migration`` and
-    ``copt_updates_bs``, fixed on here as they are by default there)."""
+    with the same meaning, less its ablation switches ``poisson_migration``
+    and ``copt_updates_bs`` (fixed on here, as they are by default there).
+
+    Units (reference WildcardQuantity abstract evaluation,
+    SymbolicRegression.jl src/DimensionalAnalysis.jl:45-226): with
+    ``units_check`` one postorder pass propagates (SI-exponent vector [7],
+    wildcard, violation) per slot, and violating trees take the additive
+    loss penalty ``dim_penalty`` (src/LossFunctions.jl:217-227). As in the
+    JAX package the check is structure-only: the host oracle
+    (dimensional_analysis.py) also latches violations on non-finite sample
+    values, which the engine leaves to ordinary inf-loss scoring. Tables
+    from operator names (models/device_search._units_config):
+    ``una_dim_pow[i]`` is the exponent multiplier of a power-like unary op
+    (sqrt 0.5, square 2, inv -1, abs/neg 1, ...) or None (input must be
+    dimensionless or a wildcard); ``bin_dim_code[i]`` is 0 add/sub, 1 mult,
+    2 div, 3 generic/pow.
+
+    ``record_events`` (the recorder, SymbolicRegression.jl
+    src/Mutate.jl:126-341, src/SearchUtils.jl:377-393): every leg also logs
+    its events for the host replay (models/device_recorder.py). Requires
+    ``crossover_probability=0`` and ``mutation_attempts=1``."""
 
     n_islands: int
     pop_size: int
@@ -112,6 +141,14 @@ class EvoConfig:
     eval_fraction: float = 1.0
     val_dtype: str = "float32"
     complexity_table: tuple | None = None
+    units_check: bool = False
+    x_dims: tuple = ()  # F rows of 7 SI exponents (floats)
+    y_dims: tuple | None = None
+    una_dim_pow: tuple = ()
+    bin_dim_code: tuple = ()
+    dim_penalty: float = 1000.0
+    allow_wildcards: bool = True
+    record_events: bool = False
 
 
 class EvoState(NamedTuple):
@@ -143,7 +180,10 @@ class EvoContext:
     the device, the random generator, the scoring function
     ``score_rows(batch: Tree, X, y, w) -> losses [B]`` and the minibatch
     size, and the config's constant tables, uploaded once here (so the
-    evolve leg makes no host-to-device copy)."""
+    evolve leg makes no host-to-device copy). Under ``cfg.record_events``,
+    ``logs`` collects the legs' event logs as ``(kind, tensors)`` entries,
+    kind one of "iteration", "migration" and "tuning", in the order the
+    legs make them, until the engine loop takes them (``take_logs``)."""
 
     def __init__(self, cfg: EvoConfig, device, gen: torch.Generator, score_rows: Callable,
                  batch_rows: int = 0):
@@ -173,6 +213,18 @@ class EvoContext:
             torch.tensor(np.asarray(cfg.bin_caps, np.int32).reshape(-1, 2), device=dev)
             if cfg.bin_caps else None
         )
+        self.dim_tables = _dim_tables(cfg, dev) if cfg.units_check else None
+        self.logs: list = []
+
+    def log(self, kind: str, entry) -> None:
+        """Queue one leg's event log (tensors on the device); a no-op unless
+        the config records events."""
+        if self.cfg.record_events:
+            self.logs.append((kind, entry))
+
+    def take_logs(self) -> list:
+        logs, self.logs = self.logs, []
+        return logs
 
     def rand(self, *shape) -> torch.Tensor:
         return torch.rand(shape, generator=self.gen, device=self.device)
@@ -373,6 +425,105 @@ def _constraints_ok(t: Tree, cfg: EvoConfig, ctx: EvoContext | None = None) -> t
                 )
                 ok &= ~(is_outer & (child_nest > maxn)).any(1)
     return ok
+
+
+# ---------------------------------------------------------------------------
+# Dimensional analysis (units)
+# ---------------------------------------------------------------------------
+
+_DIM_TOL = 1e-4  # SI-exponent equality tolerance (1/3 etc. live in f32)
+
+
+def _dim_tables(cfg: EvoConfig, device):
+    """(x_dims [F, 7], unary power [nu], unary is-power [nu], binary code
+    [nb], y_dims [7] or None) on ``device``."""
+    f32 = torch.float32
+    xd = torch.tensor(cfg.x_dims if cfg.x_dims else ((0.0,) * 7,), dtype=f32, device=device)
+    u_pow = torch.tensor([p if p is not None else 0.0 for p in cfg.una_dim_pow] or [0.0],
+                         dtype=f32, device=device)
+    u_is_pow = torch.tensor([p is not None for p in cfg.una_dim_pow] or [False],
+                            dtype=torch.bool, device=device)
+    b_code = torch.tensor(list(cfg.bin_dim_code) or [3], dtype=torch.int32, device=device)
+    yd = None if cfg.y_dims is None else torch.tensor(cfg.y_dims, dtype=f32, device=device)
+    return xd, u_pow, u_is_pow, b_code, yd
+
+
+def dim_violates_batch(t: Tree, cfg: EvoConfig, ctx: EvoContext | None = None) -> torch.Tensor:
+    """[B] True where a tree is dimensionally inconsistent with
+    ``cfg.x_dims`` / ``cfg.y_dims`` (the JAX package's ``_dim_violates``,
+    one tree per lane of its ``vmap``; reference
+    violates_dimensional_constraints, SymbolicRegression.jl
+    src/DimensionalAnalysis.jl:45-226). One pass over the N slots in
+    postorder carries every tree's (dims [B, N, 7], wildcard, violation);
+    all False when units are not configured."""
+    B, N = t.kind.shape
+    dev = t.kind.device
+    if not cfg.units_check:
+        return torch.zeros((B,), dtype=torch.bool, device=dev)
+    xd, u_pow, u_is_pow, b_code, yd = (
+        (ctx.dim_tables if ctx is not None else None) or _dim_tables(cfg, dev))
+    F, nu, nb = xd.shape[0], u_pow.shape[0], b_code.shape[0]
+    rows = torch.arange(B, device=dev)
+
+    def dimless(d):  # [B, 7] -> [B]
+        return (torch.abs(d) < _DIM_TOL).all(-1)
+
+    # what does not depend on the children, for every slot at once
+    is_un, is_bin = t.kind == KIND_UNARY, t.kind == KIND_BINARY
+    li, ri = t.lhs.long(), t.rhs.long()
+    # leaves: constants are wildcards (unless forbidden), variables carry
+    # their feature's dims and are never wildcards
+    leaf_dims = torch.where((t.kind == KIND_VAR)[..., None],
+                            xd[torch.clamp(t.feat, 0, F - 1).long()], 0.0)
+    leaf_wc = (t.kind == KIND_CONST) if cfg.allow_wildcards else torch.zeros_like(is_un)
+    ou = torch.clamp(t.op, 0, nu - 1).long()
+    up, u_ispow = u_pow[ou], u_is_pow[ou]
+    code = b_code[torch.clamp(t.op, 0, nb - 1).long()]
+    c_as, c_mul, c_arith, c_gen = code == 0, code == 1, code <= 2, code > 2  # add/sub, mult, + - * /, other
+
+    dims = torch.zeros((B, N, 7), dtype=torch.float32, device=dev)
+    wc = torch.zeros((B, N), dtype=torch.bool, device=dev)
+    vio = torch.zeros((B, N), dtype=torch.bool, device=dev)
+    for i in range(N):
+        ld, lw, lv = dims[rows, li[:, i]], wc[rows, li[:, i]], vio[rows, li[:, i]]
+        rd, rw, rv = dims[rows, ri[:, i]], wc[rows, ri[:, i]], vio[rows, ri[:, i]]
+        ld_free, rd_free = dimless(ld) | lw, dimless(rd) | rw
+
+        ispow = u_ispow[:, i]
+        u_dims = torch.where(ispow[:, None], ld * up[:, i, None], 0.0)
+        u_wc = ispow & lw
+        u_vio = lv | (~ispow & ~ld_free)
+
+        same = (torch.abs(ld - rd) < _DIM_TOL).all(-1)
+        both_wc = lw & rw
+        as_dims = torch.where(
+            same[:, None], ld,
+            torch.where(both_wc[:, None], 0.0, torch.where(lw[:, None], rd, ld)),
+        )
+        as_vio = ~same & ~lw & ~rw
+        mul_dims = torch.where(c_mul[:, i, None], ld + rd, ld - rd)
+        b_dims = torch.where(c_as[:, i, None], as_dims,
+                             torch.where(c_arith[:, i, None], mul_dims, 0.0))
+        b_wc = torch.where(c_as[:, i], both_wc, c_arith[:, i] & (lw | rw))
+        b_vio = lv | rv | torch.where(c_as[:, i], as_vio, c_gen[:, i] & ~(ld_free & rd_free))
+
+        un, bn = is_un[:, i], is_bin[:, i]
+        dims[:, i] = torch.where(un[:, None], u_dims,
+                                 torch.where(bn[:, None], b_dims, leaf_dims[:, i]))
+        wc[:, i] = torch.where(un, u_wc, torch.where(bn, b_wc, leaf_wc[:, i]))
+        vio[:, i] = (un & u_vio) | (bn & b_vio)
+    root = torch.clamp(t.length - 1, 0, N - 1).long()
+    out = vio[rows, root]
+    if yd is not None:
+        out = out | (~wc[rows, root] & ~(torch.abs(dims[rows, root] - yd) < _DIM_TOL).all(-1))
+    return out
+
+
+def dim_penalty_batch(t: Tree, cfg: EvoConfig, ctx: EvoContext | None = None) -> torch.Tensor:
+    """Additive dimensional-regularization penalties [B] in the engine's
+    value dtype, added after the loss (never inside a kernel): ``dim_penalty``
+    where ``dim_violates_batch`` holds, else 0."""
+    return dim_violates_batch(t, cfg, ctx).to(getattr(torch, cfg.val_dtype)) * cfg.dim_penalty
 
 
 # ---------------------------------------------------------------------------
@@ -707,12 +858,15 @@ def _put(cur: torch.Tensor, isl, idx, new, mask):
 # ---------------------------------------------------------------------------
 
 
-def _event(state: EvoState, data, ctx: EvoContext, temperature: float, curmaxsize) -> EvoState:
+def _event(state: EvoState, data, ctx: EvoContext, temperature: float, curmaxsize,
+           log: dict | None = None, cycle: int = 0) -> EvoState:
     """One evolve pass: all of a cycle's events for all islands in one
     batched step (the JAX package's ``_event``): tournament -> mutate or
     crossover -> score -> Metropolis accept -> replace. Lane e of island i
     replaces the (2e)-th oldest member and its crossover child the
-    (2e+1)-th, so the scatter never collides."""
+    (2e+1)-th, so the scatter never collides. ``log``: the iteration's
+    event-log buffers (``_event_log``), whose row ``cycle`` this pass
+    fills."""
     cfg = ctx.cfg
     I, P, N = state.kind.shape
     E = min(cfg.events_per_cycle, P)
@@ -785,6 +939,10 @@ def _event(state: EvoState, data, ctx: EvoContext, temperature: float, curmaxsiz
 
     batch = cat_trees(cand1, cand2)
     losses = ctx.score(batch, data, minibatch=cfg.batching).to(state.loss.dtype)
+    if cfg.units_check:
+        # violating candidates carry the additive penalty into accept,
+        # replacement and the frontier merge, like the reference's eval_loss
+        losses = losses + dim_penalty_batch(batch, cfg, ctx)
     loss1, loss2 = losses[:L], losses[L:]
     comp1 = complexity_batch(cand1, cfg, ctx)
     comp2 = complexity_batch(cand2, cfg, ctx)
@@ -858,7 +1016,37 @@ def _event(state: EvoState, data, ctx: EvoContext, temperature: float, curmaxsiz
         batch.length, comps=torch.cat([comp1, comp2]),
     )
     n_scored = (L + do_xover.sum()).to(torch.float64) * cfg.eval_fraction
+    if log is not None:
+        # index writes into the preallocated row: no host sync. Recorder
+        # runs are mutation-only and single-attempt, so ``kinds`` is the
+        # kind of the candidate scored.
+        for key, v in (("kind", kinds), ("win1", win1), ("slot1", slot1), ("accept", accept1),
+                       ("loss", loss1), ("score", score1), ("ploss", ploss1),
+                       ("pscore", pscore1)):
+            log[key][cycle] = v
+        for buf, f in zip(log["cand"], cand1):
+            buf[cycle] = f
     return st._replace(freq=st.freq + fd, step=st.step + 1, num_evals=st.num_evals + n_scored)
+
+
+def _event_log(cfg: EvoConfig, device) -> dict:
+    """The iteration's event-log buffers on the device, [C, L, ...] (the
+    JAX package's per-cycle log of ``_run_iteration_impl``)."""
+    vdt = getattr(torch, cfg.val_dtype)
+    C, N = cfg.ncycles, cfg.n_slots
+    L = cfg.n_islands * min(cfg.events_per_cycle, cfg.pop_size)
+
+    def z(shape, dt):
+        return torch.zeros((C,) + shape, dtype=dt, device=device)
+
+    i32 = torch.int32
+    return {
+        "kind": z((L,), i32), "win1": z((L,), i32), "slot1": z((L,), i32),
+        "accept": z((L,), torch.bool), "loss": z((L,), vdt), "score": z((L,), vdt),
+        "ploss": z((L,), vdt), "pscore": z((L,), vdt),
+        "cand": (z((L, N), i32), z((L, N), i32), z((L, N), i32), z((L, N), i32),
+                 z((L, N), i32), z((L, N), vdt), z((L,), i32)),
+    }
 
 
 def _curmaxsize(state: EvoState, cfg: EvoConfig):
@@ -878,10 +1066,12 @@ def run_iteration(state: EvoState, data, ctx: EvoContext) -> EvoState:
     decay, then migration (moved to finalize under batching)."""
     cfg = ctx.cfg
     curmaxsize = _curmaxsize(state, cfg)
+    log = _event_log(cfg, ctx.device) if cfg.record_events else None
     for cycle in range(cfg.ncycles):
         # linspace(1, 0, ncycles): the final cycle runs at exactly T=0
         temp = 1.0 - cycle / max(cfg.ncycles - 1, 1) if cfg.annealing else 1.0
-        state = _event(state, data, ctx, temp, curmaxsize)
+        state = _event(state, data, ctx, temp, curmaxsize, log=log, cycle=cycle)
+    ctx.log("iteration", {"events": log})
     state = state._replace(iteration=state.iteration + 1)
     # frequency-window decay (proportional variant of move_window!,
     # SymbolicRegression.jl src/AdaptiveParsimony.jl:57-89; window 100k)
@@ -906,7 +1096,10 @@ def run_finalize(state: EvoState, data, ctx: EvoContext) -> EvoState:
     cfg = ctx.cfg
     I, P, N = state.kind.shape
     members = state_tree(state)
-    full_loss = ctx.score(members, data).to(state.loss.dtype).reshape(I, P)
+    full_loss = ctx.score(members, data).to(state.loss.dtype)
+    if cfg.units_check:
+        full_loss = full_loss + dim_penalty_batch(members, cfg, ctx)
+    full_loss = full_loss.reshape(I, P)
     comp_m = _complexity_members(state, cfg, ctx)
     state = state._replace(
         loss=full_loss,
@@ -914,8 +1107,10 @@ def run_finalize(state: EvoState, data, ctx: EvoContext) -> EvoState:
         num_evals=state.num_evals + float(I * P),
     )
     bs_len = state.bs_tree[6]
-    bs_full = ctx.score(Tree(*state.bs_tree[:6], bs_len), data)
-    bs_full = bs_full.to(state.bs_loss.dtype)
+    bs_batch = Tree(*state.bs_tree[:6], bs_len)
+    bs_full = ctx.score(bs_batch, data).to(state.bs_loss.dtype)
+    if cfg.units_check:
+        bs_full = bs_full + dim_penalty_batch(bs_batch, cfg, ctx)
     bs_valid = state.bs_exists & torch.isfinite(bs_full) & (bs_len >= 1)
     state = state._replace(
         bs_loss=torch.where(bs_valid, bs_full, torch.inf),
@@ -1002,6 +1197,7 @@ def _inject_pool(state: EvoState, ctx: EvoContext, pool, pool_valid, frac: float
         member_comp = _complexity_members(state, cfg, ctx)
     comp = torch.where(replace, pool_comp[src], member_comp).to(state.score.dtype)
     src_loss = p_loss[src].to(state.loss.dtype)
+    ctx.log("migration", {"replace": replace, "src": src, "pool": pool})
     return state._replace(
         kind=mix(state.kind, p_kind), op=mix(state.op, p_op), lhs=mix(state.lhs, p_lhs),
         rhs=mix(state.rhs, p_rhs), feat=mix(state.feat, p_feat), val=mix(state.val, p_val),

@@ -765,9 +765,10 @@ def make_plain_eval(opset, loss_elem, X, y, w):
 
 def block_eligible(cfg: EvoConfig):
     """(ok, reason): can the block replace the event leg for this engine
-    config? The JAX package's gates, with its reasons, less the ones of
-    features the port's config does not carry (the recorder, units); the
-    row-count gate lives in models/device_search."""
+    config? The JAX package's gates, with its reasons; the row-count gate
+    lives in models/device_search."""
+    if cfg.record_events:
+        return False, "recorder mode needs the per-event XLA log"
     if cfg.batching:
         return False, "minibatch scoring draws per-cycle row subsets"
     if cfg.eval_fraction < 1.0:
@@ -776,6 +777,8 @@ def block_eligible(cfg: EvoConfig):
         return False, "custom complexity mapping"
     if _has_op_constraints(cfg) or cfg.nested_constraints:
         return False, "operator argument/nesting constraints"
+    if cfg.units_check:
+        return False, "dimensional analysis"
     if cfg.mutation_attempts > 1:
         return False, "multi-attempt mutation retries"
     if cfg.val_dtype != "float32":

@@ -440,12 +440,6 @@ def _reject_out_of_slice(o: Options) -> None:
     back silently."""
     if o.scheduler == "async":
         raise _not_ported("scheduler='async'", "A, slice 4: parallel/islands.py")
-    if o.scheduler == "device" and o.use_recorder:
-        raise _not_ported("the recorder under scheduler='device'",
-                          "A, slice 2: recorder and profile in device mode")
-    if o.scheduler == "device" and o.optimizer_algorithm == "NelderMead":
-        raise _not_ported("optimizer_algorithm='NelderMead' under scheduler='device'",
-                          "A, slice 2: NelderMead in the device engine")
     if o.data_sharding is not None:
         raise _not_ported(f"data_sharding={o.data_sharding!r}", "A, slice 4: parallel/sharding.py")
     if o.on_peer_loss != "raise" or o.exchange_topology != "flat":
@@ -456,10 +450,6 @@ def _reject_out_of_slice(o: Options) -> None:
         raise _not_ported("loss_function_jit", "A, slice 2: loss_function_jit")
     if o.graph_nodes:
         raise _not_ported("graph_nodes", "A, slice 2: graph nodes")
-    if o.dimensional_constraint_penalty is not None or o.dimensionless_constants_only:
-        raise _not_ported("units / dimensional constraints", "A, slice 2: units.py")
-    if o.profile:
-        raise _not_ported("engine profiling", "A, slice 2: recorder and profile in device mode")
 
 
 def _normalize_constraints(constraints, opset: OperatorSet):

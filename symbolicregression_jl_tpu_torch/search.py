@@ -577,7 +577,7 @@ def equation_search(
             variable_names=variable_names,
             y_variable_name=y_names[j],
             X_units=X_units,
-            y_units=y_units,
+            y_units=y_units[j] if isinstance(y_units, (list, tuple)) else y_units,
         )
         if options.runtests:
             from .configure import test_dataset_configuration
@@ -644,7 +644,8 @@ def equation_search(
         if options.scheduler == "device":
             from .models.device_search import device_search_one_output
 
-            return device_search_one_output(dataset, options, nit, child_rngs[j], **kw)
+            return device_search_one_output(dataset, options, nit, child_rngs[j],
+                                            recorder=shared_recorder, **kw)
         return _search_one_output(
             dataset, options, nit, child_rngs[j], recorder=shared_recorder, **kw, **resume_kw
         )

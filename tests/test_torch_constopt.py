@@ -147,3 +147,44 @@ def test_minibatch_and_chunking(monkeypatch):
     np.testing.assert_allclose(l_one, l_all, rtol=1e-5)
     assert _clamped_chunk(512, 3, 24, 10_000, np.float32, False) == 512
     assert _clamped_chunk(4096, 3, 24, 10_000, np.float32, False) == 694
+
+
+@pytest.mark.parametrize("iters", [1, 8])
+def test_engine_neldermead_matches_jax_single(iters):
+    """The device engine's NelderMead (``ops.constant_opt._neldermead`` over
+    ``_PackedObjective``, each value one call of B1's wrapper: its plain
+    version here) against the JAX engine's per-tree
+    ``_neldermead_single`` from the same constants: final losses within 1e-5
+    relative (both sum the loss in their own order, in f32 and f64)."""
+    from symbolicregression_jl_tpu.ops.constant_opt import _neldermead_single, remat_tree_loss
+    from symbolicregression_jl_tpu.ops.interp import _Structure
+
+    import symbolicregression_jl_tpu_torch.models.device_search as tds
+    from symbolicregression_jl_tpu_torch.ops.treeops import Tree
+
+    jopts, topts = _opts(optimizer_algorithm="NelderMead", scheduler="device")
+    X, y = _data()
+    flat = J.flatten_trees(_corpus(J.tree)[:-1], jopts.max_nodes)
+    arrays = {f: np.asarray(getattr(flat, f)) for f in convert.FIELDS}
+    mask = arrays["kind"] == 1
+    rng = np.random.default_rng(4)
+    v0 = (arrays["val"] * (1 + 0.5 * rng.normal(size=arrays["val"].shape))).astype(np.float32)
+    v0 = np.where(mask, v0, arrays["val"]).astype(np.float32)
+
+    jnp = jax.numpy
+    loss_fn = remat_tree_loss(jopts.operators, jopts.loss, jnp.asarray(X), jnp.asarray(y),
+                              jnp.zeros((), jnp.float32), False)
+    struct = _Structure(*(jnp.asarray(arrays[f]) for f in
+                          ("kind", "op", "lhs", "rhs", "feat", "length")))
+    _, jf = jax.vmap(lambda v, s, m: _neldermead_single(
+        loss_fn, v, s, None, None, None, False, m, iters))(
+        jnp.asarray(v0), struct, jnp.asarray(mask))
+
+    scorer = tds.EngineScorer(topts, use_kernel=True)
+    batch = Tree(*(torch.from_numpy(arrays[f]) for f in convert.FIELDS))
+    prog, _ = tds.pack_batch(batch, topts.operators)
+    obj = tds._PackedObjective(scorer, prog, torch.from_numpy(X), torch.from_numpy(y), None)
+    tv, tf = tds._neldermead(obj, torch.from_numpy(v0), torch.from_numpy(mask), iters, 0.0)
+    assert scorer.grad_calls == 0 and scorer.score_calls == 1 + 4 * iters
+    np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=1e-5)
+    assert np.all(tf.numpy() <= obj.value(torch.from_numpy(v0)).numpy())

@@ -690,3 +690,94 @@ def test_device_engine_kill_and_resume_on_the_block(cuda, tmp_path, monkeypatch)
                               niterations=3, verbosity=0)
     assert flooded.engine_stats["nan_flooded_islands"] == 3
     assert all(np.isfinite(m.loss) for m in flooded.pareto_frontier)
+
+
+def _quick_engine(device="cuda", **kw):
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(2, 500)).astype(np.float32)
+    y = (2 * np.cos(X[1]) + X[0] ** 2 - 2).astype(np.float32)
+    base = dict(binary_operators=["+", "-", "*"], unary_operators=["cos"], populations=4,
+                population_size=16, ncycles_per_iteration=20, maxsize=14, seed=0,
+                save_to_file=False, progress=False, scheduler="device", device=device)
+    base.update(kw)
+    return X, y, Options(**base)
+
+
+def _frontier(res):
+    o = res.options
+    return [(m.get_complexity(o), m.loss, m.tree.string_tree(o.operators, precision=17))
+            for m in res.pareto_frontier]
+
+
+def test_engine_profile_on_the_card(cuda, monkeypatch):
+    """profile=True on the block: every iteration profiled, top-level
+    fractions summing to 1, the frontier of the unprofiled synchronous run."""
+    from symbolicregression_jl_tpu_torch import equation_search
+
+    monkeypatch.delenv("SR_ENGINE_BLOCK", raising=False)
+    X, y, opts = _quick_engine(profile=True)
+    res = equation_search(X, y, options=opts, niterations=3, verbosity=0)
+    prof = res.engine_profile
+    assert prof["iterations"] == 3 and res.engine_stats["block"] == "kernel"
+    total = sum(v["fraction"] for k, v in prof["stages"].items() if "/" not in k)
+    assert 0.99 <= total <= 1.01
+    _, _, plain = _quick_engine(async_readback=False)
+    assert _frontier(res) == _frontier(equation_search(X, y, options=plain, niterations=3,
+                                                       verbosity=0))
+
+
+def test_engine_neldermead_on_the_card(cuda, monkeypatch):
+    """NelderMead in the engine: B1 only, no B2 launch."""
+    from symbolicregression_jl_tpu_torch import equation_search
+
+    monkeypatch.delenv("SR_ENGINE_BLOCK", raising=False)
+    X, y, opts = _quick_engine(optimizer_algorithm="NelderMead")
+    b1, b2 = fused_loss.launches, fused_loss_grad.launches
+    res = equation_search(X, y, options=opts, niterations=2, verbosity=0)
+    st = res.engine_stats
+    assert fused_loss_grad.launches == b2 and st["grad_calls"] == 0
+    assert fused_loss.launches - b1 == st["score_calls"] > 0
+    assert np.isfinite(min(m.loss for m in res.pareto_frontier))
+
+
+def test_engine_recorder_and_units_on_the_card(cuda, monkeypatch, tmp_path):
+    """The recorder and units leave the block for the event leg; its evolve
+    leg stays free of host syncs with the event log and the dimension
+    check, and the record holds every mutation event."""
+    import contextlib
+    import json
+
+    import symbolicregression_jl_tpu_torch.models.device_search as ds
+    from symbolicregression_jl_tpu_torch import equation_search
+    from symbolicregression_jl_tpu_torch.dimensional_analysis import (
+        violates_dimensional_constraints,
+    )
+
+    @contextlib.contextmanager
+    def guard(name):
+        torch.cuda.set_sync_debug_mode("error" if name == "evolve" else 0)
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    monkeypatch.delenv("SR_ENGINE_BLOCK", raising=False)
+    monkeypatch.setattr(ds, "_LEG_WRAP", guard)
+    rec = tmp_path / "r.json"
+    X, y, opts = _quick_engine(use_recorder=True, crossover_probability=0.0,
+                               recorder_file=str(rec))
+    res = equation_search(X, y, options=opts, niterations=2, verbosity=0)
+    assert res.engine_stats["block"] is None
+    events = [e for m in json.loads(rec.read_text())["mutations"].values() for e in m["events"]]
+    assert sum(e["type"] == "mutate" for e in events) == 4 * 2 * 20 * 2
+    rng = np.random.default_rng(1)
+    Xu = rng.uniform(1, 5, size=(3, 500)).astype(np.float32)
+    yu = (Xu[0] * Xu[1] ** 2 / Xu[2]).astype(np.float32)
+    _, _, uopts = _quick_engine(binary_operators=["+", "-", "*", "/"],
+                                unary_operators=["sqrt", "cos"])
+    res = equation_search(Xu, yu, options=uopts, niterations=2, verbosity=0,
+                          X_units=["kg", "m/s", "m"], y_units="N")
+    assert res.engine_stats["block"] is None
+    for m in res.pareto_frontier:
+        if violates_dimensional_constraints(m.tree, res.dataset, uopts):
+            assert m.loss >= 1000.0

@@ -270,14 +270,24 @@ def test_engine_options(kw):
     assert all(m.tree.count_nodes() >= 1 for p in res.populations for m in p.members)
 
 
-@pytest.mark.parametrize("kw, item", [
-    (dict(optimizer_algorithm="NelderMead"), "NelderMead in the device engine"),
-    (dict(use_recorder=True, crossover_probability=0.0), "recorder and profile"),
-    (dict(profile=True), "recorder and profile"),
+@pytest.mark.parametrize("kw", [
+    dict(optimizer_algorithm="NelderMead"),
+    dict(use_recorder=True, crossover_probability=0.0),
+    dict(profile=True),
 ], ids=["neldermead", "recorder", "profile"])
-def test_out_of_slice_options_name_their_item(kw, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, A, slice 2: {item}"):
-        _opts(**kw)
+def test_out_of_slice_options_name_their_item(kw, tmp_path):
+    """These options raised here, naming their ROADMAP.md item, until the
+    engine ran them; now each one runs and shows its effect."""
+    X, y = _planted()
+    opts = _opts(seed=0, ncycles_per_iteration=10, recorder_file=str(tmp_path / "r.json"), **kw)
+    res = T.equation_search(X, y, options=opts, niterations=2, verbosity=0)
+    assert np.isfinite(_best(res))
+    if "optimizer_algorithm" in kw:
+        assert res.engine_stats["grad_calls"] == 0 and res.engine_stats["score_calls"] > 0
+    if "use_recorder" in kw:
+        assert (tmp_path / "r.json").stat().st_size > 0
+    if "profile" in kw:
+        assert res.engine_profile["iterations"] == 2
 
 
 def test_out_of_slice_entry_points_name_their_item():

@@ -151,7 +151,6 @@ def test_port_and_smoke_import_no_jax():
 @pytest.mark.parametrize(
     "kwargs",
     [
-        dict(scheduler="device", use_recorder=True, crossover_probability=0.0),
         dict(scheduler="async"),
         dict(data_sharding="rows"),
         dict(exchange_topology="ring"),
@@ -168,11 +167,30 @@ def test_out_of_slice_options_raise(kwargs):
 
 
 def test_out_of_slice_entry_points_raise():
-    X = np.zeros((1, 4), np.float32)
+    X = np.zeros((1, 4), np.complex64)
     y = np.zeros(4, np.float32)
     opts = T.Options(device="cpu", save_to_file=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.equation_search(X, y, options=opts, X_units=["m"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, A, slice 2: complex dtypes"):
+        T.equation_search(X, y, options=opts)
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [
+        dict(scheduler="device", use_recorder=True, crossover_probability=0.0),
+        dict(scheduler="device", profile=True),
+        dict(scheduler="device", optimizer_algorithm="NelderMead"),
+        dict(dimensional_constraint_penalty=100.0, dimensionless_constants_only=True),
+    ],
+    ids=["recorder", "profile", "neldermead", "units"],
+)
+def test_retired_refusals_now_construct(kwargs):
+    """The options this slice ported construct, and a units dataset parses."""
+    opts = T.Options(device="cpu", **kwargs)
+    for k, v in kwargs.items():
+        assert getattr(opts, k) == v
+    X = np.ones((1, 4), np.float32)
+    assert T.Dataset(X, np.ones(4, np.float32), X_units=["m"], y_units="m").has_units
 
 
 def test_options_pickle_round_trip():
