@@ -17,7 +17,8 @@ change, change, parent):
     python3 chip_kernel_timing.py --label change
 
 This prints what ``chip_smoke.py`` prints for its timings (B1 at P = 1024
-and 4,200 programs x 10k rows with slot-evals/s; B2 at P = 4,200 x 10k rows,
+and 4,200 programs x 10k rows with slot-evals/s, also as the device's time
+alone; B2 at P = 4,200 x 10k rows,
 the engine's constant-optimization shape, and at P = 1024 x 50 rows, a
 minibatch; B3's 1- and 100-cycle times at config3 width on 256, 2,500 and
 10,000 rows with the row sweep's intercept and slope; B4 at P = 1024 x 10k
@@ -114,7 +115,7 @@ def measure(chip_smoke, device) -> dict:
     b3 = chip_smoke.b3_timing(device, plain=False)
     b4 = chip_smoke.b4_timing(device, 1024)
     rate = ("ms", "slot_evals_per_s")
-    return {"b1": {str(P): {k: t[k] for k in rate} for P, t in b1.items()},
+    return {"b1": {str(P): {k: t[k] for k in rate + ("device_ms",)} for P, t in b1.items()},
             "b2": {f"{P}x{R}": {k: t[k] for k in rate + ("device_ms",)}
                    for (P, R), t in b2.items()},
             "b3": {k: b3[k] for k in ("ms", "ms_per_cycle", "sweep")},

@@ -74,7 +74,26 @@ JAX or of the JAX package. Phases, each of which raises on failure:
    replay's mirror equal to the engine's populations after every
    iteration, the record's mutation count exact; (d) the quick start on
    the engine with NelderMead: no B2 launch, a finite frontier. Each run's
-   launches are the kernels' path of the same name.
+   launches are the kernels' path of the same name;
+9. ``fleet``, many searches as one (``fleet_search``): (a) B1, B2 and B3 on
+   the lane axis, 3 lanes over config3's X with a y each, against their
+   plain versions and, bit for bit, against one solo launch per lane (B1
+   and B2 at 4,200 programs a lane, where the solo cuts each program's rows
+   into 2 chunks, and at 64), then timed at 1 and 4 lanes; whether one
+   ``torch.bmm`` over the lanes gives each lane the bits of its own call is
+   printed (the reason the fleet's BFGS calls it per lane); (b)
+   ``multitarget_search`` of four targets on config3's X (config3's y and
+   three planted laws) at config3 width, 3 iterations x ENGINE_CYCLES on
+   the block, beside the four solo runs at seeds s + t: every lane's
+   frontier and num_evals equal its solo's, B3 once per iteration for the
+   fleet, B2 no more than one solo; the legs per iteration against the
+   solos' sums and the const-opt leg's idle share; (c) a 6,000-row lane of
+   3 iterations beside a 10,000-row lane of 1, each equal to its solo on the
+   padded, weighted data; (d) two lanes on the event leg
+   (``SR_ENGINE_BLOCK=0``) at the quick start's size, each equal to its
+   solo. The fleet runs' launches are the path ``fleet``, their solo
+   references' ``fleet solos``; the kernels line's ``lane_axis`` holds the
+   lane-axis check's error and times.
 
 The last lines are the kernels JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}`` (``count`` is the number of cards the
@@ -120,6 +139,8 @@ DEVICE_QUICKSTART_ITERATIONS = 3
 # the resume phase's lockstep runs: the quick start's size (200 x 2, 15 x 33)
 # at RESUME_ITERATIONS iterations of RESUME_CYCLES cycles
 RESUME_ITERATIONS, RESUME_CYCLES = 3, 10
+# the fleet phase's kernel check: lanes of one lane-axis launch
+FLEET_CHECK_LANES = 3
 
 # H100 SXM peaks (NVIDIA data sheet; at the 700 W power limit)
 PEAK_F32_FLOPS = 67e12
@@ -352,8 +373,10 @@ def kernel_check(device):
 
 def b1_timing(device, P, plain=False):
     """B1 on P random config3 programs (seed P) x 10k rows, unweighted: the
-    median kernel ms, slot evaluations per second, the bound and, with
-    ``plain``, the plain version's ms. Timing launches are not counted."""
+    median kernel ms (as ``time_ms`` takes it, the wrapper's host time
+    included) and the device's alone (``device_time_ms``), slot evaluations
+    per second, the bound and, with ``plain``, the plain version's ms.
+    Timing launches are not counted."""
     import torch
 
     from symbolicregression_jl_tpu_torch import Options
@@ -372,6 +395,7 @@ def b1_timing(device, P, plain=False):
     l2 = L.L2DistLoss
     saved = fused_loss.launches
     ms = time_ms(lambda: fused_loss(prog, vals, X, y, None, opset, l2))
+    dev_ms = device_time_ms(lambda: fused_loss(prog, vals, X, y, None, opset, l2))
     plain_ms = (time_ms(lambda: fused_loss_reference(prog, vals, X, y, None, opset, l2),
                         warmup=1, reps=20) if plain else None)
     fused_loss.launches = saved  # timing launches are not the main path's
@@ -379,11 +403,12 @@ def b1_timing(device, P, plain=False):
     bound_ops = work["operations"] / PEAK_F32_FLOPS * 1e3
     bound_bytes = work["bytes"] / PEAK_BYTES * 1e3
     rate = work["slot_evals"] / (ms * 1e-3)
-    print(f"fused_loss timing (P={P}, R={CONFIG3_ROWS}, N={N}): kernel {ms:.4f} ms"
-          + (f", plain {plain_ms:.4f} ms" if plain else "")
+    print(f"fused_loss timing (P={P}, R={CONFIG3_ROWS}, N={N}): kernel {ms:.4f} ms (device "
+          f"alone {dev_ms:.4f} ms)" + (f", plain {plain_ms:.4f} ms" if plain else "")
           + f", bound {max(bound_ops, bound_bytes):.5f} ms, slot evals {work['slot_evals']}, "
           f"{rate:.4g} slot-evals/s", flush=True)
-    return {"P": P, "ms": ms, "plain_ms": plain_ms, "slot_evals_per_s": rate,
+    return {"P": P, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "slot_evals_per_s": rate,
             "bound_ms": max(bound_ops, bound_bytes),
             "bound_by": "operations" if bound_ops >= bound_bytes else "bytes"}
 
@@ -1818,6 +1843,462 @@ def engine_options(device, block_run_s):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the fleet
+# ---------------------------------------------------------------------------
+
+
+def fleet_targets(X):
+    """The fleet cell's four targets over config3's X: config3's own y, then
+    three planted laws the operator set can express (PERF.md section 4)."""
+    import numpy as np
+
+    y0 = config3_data(n_rows=X.shape[1])[1]
+    y1 = X[1] * X[2] - 0.5 * X[0]
+    y2 = np.cos(1.7 * X[3]) + np.abs(X[4])
+    y3 = np.exp(0.3 * X[0]) / (1.0 + np.abs(X[1]))
+    return np.stack([y0, y1, y2, y3]).astype(np.float32)
+
+
+def _bits(t):
+    """A tensor's bits, for bitwise comparison (NaN equal to itself)."""
+    import torch
+
+    return t.contiguous().view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _same_bits(tag, got, want):
+    import torch
+
+    if not torch.equal(_bits(got), _bits(want)):
+        bad = torch.nonzero((_bits(got) != _bits(want)).reshape(got.shape[0], -1).any(1))
+        _fail(f"{tag}: the lane-axis launch differs from the solo launches at rows "
+              f"{bad.flatten()[:5].tolist()}")
+
+
+def fleet_kernel_check(device, lanes=FLEET_CHECK_LANES, P_lane=4200, islands=100):
+    """Phase 9 (a): B1, B2 and B3 on the lane axis at L = ``lanes``, on
+    config3's X with a different y per lane: against their plain versions
+    (the smoke's tolerances), then against one solo launch per lane, bit for
+    bit. B1 and B2 at the const-opt shape (``P_lane`` programs a lane, 10k
+    rows: the solo launch cuts each program's rows into 2 chunks, which a
+    geometry taken from L * P_lane programs would not) and at 64 programs a
+    lane (many chunks), weighted and unweighted; B3 at config3 width, 2
+    cycles. Then each kernel timed at L = 1 and L = 4 on the same lane shapes,
+    beside its bound at each (B3's for one cycle).
+    Returns {name: {"max_abs_err", "ms_l1", "ms_l4"}}; timing launches are
+    not counted."""
+    import numpy as np
+    import torch
+
+    from symbolicregression_jl_tpu_torch import Options
+    from symbolicregression_jl_tpu_torch.ops.evolve_block_cuda import (
+        block_work_counts, evolve_block, evolve_block_reference,
+    )
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import (
+        fused_loss, fused_loss_grad, fused_loss_grad_reference, fused_loss_reference,
+        grad_geometry, grad_work_counts, loss_geometry, work_counts,
+    )
+
+    saved = fused_loss.launches, fused_loss_grad.launches, evolve_block.launches
+    opts = Options(maxsize=20, populations=islands, population_size=100, device=device.type,
+                   **CONFIG3_OPS)
+    opset, N, l2 = opts.operators, opts.max_nodes, opts.loss
+    Xn, _ = config3_data()
+    Yn = fleet_targets(Xn)
+    L4 = Yn.shape[0]
+    X4 = torch.from_numpy(np.ascontiguousarray(np.broadcast_to(Xn, (L4,) + Xn.shape))).to(device)
+    Y4 = torch.from_numpy(Yn).to(device)
+    W4 = torch.from_numpy(
+        np.random.default_rng(3).uniform(0.1, 2.0, Yn.shape).astype(np.float32)).to(device)
+    out = {}
+    errs = {"fused_loss": 0.0, "fused_loss_grad": 0.0, "evolve_block": 0.0}
+    for P in (P_lane, 64):
+        n_chunks = loss_geometry(P, N, CONFIG3_ROWS)[4]
+        if n_chunks == loss_geometry(lanes * P, N, CONFIG3_ROWS)[4] and P == P_lane:
+            _fail(f"P_lane={P}: the check does not separate the lane's chunking from the "
+                  "fleet's")
+        prog_np, vals_np = random_programs(opset, lanes * P, N, CONFIG3_FEATURES, seed=P + 1)
+        prog = torch.from_numpy(prog_np).to(device)
+        vals = torch.from_numpy(vals_np).to(device)
+        X, Y = X4[:lanes], Y4[:lanes]
+        for W in (None, W4[:lanes]):
+            tag = f"L={lanes} x {P} programs{' weighted' if W is not None else ''}"
+            got = fused_loss(prog, vals, X, Y, W, opset, l2)
+            ref = fused_loss_reference(prog, vals, X, Y, W, opset, l2)
+            gl, gg = fused_loss_grad(prog, vals, X, Y, W, opset, l2)
+            rl, rg = fused_loss_grad_reference(prog, vals, X, Y, W, opset, l2)
+            solo = [fused_loss(prog[l * P:(l + 1) * P], vals[l * P:(l + 1) * P], X[l], Y[l],
+                               None if W is None else W[l], opset, l2) for l in range(lanes)]
+            solo_g = [fused_loss_grad(prog[l * P:(l + 1) * P], vals[l * P:(l + 1) * P], X[l],
+                                      Y[l], None if W is None else W[l], opset, l2)
+                      for l in range(lanes)]
+            torch.cuda.synchronize()
+            errs["fused_loss"] = max(errs["fused_loss"], compare(f"B1 lanes {tag}", got, ref))
+            errs["fused_loss_grad"] = max(errs["fused_loss_grad"],
+                                          compare(f"B2 lanes {tag}", gl, rl),
+                                          compare_grads(f"B2 lanes {tag}", gg, rg))
+            _same_bits(f"B1 {tag}", got, torch.cat(solo))
+            _same_bits(f"B2 losses {tag}", gl, torch.cat([s[0] for s in solo_g]))
+            _same_bits(f"B2 gradients {tag}", gg, torch.cat([s[1] for s in solo_g]))
+        print(f"fleet kernel check, B1 and B2: L={lanes} lanes x {P} programs x "
+              f"{CONFIG3_ROWS} rows (a lane's launch shape: {n_chunks} row chunks per program "
+              f"for B1, {grad_geometry(P, N, CONFIG3_ROWS)[4]} for B2), weighted and not: "
+              "within tolerance of the plain versions and bit for bit the solo launches",
+              flush=True)
+
+    # B3: each lane its own population (seed), y and scalars
+    setups = [block_setup(device, opts, X4[l], Y4[l], None, islands, 2, seed=l)
+              for l in range(lanes)]
+    cfg = setups[0][0]
+    pops = [s[1] for s in setups]
+    scal = [s[2] for s in setups]
+    stacked = tuple(torch.cat([p[k] for p in pops]) for k in range(6))
+    lane_scal = tuple(torch.stack([s[k] for s in scal]) for k in range(5))
+    args = (*stacked, *lane_scal, X4[:lanes], Y4[:lanes], None, cfg, opset, l2)
+    got = evolve_block(*args)
+    ref = evolve_block_reference(*args)
+    solo = [evolve_block(*pops[l], *scal[l], X4[l], Y4[l], None, cfg, opset, l2)
+            for l in range(lanes)]
+    torch.cuda.synchronize()
+    errs["evolve_block"] = compare_block(f"B3 lanes L={lanes}", got, ref)
+    for k, field in enumerate(got):
+        _same_bits(f"B3 output {k}", field, torch.cat([s[k] for s in solo]))
+    print(f"fleet kernel check, B3: L={lanes} lanes x {islands} islands x 100 (config3), 2 "
+          f"cycles, one launch of {lanes * islands} blocks: within tolerance of the plain "
+          "version, and every output bit for bit the solo launches'", flush=True)
+
+    bmm_batch_count(device, N)
+
+    # timings on the lane shapes, at L = 1 and L = 4
+    prog_np, vals_np = random_programs(opset, L4 * P_lane, N, CONFIG3_FEATURES, seed=P_lane + 1)
+    prog = torch.from_numpy(prog_np).to(device)
+    vals = torch.from_numpy(vals_np).to(device)
+    t, bound = {}, {}
+
+    def bound_ms(work):
+        return max(work["operations"] / PEAK_F32_FLOPS, work["bytes"] / PEAK_BYTES) * 1e3
+
+    for L in (1, L4):
+        n = L * P_lane
+        t[("fused_loss", L)] = time_ms(lambda: fused_loss(prog[:n], vals[:n], X4[:L], Y4[:L],
+                                                            None, opset, l2))
+        t[("fused_loss_grad", L)] = time_ms(lambda: fused_loss_grad(
+            prog[:n], vals[:n], X4[:L], Y4[:L], None, opset, l2))
+        bound[("fused_loss", L)] = bound_ms(work_counts(
+            prog_np[:n], CONFIG3_ROWS, CONFIG3_FEATURES, False, lanes=L))
+        bound[("fused_loss_grad", L)] = bound_ms(grad_work_counts(
+            prog_np[:n], CONFIG3_ROWS, CONFIG3_FEATURES, False, lanes=L))
+    ksetups = [block_setup(device, opts, X4[l], Y4[l], None, islands, ENGINE_CYCLES, seed=l)
+               for l in range(L4)]
+    ones = [block_setup(device, opts, X4[l], Y4[l], None, islands, 1, seed=l)
+            for l in range(L4)]
+    for L in (1, L4):
+        per = {}
+        for tag, su in (("k", ksetups), ("1", ones)):
+            st = tuple(torch.cat([s[1][k] for s in su[:L]]) for k in range(6))
+            sc = tuple(torch.stack([s[2][k] for s in su[:L]]) for k in range(5))
+            a = (*st, *sc, X4[:L], Y4[:L], None, su[0][0], opset, l2)
+            per[tag] = time_ms(lambda: evolve_block(*a))
+            if tag == "1":
+                # the bound of one cycle, from the candidates the plain
+                # version scores in it
+                counts = {}
+                evolve_block_reference(*a, counts=counts)
+                bound[("evolve_block", L)] = bound_ms(block_work_counts(
+                    su[0][0], CONFIG3_ROWS, CONFIG3_FEATURES, False, counts["candidates"],
+                    counts["slots"], lanes=L))
+        t[("evolve_block", L)] = (per["k"] - per["1"]) / (ENGINE_CYCLES - 1)
+    fused_loss.launches, fused_loss_grad.launches, evolve_block.launches = saved
+    for name in ("fused_loss", "fused_loss_grad", "evolve_block"):
+        a, b = t[(name, 1)], t[(name, L4)]
+        unit = "ms per cycle" if name == "evolve_block" else "ms"
+        what = (f"{islands} islands a lane ({islands} and {L4 * islands} blocks)"
+                if name == "evolve_block" else f"{P_lane} programs a lane x {CONFIG3_ROWS} rows")
+        b1, b4 = bound[(name, 1)], bound[(name, L4)]
+        print(f"fleet timing, {name} on the lane axis, {what}: L=1 {a:.4f} {unit}, L={L4} "
+              f"{b:.4f} {unit} ({b / a:.2f}x the one lane's); bound L=1 {b1:.5f} ms, "
+              f"L={L4} {b4:.5f} ms{' (one cycle)' if name == 'evolve_block' else ''}",
+              flush=True)
+        out[name] = {"max_abs_err": errs[name], "ms_l1": a, f"ms_l{L4}": b,
+                     "bound_ms_l1": b1, f"bound_ms_l{L4}": b4}
+    return out
+
+
+def bmm_batch_count(device, N, lanes=4, batches=(4200, 64)):
+    """Whether one ``torch.bmm`` over a fleet's lane-major batch gives each
+    lane the bits of one call on that lane alone, for the BFGS's products
+    (H g, and the two of the H update) at B instances a lane: the reason
+    the fleet's BFGS calls bmm once per lane (``_lane_bmm``). Prints what it
+    finds; fails on nothing."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(0)
+    for B in batches:
+        def r(*shape):
+            return torch.randn(*shape, device=device, generator=g)
+
+        A = r(lanes * B, N, N)
+        found = []
+        for name, b in (("H g", r(lanes * B, N, 1)), ("A H", r(lanes * B, N, N)),
+                        ("A H A^T", r(lanes * B, N, N).transpose(1, 2))):
+            whole = torch.bmm(A, b)
+            parts = torch.cat([torch.bmm(u, v) for u, v in zip(A.chunk(lanes), b.chunk(lanes))])
+            same = torch.equal(whole.view(torch.int32), parts.view(torch.int32))
+            found.append(f"{name} {'equal' if same else 'DIFFERENT'} "
+                         f"(max abs diff {float((whole - parts).abs().max()):.3g})")
+        print(f"bmm over {lanes} lanes x {B} instances x {N} slots against one bmm per lane: "
+              + ", ".join(found), flush=True)
+
+
+def _leg_timer(last_iteration, trace=("const_opt",)):
+    """A ``device_search._LEG_WRAP`` that times each evolve and const-opt leg
+    on the host clock between two synchronizations, and traces the legs
+    named in ``trace`` of iteration ``last_iteration`` under torch.profiler
+    (CUDA activity). Returns (wrap, walls {leg: [s]}, idle {leg: (wall s,
+    busy s)})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    walls, idle, seen = {}, {}, {}
+
+    def wrap(name):
+        seen[name] = nth = seen.get(name, 0) + 1
+        if name not in ("evolve", "const_opt"):
+            return contextlib.nullcontext()
+        traced = name in trace and nth == last_iteration
+
+        @contextlib.contextmanager
+        def timed():
+            acts = [ProfilerActivity.CUDA if torch.cuda.is_available() else ProfilerActivity.CPU]
+            with profile(activities=acts) if traced else contextlib.nullcontext() as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                yield
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            walls.setdefault(name, []).append(wall)
+            if traced:
+                busy = 0.0
+                for ev in prof.key_averages():
+                    us = getattr(ev, "self_device_time_total", None)
+                    busy += (getattr(ev, "self_cuda_time_total", 0.0) if us is None else us) * 1e-6
+                idle[name] = (wall, busy)
+        return timed()
+
+    return wrap, walls, idle
+
+
+def _timed_run(run, last_iteration):
+    """``run()`` with its legs timed (``_leg_timer``) and B1-B3 counted from 0;
+    returns (its result, (B1, B2, B3), walls, idle)."""
+    import symbolicregression_jl_tpu_torch.models.device_search as ds
+
+    wrap, walls, idle = _leg_timer(last_iteration)
+    saved = ds._LEG_WRAP
+    ds._LEG_WRAP = wrap
+    try:
+        out, b1, b2, b3 = _counted(run)
+    finally:
+        ds._LEG_WRAP = saved
+    return out, (b1, b2, b3), walls, idle
+
+
+def _idle_text(idle):
+    wall, busy = idle
+    return (f"{1 - busy / wall:.1%} of {wall * 1e3:.3f} ms" if busy > 0
+            else "not measured (no device time traced)")
+
+
+def fleet_multitarget(device, iterations=ENGINE_ITERATIONS, cycles=ENGINE_CYCLES, seed=0):
+    """Phase 9 (b): ``multitarget_search`` of the four fleet targets on
+    config3's X at config3 width, on the block, and the four solo
+    ``scheduler="device"`` runs at seeds ``seed + t``: each lane's frontier
+    (complexities, losses, strings) and num_evals equal its solo's; the
+    fleet launches B3 once per iteration and B2 no more than one solo; legs
+    timed per iteration against the solos' sums, and the const-opt leg's idle
+    share in the last iteration. Returns (fleet launches, solo launches)."""
+    from symbolicregression_jl_tpu_torch import Options, equation_search, multitarget_search
+
+    Xn, _ = config3_data()
+    Y = fleet_targets(Xn)
+    T = Y.shape[0]
+
+    def opts(s):
+        return Options(populations=100, population_size=100, maxsize=20,
+                       ncycles_per_iteration=cycles, seed=s, save_to_file=False, progress=False,
+                       device=device.type, scheduler="device", **CONFIG3_OPS)
+
+    with engine_block_env(True):
+        t0 = time.perf_counter()
+        fleet, fl, fwalls, fidle = _timed_run(
+            lambda: multitarget_search(Xn, Y, opts(seed), niterations=iterations), iterations)
+        fleet_wall = time.perf_counter() - t0
+        solos, swalls, sidle = [], [], []
+        sl = [0, 0, 0]
+        solo_wall = 0.0
+        for t in range(T):
+            t0 = time.perf_counter()
+            res, counts, walls, idle = _timed_run(
+                lambda: equation_search(Xn, Y[t], options=opts(seed + t), niterations=iterations,
+                                        verbosity=0), iterations)
+            solo_wall += time.perf_counter() - t0
+            solos.append(res)
+            swalls.append(walls)
+            sidle.append(idle)
+            sl = [a + b for a, b in zip(sl, counts)]
+            if res.engine_stats["block"] != "kernel":
+                _fail(f"solo target {t} ran the evolve leg {res.engine_stats['block']!r}")
+    for t in range(T):
+        if _frontier(fleet[t]) != _frontier(solos[t]):
+            _fail(f"multitarget lane {t}: frontier differs from its solo run")
+        if fleet[t].num_evals != solos[t].num_evals:
+            _fail(f"multitarget lane {t}: num_evals {fleet[t].num_evals} vs solo "
+                  f"{solos[t].num_evals}")
+    st = fleet[0].engine_stats
+    if st["block"] != "kernel":
+        _fail(f"the fleet ran the evolve leg {st['block']!r}, not the block")
+    if fl[2] != iterations or sl[2] != T * iterations:
+        _fail(f"B3 launches: fleet {fl[2]}, solos {sl[2]} (want {iterations} and "
+              f"{T * iterations})")
+    solo_b2 = [s.engine_stats["grad_calls"] for s in solos]
+    if fl[1] != st["fleet"]["grad_calls"] or fl[1] > max(solo_b2):
+        _fail(f"B2 launches: fleet {fl[1]} ({st['fleet']['grad_calls']} gradient calls) "
+              f"against solos {solo_b2}")
+    fleet_score = st["fleet"]["score_calls"] + sum(r.engine_stats["score_calls"] for r in fleet)
+    if fl[0] != fleet_score:
+        _fail(f"B1 launches: fleet {fl[0]} for {fleet_score} scoring calls")
+    print(f"fleet multitarget_search: {T} targets on config3's X (100x100, "
+          f"{CONFIG3_ROWS} rows), {iterations} iterations x {cycles} cycles on the block: "
+          f"every lane's frontier and num_evals equal its solo run at seed {seed}+t; "
+          f"launches fleet B1 {fl[0]}, B2 {fl[1]}, B3 {fl[2]} against the four solos' "
+          f"B1 {sl[0]}, B2 {sl[1]}, B3 {sl[2]}; wall fleet {fleet_wall:.3f} s (set-up "
+          f"{fleet[0].setup_seconds:.3f} s, main loop "
+          f"{max(r.iteration_seconds for r in fleet):.3f} s), the four solos {solo_wall:.3f} s "
+          f"(set-up {sum(r.setup_seconds for r in solos):.3f} s, main loops "
+          f"{sum(r.iteration_seconds for r in solos):.3f} s)", flush=True)
+    for leg in ("evolve", "const_opt"):
+        f_ms = [w * 1e3 for w in fwalls[leg]]
+        s_ms = [sum(w[leg][i] for w in swalls) * 1e3 for i in range(iterations)]
+        print(f"fleet legs, {leg}, host ms between synchronizations per iteration: fleet "
+              + ", ".join(f"{v:.3f}" for v in f_ms) + "; sum of the four solos "
+              + ", ".join(f"{v:.3f}" for v in s_ms), flush=True)
+    print(f"fleet const-opt leg, iteration {iterations}, device idle under torch.profiler: "
+          f"fleet {_idle_text(fidle['const_opt'])}; solos "
+          + ", ".join(_idle_text(i["const_opt"]) for i in sidle), flush=True)
+    for t, r in enumerate(fleet):
+        best = min(r.pareto_frontier, key=lambda m: m.loss)
+        print(f"  target {t}: best loss {best.loss:.6g}, "
+              f"{best.tree.string_tree(r.options.operators)}", flush=True)
+    return tuple(fl), tuple(sl)
+
+
+def fleet_mixed(device, cycles=ENGINE_CYCLES, seed=0):
+    """Phase 9 (c): a 6,000-row lane of 3 iterations beside a 10,000-row
+    lane of 1 iteration, at config3 width on the block: the short-rowed lane
+    equals its solo on its data padded to 10,000 rows (``pad_rows_np``), the
+    other its solo with explicit ones weights (a fleet of mixed rows weights
+    every lane), and the 1-iteration lane stops while the other goes on.
+    Returns (fleet launches, solo launches)."""
+    import numpy as np
+
+    from symbolicregression_jl_tpu_torch import Options, equation_search
+    from symbolicregression_jl_tpu_torch.models.device_search import FleetLaneSpec, fleet_search
+    from symbolicregression_jl_tpu_torch.ops.scoring import pad_rows_np
+
+    Xn, _ = config3_data()
+    Y = fleet_targets(Xn)
+
+    def opts(s):
+        return Options(populations=100, population_size=100, maxsize=20,
+                       ncycles_per_iteration=cycles, seed=s, save_to_file=False, progress=False,
+                       device=device.type, scheduler="device", **CONFIG3_OPS)
+
+    short_X, short_y = np.ascontiguousarray(Xn[:, :6000]), np.ascontiguousarray(Y[1][:6000])
+    with engine_block_env(True):
+        res, *fl = _counted(lambda: fleet_search([
+            FleetLaneSpec(X=short_X, y=short_y, options=opts(seed + 1), niterations=3),
+            FleetLaneSpec(X=Xn, y=Y[0], options=opts(seed), niterations=1),
+        ]))
+        Xp, yp, wp = pad_rows_np(short_X, short_y, None, CONFIG3_ROWS)
+        solo_a, *sa = _counted(lambda: equation_search(Xp, yp, weights=wp, options=opts(seed + 1),
+                                                        niterations=3, verbosity=0))
+        solo_b, *sb = _counted(lambda: equation_search(
+            Xn, Y[0], weights=np.ones(CONFIG3_ROWS, np.float32), options=opts(seed),
+            niterations=1, verbosity=0))
+    for tag, got, want in (("6,000-row lane (3 iterations)", res[0], solo_a),
+                           ("10,000-row lane (1 iteration)", res[1], solo_b)):
+        if _frontier(got) != _frontier(want) or got.num_evals != want.num_evals:
+            _fail(f"fleet, mixed rows and budgets: the {tag} differs from its solo run")
+    iters = [r.engine_stats["iterations"] for r in res]
+    if iters != [3, 1] or fl[2] != 3:
+        _fail(f"fleet, mixed budgets: lanes ran {iters} iterations in {fl[2]} B3 launches")
+    print(f"fleet, mixed rows and budgets (6,000 rows x 3 iterations beside 10,000 rows x 1, "
+          f"config3 width, on the block): each lane equal to its solo run on the padded, "
+          f"weighted data (frontier and num_evals); launches fleet B1 {fl[0]}, B2 {fl[1]}, B3 "
+          f"{fl[2]}; solos B1 {sa[0] + sb[0]}, B2 {sa[1] + sb[1]}, B3 {sa[2] + sb[2]}",
+          flush=True)
+    return tuple(fl), tuple(a + b for a, b in zip(sa, sb))
+
+
+def fleet_event_leg(device, iterations=2, cycles=100, seed=0):
+    """Phase 9 (d): two lanes at the quick start's size (200 x 2, 15 x 33,
+    ``+ - *``, ``cos``) with ``SR_ENGINE_BLOCK=0``: the event leg runs lane
+    after lane, the const-opt leg once for both; each lane equals its solo
+    run. Cycles cut from 550 to ``cycles``. Returns (fleet launches, solo
+    launches)."""
+    import numpy as np
+
+    from symbolicregression_jl_tpu_torch import Options, equation_search
+    from symbolicregression_jl_tpu_torch.models.device_search import FleetLaneSpec, fleet_search
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(2, 200)).astype(np.float32)
+    ys = [(2 * np.cos(X[1]) + X[0] ** 2 - 2).astype(np.float32),
+          (X[0] * X[1] + np.cos(X[0])).astype(np.float32)]
+
+    def opts(s):
+        return Options(binary_operators=["+", "-", "*"], unary_operators=["cos"],
+                       ncycles_per_iteration=cycles, seed=s, save_to_file=False, progress=False,
+                       device=device.type, scheduler="device")
+
+    with engine_block_env(False):
+        t0 = time.perf_counter()
+        res, *fl = _counted(lambda: fleet_search(
+            [FleetLaneSpec(X=X, y=ys[t], options=opts(seed + t), niterations=iterations)
+             for t in range(2)]))
+        fleet_wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        solos, *sl = _counted(lambda: [equation_search(X, ys[t], options=opts(seed + t),
+                                                       niterations=iterations, verbosity=0)
+                                       for t in range(2)])
+        solo_wall = time.perf_counter() - t0
+    for t in range(2):
+        if _frontier(res[t]) != _frontier(solos[t]) or res[t].num_evals != solos[t].num_evals:
+            _fail(f"fleet, event leg: lane {t} differs from its solo run")
+    if res[0].engine_stats["block"] is not None or fl[2] != 0:
+        _fail("fleet, event leg: the block ran")
+    print(f"fleet, event leg (SR_ENGINE_BLOCK=0; quick start's size, 2 lanes x {iterations} "
+          f"iterations x {cycles} cycles): each lane equal to its solo run; wall fleet "
+          f"{fleet_wall:.3f} s, two solos {solo_wall:.3f} s; launches fleet B1 {fl[0]}, B2 "
+          f"{fl[1]}; solos B1 {sl[0]}, B2 {sl[1]}", flush=True)
+    return tuple(fl), tuple(sl)
+
+
+def fleet_path(device):
+    """Phase 9: the fleet. (a) the lane-axis kernels, (b) multitarget_search
+    at config3 width, (c) mixed rows and budgets, (d) the event leg. Returns
+    ({kernel name: lane-axis record}, {path: (B1, B2, B3 launches)}): the
+    fleet runs under "fleet", their solo references under "fleet solos"."""
+    t0 = time.perf_counter()
+    lanes = fleet_kernel_check(device)
+    fleets, solos = zip(fleet_multitarget(device), fleet_mixed(device), fleet_event_leg(device))
+    paths = {"fleet": tuple(map(sum, zip(*fleets))),
+             "fleet solos": tuple(map(sum, zip(*solos)))}
+    print(f"fleet phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    return lanes, paths
+
+
 def main() -> int:
     try:
         import torch
@@ -1878,13 +2359,19 @@ def main() -> int:
     for path, counts in engine_options(device, block_stats["main_loop_s"]).items():
         for rec, n in zip((b1, b2, b3, b4), (*counts, 0)):
             rec["launches_by_path"][path] = n
+    lanes, fleet_paths = fleet_path(device)
+    for path, counts in fleet_paths.items():
+        for rec, n in zip((b1, b2, b3, b4), (*counts, 0)):
+            rec["launches_by_path"][path] = n
+    for rec in (b1, b2, b3):
+        rec["lane_axis"] = lanes[rec["name"]]
     for rec in (b1, b2, b3, b4):
         rec["launches"] = sum(rec["launches_by_path"].values())
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path"]
-    print(json.dumps({"kernels": [{k: r[k] for k in order} for r in (b1, b2, b3, b4)]}),
-          flush=True)
+             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path", "lane_axis"]
+    print(json.dumps({"kernels": [{k: r[k] for k in order if k in r}
+                                  for r in (b1, b2, b3, b4)]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({
         "ok": True,

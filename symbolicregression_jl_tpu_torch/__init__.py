@@ -6,8 +6,10 @@ checkpoints, ``resume_from`` and fault injection): host regularized evolution ov
 island populations, batched scoring through a hand-written CUDA fused
 eval+loss kernel (``csrc/fused_loss.cu``), batched constant optimization
 through the interpreter's reverse-sweep gradient, and a complexity-indexed
-hall of fame. Entry points run on ``cuda`` unless the caller asks for the
-CPU (``Options(device="cpu")``). The package imports nothing of the JAX
+hall of fame. ``fleet_search`` (models/device_search.py) and
+``multitarget_search`` run many device-engine searches as one, sharing each
+kernel launch across them. Entry points run on ``cuda`` unless the caller
+asks for the CPU (``Options(device="cpu")``). The package imports nothing of the JAX
 package; ``convert.py`` carries state across from it as numpy arrays.
 """
 
@@ -65,6 +67,8 @@ from .utils.checkpoint import (
     load_checkpoint,
     load_saved_state,
 )
+# many targets over one X as one fleet of device-engine lanes
+from .stream import MultitargetSearch, multitarget_search
 
 __version__ = "0.1.0"
 
@@ -121,5 +125,7 @@ __all__ = [
     "LogisticLoss",
     "loss_zoo",
     "make_loss",
+    "MultitargetSearch",
+    "multitarget_search",
     "__version__",
 ]

@@ -17,20 +17,29 @@
 //   words int32 [I, P, N]  kind | payload << 3 (kind: 1 const, 2 var, 3 unary,
 //                           4 binary, 0 pad), consts f32 [I, P, N]
 //   length, birth int32 [I, P]; loss, score f32 [I, P]; fnorm f32 [S1]
-//   iscal int64 [4]: seed (uint32), step0, curmaxsize, unused; fscal f32 [1]:
-//                           the score normalization
+//   iscal int64 [3]: seed (uint32), step0, curmaxsize; fscal f32 [1]: the
+//                           score normalization
 //   X f32 [F, ldx] feature-major rows, y f32 [R], w f32 [R] or null
 // Outputs: the population after the block (same shapes), the per-island size
 // histogram delta fd f32 [I, S1] and best-seen carry: loss f32 [I, S1],
 // words int32 / consts f32 [I, S1, N], length int32 [I, S1].
+// Lane axis (a fleet of L searches, models/device_search.fleet_search): the
+// populations are L lanes of I islands, lane-major ([L * I, P, N] and so on,
+// outputs too), each lane with its own fnorm [L, S1], iscal [L, 3], fscal
+// [L] and data (X [L, F, ldx] with lane stride lsx, y and w [L, R] with lane
+// stride lsy). Block b runs island b % I of lane b / I, and its draws hash
+// (the lane's seed, cycle, island-in-lane * E + event, draw id), so a lane
+// draws what its solo launch (L = 1) draws.
 //
 // What bounds it on this card: the scoring of each cycle's E candidates on
 // every row (operations), and the dependency chain of cycles inside one block:
 // a cycle's tournament reads the population the previous cycle replaced, so
 // the cycles of an island run in sequence. The design:
-//   * one block per island (grid I; islands are independent, as the TPU
+//   * one block per island (grid L x I; islands are independent, as the TPU
 //     grid's "arbitrary" island axis), looping over all cycles inside the
-//     kernel, so an iteration is one launch and nothing leaves the card;
+//     kernel, so an iteration is one launch and nothing leaves the card; at
+//     one block per SM, a fleet's L x I blocks above the card's 132 SMs run
+//     in waves;
 //   * the island's population and best-seen carry live in shared memory when
 //     they fit (config3: ~25 KB), else in the output arrays in device memory
 //     (the same code through generic pointers);
@@ -83,10 +92,10 @@ enum {
 // Static configuration, passed by value (mirrors the ctypes Structure in
 // ops/evolve_block_cuda.py field for field).
 struct SrBlockCfg {
-  long long ldx;
+  long long ldx, lsx, lsy;
   int I, P, N, E, S1, maxsize, maxdepth, ncycles, tour_n;
   int nfeatures, n_unary, n_binary, annealing, use_frequency, use_freq_tour;
-  int F, R, loss_id, n_ops, use_smem, rpt;
+  int F, R, loss_id, n_ops, use_smem, rpt, L;
   float pf, pnc, alpha, aps, parsimony, bin_thr, ncyc_den;
   float q[4];
   float mut_w[8];
@@ -496,7 +505,8 @@ __global__ void __launch_bounds__(NT, 1) sr_evolve_block_kernel(
     float* loss_out, float* score_out, int* birth_out, float* fd_out, float* bsl_out,
     int* bsw_out, float* bsc_out, int* bslen_out) {
   extern __shared__ double smem_d[];
-  const int isl = blockIdx.x;
+  const int b = blockIdx.x;  // island isl of the fleet's lane fl
+  const int fl = b / cfg.I, isl = b % cfg.I;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane_id = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
   const int P = cfg.P, N = cfg.N, E = cfg.E, S1 = cfg.S1, n = cfg.tour_n;
@@ -533,8 +543,8 @@ __global__ void __launch_bounds__(NT, 1) sr_evolve_block_kernel(
   float* pop_base = reinterpret_cast<float*>(ev + P);         // population, when in smem
 
   // ---- the island's storage: shared memory, or the output arrays ----
-  const long long oPN = (long long)isl * P * N, oP = (long long)isl * P;
-  const long long oS = (long long)isl * S1, oSN = (long long)isl * S1 * N;
+  const long long oPN = (long long)b * P * N, oP = (long long)b * P;
+  const long long oS = (long long)b * S1, oSN = (long long)b * S1 * N;
   int* words;
   float* consts;
   int* length;
@@ -585,7 +595,7 @@ __global__ void __launch_bounds__(NT, 1) sr_evolve_block_kernel(
     fd[k] = 0.0f;
     bs_loss[k] = INFINITY;
     bs_len[k] = 0;
-    fnorm[k] = fnorm_in[k];
+    fnorm[k] = fnorm_in[(long long)fl * S1 + k];
   }
   for (int k = tid; k < S1 * N; k += nt) {
     bs_w[k] = 0;
@@ -595,10 +605,11 @@ __global__ void __launch_bounds__(NT, 1) sr_evolve_block_kernel(
   for (int k = tid; k < n; k += nt) tour_thr[k] = cfg.tour_thr[k];
   if (tid < 8) mut_w[tid] = cfg.mut_w[tid];
 
-  const uint32_t seed = (uint32_t)(iscal[0] & 0xFFFFFFFFll);
-  const int step0 = (int)iscal[1];
-  const int curmaxsize = (int)iscal[2];
-  const float norm = fscal[0];
+  const uint32_t seed = (uint32_t)(iscal[3 * fl] & 0xFFFFFFFFll);
+  const int step0 = (int)iscal[3 * fl + 1];
+  const int curmaxsize = (int)iscal[3 * fl + 2];
+  const float norm = fscal[fl];
+  const sr::LaneData d = sr::lane_data(X, Y, W, fl, cfg.lsx, cfg.lsy);
   const int T = (cfg.R + 32 * RPT - 1) / (32 * RPT);  // row tiles per candidate
   float* col = buf + tid * RPT;
   sr::Instr* wins = sins + warp * N;
@@ -662,7 +673,7 @@ __global__ void __launch_bounds__(NT, 1) sr_evolve_block_kernel(
       sr::Acc acc{0.0, 0.0, 0.0};
       for (int t = u - e * T; t < t_end; ++t)  // an empty program reads 0
         sr::tile_loss<RPT, sr::kTree>(
-            wins, dlen, col, X, cfg.ldx, Y, W, t * 32 * RPT + lane_id, 32, cfg.R, cfg.R,
+            wins, dlen, col, d.X, cfg.ldx, d.y, d.w, t * 32 * RPT + lane_id, 32, cfg.R, cfg.R,
             cfg.loss_id, cfg.q[0], cfg.q[1], cfg.q[2], cfg.q[3], 0.0f, acc);
       for (int off = 16; off > 0; off >>= 1) {
         acc.l += __shfl_down_sync(0xffffffffu, acc.l, off);
@@ -791,7 +802,7 @@ int launch(const SrBlockCfg& cfg, size_t smem, cudaStream_t s, const int* words,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  sr_evolve_block_kernel<RPT, NT><<<cfg.I, NT, smem, s>>>(
+  sr_evolve_block_kernel<RPT, NT><<<cfg.L * cfg.I, NT, smem, s>>>(
       cfg, words, consts, length, loss, score, birth, fnorm, iscal, fscal, X, y, w, words_out,
       consts_out, len_out, loss_out, score_out, birth_out, fd_out, bsl_out, bsw_out, bsc_out,
       bslen_out);

@@ -16,6 +16,14 @@
 //   optab int32 [n_ops]    kernel id of each opset operator (unary ids
 //                           0..30, binary ids 31+0..31+11; see SrUnary/SrBinary)
 //   X     f32   [F, ldx]   feature-major rows; y, w f32 [R] (w may be null)
+// Lane axis (a fleet of searches, models/device_search.fleet_search): the P
+// trees are L lanes of P_lane trees, lane-major, and tree p reads lane
+// p / P_lane's data: X [L, F, ldx] with lane stride lsx, y and w [L, R] with
+// lane stride lsy. A solo launch is the L = 1 case (P_lane = P). The grid's
+// z axis is the lane, and the caller takes the launch shape (tpb,
+// rows_per_chunk, n_chunks) from P_lane, so a lane's blocks are its solo
+// launch's: a tree's rows are cut into the chunks of its solo launch and
+// its loss has the solo's bits.
 // Output: out f32 [P]; scratch: partials f64 [P, n_chunks, 3] (unused when
 // n_chunks is 1).
 //
@@ -63,9 +71,9 @@ template <int RPT>
 __global__ void __launch_bounds__(kMaxThreads) sr_loss_partials_kernel(
     const int* __restrict__ prog, int prog_ld, const float* __restrict__ vals,
     const int* __restrict__ optab, int n_ops, const float* __restrict__ X, long long ldx,
-    const float* __restrict__ y, const float* __restrict__ w, int P, int N, int R, int tpb,
-    int rows_per_chunk, int n_chunks, int loss_id, float q0, float q1, float q2, float q3,
-    double* __restrict__ partials, float* __restrict__ out) {
+    long long lsx, const float* __restrict__ y, const float* __restrict__ w, long long lsy,
+    int P_lane, int N, int R, int tpb, int rows_per_chunk, int n_chunks, int loss_id, float q0,
+    float q1, float q2, float q3, double* __restrict__ partials, float* __restrict__ out) {
   extern __shared__ double smem[];  // carved as loss_smem in ops/interp_cuda.py counts it
   const int nt = blockDim.x, tid = threadIdx.x;
   const int D = sr::stack_slots(N);
@@ -80,12 +88,14 @@ __global__ void __launch_bounds__(kMaxThreads) sr_loss_partials_kernel(
 
   const int gs = nt / tpb;  // threads per tree
   const int g = tid / gs, gt = tid % gs;
-  const int p0 = blockIdx.x * tpb;
+  // grid z is the fleet's lane fl: a lane's blocks are its solo launch's
+  const int fl = blockIdx.z;
+  const int p0 = fl * P_lane + blockIdx.x * tpb;  // the block's first tree
   const int p = p0 + g;
   const int chunk = blockIdx.y;
-  const bool live = p < P;
+  const int n_live = min(tpb, (fl + 1) * P_lane - p0);
+  const bool live = g < n_live;
   // stage the block's programs, then one thread per tree decodes its own
-  const int n_live = min(tpb, P - p0);
   for (int k = tid; k < n_live * prog_ld; k += nt) sprog[k] = prog[(long long)p0 * prog_ld + k];
   for (int k = tid; k < n_live * N; k += nt) svals[k] = vals[(long long)p0 * N + k];
   for (int k = tid; k < n_ops; k += nt) sopt[k] = optab[k];
@@ -102,9 +112,10 @@ __global__ void __launch_bounds__(kMaxThreads) sr_loss_partials_kernel(
     float* col = buf + tid * RPT;
     const int r0 = chunk * rows_per_chunk;
     const int r1 = min(R, r0 + rows_per_chunk);
+    const sr::LaneData d = sr::lane_data(X, y, w, fl, lsx, lsy);
     for (int base = r0; base < r1; base += gs * RPT)
-      sr::tile_loss<RPT, sr::kSwitch>(ins, length, col, X, ldx, y, w, base + gt, gs, r1, R,
-                                      loss_id, q0, q1, q2, q3, sr::nan_(), acc);
+      sr::tile_loss<RPT, sr::kSwitch>(ins, length, col, d.X, ldx, d.y, d.w, base + gt, gs, r1,
+                                      R, loss_id, q0, q1, q2, q3, sr::nan_(), acc);
   }
 
   // fixed-order reduction: warp tree, then the group's warps in index order
@@ -154,18 +165,19 @@ __global__ void sr_loss_finalize_kernel(const double* __restrict__ partials, int
 
 template <int RPT>
 int launch(const int* prog, int prog_ld, const float* vals, const int* optab, int n_ops,
-           const float* X, long long ldx, const float* y, const float* w, int P, int N, int R,
-           int threads, int tpb, int rows_per_chunk, int n_chunks, int loss_id, float q0, float q1,
-           float q2, float q3, double* partials, float* out, size_t smem, cudaStream_t s) {
+           const float* X, long long ldx, long long lsx, const float* y, const float* w,
+           long long lsy, int P, int P_lane, int N, int R, int threads, int tpb,
+           int rows_per_chunk, int n_chunks, int loss_id, float q0, float q1, float q2, float q3,
+           double* partials, float* out, size_t smem, cudaStream_t s) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(sr_loss_partials_kernel<RPT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid((unsigned)((P + tpb - 1) / tpb), (unsigned)n_chunks);
+  dim3 grid((unsigned)((P_lane + tpb - 1) / tpb), (unsigned)n_chunks, (unsigned)(P / P_lane));
   sr_loss_partials_kernel<RPT><<<grid, threads, smem, s>>>(
-      prog, prog_ld, vals, optab, n_ops, X, ldx, y, w, P, N, R, tpb, rows_per_chunk, n_chunks,
-      loss_id, q0, q1, q2, q3, partials, out);
+      prog, prog_ld, vals, optab, n_ops, X, ldx, lsx, y, w, lsy, P_lane, N, R, tpb,
+      rows_per_chunk, n_chunks, loss_id, q0, q1, q2, q3, partials, out);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || n_chunks == 1) return (int)e;
   sr_loss_finalize_kernel<<<(P + 255) / 256, 256, 0, s>>>(partials, P, n_chunks, out);
@@ -179,26 +191,25 @@ extern "C" {
 // Launches B1 on `stream` (the finalize kernel too when n_chunks > 1);
 // returns the CUDA error code (0 = ok). rpt is 1, 2 or 4; threads at most
 // 256, a multiple of 32 * tpb; smem is the block's dynamic shared memory in
-// bytes, as loss_smem in ops/interp_cuda.py computes it.
+// bytes, as loss_smem in ops/interp_cuda.py computes it. P is L * P_lane
+// trees; lsx and lsy are the lane strides of X and of y, w (0 for one lane).
 int sr_fused_loss(const int* prog, int prog_ld, const float* vals, const int* optab,
-                  int n_ops, const float* X, long long ldx, const float* y, const float* w, int P,
-                  int N, int R, int threads, int rpt, int tpb, int rows_per_chunk, int n_chunks,
-                  size_t smem, int loss_id, float q0, float q1, float q2, float q3,
-                  double* partials, float* out, void* stream) {
+                  int n_ops, const float* X, long long ldx, long long lsx, const float* y,
+                  const float* w, long long lsy, int P, int P_lane, int N, int R, int threads,
+                  int rpt, int tpb, int rows_per_chunk, int n_chunks, size_t smem, int loss_id,
+                  float q0, float q1, float q2, float q3, double* partials, float* out,
+                  void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+#define SR_ARGS                                                                              \
+  prog, prog_ld, vals, optab, n_ops, X, ldx, lsx, y, w, lsy, P, P_lane, N, R, threads, tpb,  \
+      rows_per_chunk, n_chunks, loss_id, q0, q1, q2, q3, partials, out, smem, s
   switch (rpt) {
-    case 1:
-      return launch<1>(prog, prog_ld, vals, optab, n_ops, X, ldx, y, w, P, N, R, threads, tpb,
-                       rows_per_chunk, n_chunks, loss_id, q0, q1, q2, q3, partials, out, smem, s);
-    case 2:
-      return launch<2>(prog, prog_ld, vals, optab, n_ops, X, ldx, y, w, P, N, R, threads, tpb,
-                       rows_per_chunk, n_chunks, loss_id, q0, q1, q2, q3, partials, out, smem, s);
-    case 4:
-      return launch<4>(prog, prog_ld, vals, optab, n_ops, X, ldx, y, w, P, N, R, threads, tpb,
-                       rows_per_chunk, n_chunks, loss_id, q0, q1, q2, q3, partials, out, smem, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 1: return launch<1>(SR_ARGS);
+    case 2: return launch<2>(SR_ARGS);
+    case 4: return launch<4>(SR_ARGS);
+    default: return (int)cudaErrorInvalidValue;
   }
+#undef SR_ARGS
 }
 
 const char* sr_cuda_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }

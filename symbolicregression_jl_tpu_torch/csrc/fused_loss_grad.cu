@@ -10,7 +10,11 @@
 // ok (a non-finite prediction, or w_sum == 0), as is every other slot's.
 //
 // Inputs as fused_loss.cu (prog int32 [P, 4N+1], vals f32 [P, N], optab,
-// X f32 [F, ldx], y, w f32 [R]). Outputs: losses f32 [P], grads f32 [P, N].
+// X f32 [F, ldx], y, w f32 [R]), with its lane axis: L lanes of P_lane
+// trees, tree p on lane p / P_lane's X, y and w, the lane on the grid's z
+// axis and the launch shape taken from P_lane, so that a lane's blocks, and
+// each tree's chunks and sums, are its solo launch's.
+// Outputs: losses f32 [P], grads f32 [P, N].
 // Scratch: partials f64 [P, n_chunks, 3 + N] (unused when n_chunks is 1).
 //
 // What bounds it on this card: operations, and in practice the latency of
@@ -74,9 +78,10 @@ template <int RPT>
 __global__ void __launch_bounds__(kMaxThreads) sr_grad_partials_kernel(
     const int* __restrict__ prog, int prog_ld, const float* __restrict__ vals,
     const int* __restrict__ optab, int n_ops, const float* __restrict__ X, long long ldx,
-    const float* __restrict__ y, const float* __restrict__ w, int P, int N, int R, int tpb,
-    int rows_per_chunk, int n_chunks, int loss_id, float q0, float q1, float q2, float q3,
-    double* __restrict__ partials, float* __restrict__ out, float* __restrict__ grads) {
+    long long lsx, const float* __restrict__ y, const float* __restrict__ w, long long lsy,
+    int P_lane, int N, int R, int tpb, int rows_per_chunk, int n_chunks, int loss_id, float q0,
+    float q1, float q2, float q3, double* __restrict__ partials, float* __restrict__ out,
+    float* __restrict__ grads) {
   extern __shared__ double smem[];  // carved as grad_smem in ops/interp_cuda.py counts it
   const int nt = blockDim.x, tid = threadIdx.x, nw = nt / 32;
   const int D = sr::stack_slots(N);
@@ -93,13 +98,15 @@ __global__ void __launch_bounds__(kMaxThreads) sr_grad_partials_kernel(
 
   const int gs = nt / tpb;  // threads per tree
   const int g = tid / gs, gt = tid % gs;
-  const int p0 = blockIdx.x * tpb;
+  // grid z is the fleet's lane fl: a lane's blocks are its solo launch's
+  const int fl = blockIdx.z;
+  const int p0 = fl * P_lane + blockIdx.x * tpb;  // the block's first tree
   const int p = p0 + g;
   const int chunk = blockIdx.y;
-  const bool live = p < P;
+  const int n_live = min(tpb, (fl + 1) * P_lane - p0);
+  const bool live = g < n_live;
   const int lane = tid & 31, warp = tid >> 5;
   // stage the block's programs, then one thread per tree decodes its own
-  const int n_live = min(tpb, P - p0);
   for (int k = tid; k < n_live * prog_ld; k += nt) sprog[k] = prog[(long long)p0 * prog_ld + k];
   for (int k = tid; k < n_live * N; k += nt) svals[k] = vals[(long long)p0 * N + k];
   for (int k = tid; k < n_ops; k += nt) sopt[k] = optab[k];
@@ -118,9 +125,11 @@ __global__ void __launch_bounds__(kMaxThreads) sr_grad_partials_kernel(
     const int r0 = chunk * rows_per_chunk;
     const int r1 = min(R, r0 + rows_per_chunk);
     WarpSink sink{gsw, nw, warp, lane};
+    const sr::LaneData d = sr::lane_data(X, y, w, fl, lsx, lsy);
     for (int base = r0; base < r1; base += gs * RPT)
-      sr::tile_loss_grad<RPT, sr::kTree>(ins, length, col, stride, X, ldx, y, w, base + gt, gs,
-                                         r1, R, loss_id, q0, q1, q2, q3, acc, sink);
+      sr::tile_loss_grad<RPT, sr::kTree>(ins, length, col, stride, d.X, ldx, d.y, d.w,
+                                         base + gt, gs, r1, R, loss_id, q0, q1, q2, q3, acc,
+                                         sink);
   }
 
   // fixed-order reductions: warp trees, then the group's warps in index order
@@ -189,20 +198,20 @@ __global__ void sr_grad_finalize_kernel(const double* __restrict__ partials, int
 
 template <int RPT>
 int launch(const int* prog, int prog_ld, const float* vals, const int* optab, int n_ops,
-           const float* X, long long ldx, const float* y, const float* w, int P, int N, int R,
-           int threads, int tpb, int rows_per_chunk, int n_chunks, int loss_id, float q0,
-           float q1, float q2, float q3, double* partials, float* out, float* grads, size_t smem,
-           cudaStream_t s) {
+           const float* X, long long ldx, long long lsx, const float* y, const float* w,
+           long long lsy, int P, int P_lane, int N, int R, int threads, int tpb,
+           int rows_per_chunk, int n_chunks, int loss_id, float q0, float q1, float q2, float q3,
+           double* partials, float* out, float* grads, size_t smem, cudaStream_t s) {
   auto kernel = sr_grad_partials_kernel<RPT>;
   if (smem > 48 * 1024) {
     cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid((unsigned)((P + tpb - 1) / tpb), (unsigned)n_chunks);
-  kernel<<<grid, threads, smem, s>>>(prog, prog_ld, vals, optab, n_ops, X, ldx, y, w, P, N, R,
-                                     tpb, rows_per_chunk, n_chunks, loss_id, q0, q1, q2, q3,
-                                     partials, out, grads);
+  dim3 grid((unsigned)((P_lane + tpb - 1) / tpb), (unsigned)n_chunks, (unsigned)(P / P_lane));
+  kernel<<<grid, threads, smem, s>>>(prog, prog_ld, vals, optab, n_ops, X, ldx, lsx, y, w, lsy,
+                                     P_lane, N, R, tpb, rows_per_chunk, n_chunks, loss_id, q0,
+                                     q1, q2, q3, partials, out, grads);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || n_chunks == 1) return (int)e;
   sr_grad_finalize_kernel<<<(P + 127) / 128, 128, 0, s>>>(partials, P, N, n_chunks, out, grads);
@@ -216,17 +225,18 @@ extern "C" {
 // Launches B2 on `stream` (the finalize kernel too when n_chunks > 1);
 // returns the CUDA error code (0 = ok). rpt is 1, 2 or 4; threads at most
 // 256, a multiple of 32 * tpb; smem is the block's dynamic shared memory in
-// bytes, as grad_smem in ops/interp_cuda.py computes it.
+// bytes, as grad_smem in ops/interp_cuda.py computes it. P is L * P_lane
+// trees; lsx and lsy are the lane strides of X and of y, w (0 for one lane).
 int sr_fused_loss_grad(const int* prog, int prog_ld, const float* vals, const int* optab,
-                       int n_ops, const float* X, long long ldx, const float* y,
-                       const float* w, int P, int N, int R, int threads, int rpt, int tpb,
-                       int rows_per_chunk, int n_chunks, size_t smem, int loss_id, float q0,
-                       float q1, float q2, float q3, double* partials, float* out, float* grads,
-                       void* stream) {
+                       int n_ops, const float* X, long long ldx, long long lsx, const float* y,
+                       const float* w, long long lsy, int P, int P_lane, int N, int R,
+                       int threads, int rpt, int tpb, int rows_per_chunk, int n_chunks,
+                       size_t smem, int loss_id, float q0, float q1, float q2, float q3,
+                       double* partials, float* out, float* grads, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
 #define SR_ARGS                                                                              \
-  prog, prog_ld, vals, optab, n_ops, X, ldx, y, w, P, N, R, threads, tpb, rows_per_chunk,    \
-      n_chunks, loss_id, q0, q1, q2, q3, partials, out, grads, smem, s
+  prog, prog_ld, vals, optab, n_ops, X, ldx, lsx, y, w, lsy, P, P_lane, N, R, threads, tpb,  \
+      rows_per_chunk, n_chunks, loss_id, q0, q1, q2, q3, partials, out, grads, smem, s
   switch (rpt) {
     case 1: return launch<1>(SR_ARGS);
     case 2: return launch<2>(SR_ARGS);

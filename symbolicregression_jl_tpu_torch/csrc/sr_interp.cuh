@@ -471,6 +471,20 @@ SR_HD void tile_loss_grad(const Instr* ins, int len, float* col, int stride, con
   reverse_rows<RPT, DISPATCH>(ins, len, col, stride, g, valid, sink);
 }
 
+// One lane's dataset in a lane-major batch (a fleet of searches): X
+// [L, F, ldx] with lane stride lsx floats, y and w [L, R] with lane stride
+// lsy (w may be null). A solo launch is lane 0 of one.
+struct LaneData {
+  const float* X;
+  const float* y;
+  const float* w;
+};
+
+SR_HD LaneData lane_data(const float* X, const float* y, const float* w, int lane,
+                         long long lsx, long long lsy) {
+  return {X + lane * lsx, y + lane * lsy, w ? w + lane * lsy : w};
+}
+
 // The ok rule of the loss kernels: loss_sum / w_sum, or +inf when a real row's
 // prediction is non-finite or w_sum is not positive.
 SR_HD float finish(double L, double W, double C) {

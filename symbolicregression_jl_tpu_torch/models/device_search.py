@@ -64,6 +64,14 @@ forces the synchronous readback. A dataset with units sets ``units_check``:
 every loss the engine compares carries the dimensional penalty, added after
 the kernel's loss. ``optimizer_algorithm="NelderMead"`` runs the batched
 simplex of ops/constant_opt.py over the engine scorer (B1 only).
+
+The fleet (``fleet_search``, ``FleetLaneSpec``; the JAX package's
+``device_search.py:3062-3878``) runs N compatible searches as one engine:
+each lane keeps its solo state and generator, and every kernel launch is
+shared across the lanes on the kernels' lane axis (one B3 launch per
+iteration, one B1 or B2 launch per constant-optimization step), with one
+stacked readback per iteration. A lane ends bit for bit where its solo
+``device_search_one_output`` ends.
 """
 
 from __future__ import annotations
@@ -81,8 +89,9 @@ from ..analysis.ir_verify import debug_checks_enabled
 from ..dataset import Dataset
 from ..ops.evolve_block import (
     BLOCK_MAX_ROWS, block_eligible, make_plain_eval, run_block_iteration,
+    run_block_iteration_fleet,
 )
-from ..ops.evolve_block_cuda import evolve_block
+from ..ops.evolve_block_cuda import evolve_block, evolve_block_reference
 from ..ops.constant_opt import _neldermead
 from ..ops.evolve import (
     EvoConfig,
@@ -91,9 +100,11 @@ from ..ops.evolve import (
     _complexity_members,
     _score_of,
     dim_penalty_batch,
+    fleet_migrate_from_pool,
     init_state,
     merge_best_seen,
     migrate_from_pool,
+    run_fleet_iteration_fused,
     run_iteration_fused,
 )
 from ..ops.flat import (
@@ -101,7 +112,8 @@ from ..ops.flat import (
     unflatten_tree,
 )
 from ..ops.interp_cuda import (
-    DiffLoss, build, fused_loss, loss_kernel_eligible, plain_losses, unpack_programs_fused,
+    DiffLoss, build, fused_loss, loss_kernel_eligible, over_lanes, plain_losses,
+    unpack_programs_fused,
 )
 from ..ops.treeops import Tree
 from ..options import Options, _not_ported
@@ -113,6 +125,7 @@ from .population import Population
 __all__ = [
     "device_search_one_output", "device_mode_supported", "build_evo_config",
     "ScoreData", "EngineScorer", "pack_batch", "fleet_search", "FleetLaneSpec",
+    "fleet_eligibility",
 ]
 
 
@@ -324,14 +337,20 @@ class EngineScorer:
         return self.packed_losses(*pack_batch(batch, self.opset), X, y, w)
 
     def packed_losses(self, prog, vals, X, y, w) -> torch.Tensor:
-        """Losses of a packed batch with constants ``vals``."""
+        """Losses of a packed batch with constants ``vals``; X may carry a
+        lane axis (``fused_loss``'s)."""
         self.score_calls += 1
         if self.use_kernel:
             return fused_loss(prog, vals, X, y, w, self.opset, self.loss_elem)
-        return plain_losses(self._unpacked(prog), vals, X, y, w, self.opset, self.loss_elem)
+        return over_lanes(
+            lambda p, v, Xl, yl, wl: plain_losses(self._unpacked(p), v, Xl, yl, wl, self.opset,
+                                                  self.loss_elem),
+            prog, vals, X, y, w,
+        )
 
     def packed_loss_grad(self, prog, vals, X, y, w):
-        """(losses, d losses / d vals) of a packed batch."""
+        """(losses, d losses / d vals) of a packed batch; X may carry a lane
+        axis."""
         self.grad_calls += 1
         if self.use_kernel:
             with torch.enable_grad():
@@ -339,8 +358,11 @@ class EngineScorer:
                 f = DiffLoss.apply(v, prog, X, y, w, self.opset, self.loss_elem)
                 (g,) = torch.autograd.grad(f.sum(), v)
             return f.detach(), g
-        return plain_losses(self._unpacked(prog), vals, X, y, w, self.opset,
-                            self.loss_elem, with_grad=True)
+        return over_lanes(
+            lambda p, v, Xl, yl, wl: plain_losses(self._unpacked(p), v, Xl, yl, wl, self.opset,
+                                                  self.loss_elem, with_grad=True),
+            prog, vals, X, y, w,
+        )
 
     def _unpacked(self, prog) -> FlatTrees:
         p = np.asarray(prog.cpu())
@@ -447,7 +469,25 @@ def make_const_opt_fn(options: Options, cfg: EvoConfig, scorer: EngineScorer,
     convergence gate (``optimizer_g_tol``) syncs once per BFGS iteration, and
     not at all when the gate is 0. Under batching the whole BFGS runs on one
     fresh row draw, accepts batch against batch and counts evaluations
-    fractionally."""
+    fractionally. Returns ``(state, data) -> state``: the one-lane case of
+    ``make_fleet_const_opt_fn``."""
+    fleet = make_fleet_const_opt_fn(options, cfg, scorer, None)
+    return lambda state, data: fleet([state], [data], [ctx], [0])[0]
+
+
+def make_fleet_const_opt_fn(options: Options, cfg: EvoConfig, scorer: EngineScorer,
+                            stacked: Callable | None) -> Callable:
+    """Constant optimization for a fleet of searches: ``(states, datas,
+    ctxs, lanes) -> states``. Each lane picks its members and draws its
+    jitters on its own generator, as its solo run; the L·K·S instances of
+    all lanes then run ONE lockstep BFGS (or simplex), each B1 or B2 launch
+    on the lane axis (lane l's instances on lane l's data); each lane accepts
+    and scatters its own results. ``stacked(lanes)`` gives those lanes'
+    ScoreData stacked on a leading lane axis; one lane uses its own data
+    unstacked, which is the solo's launch. Each lane's results are its solo
+    run's bits: the kernels take their launch shape from one lane's
+    instances, the convergence gate freezes lane by lane (``_bfgs_lockstep``)
+    and every other operation is per instance."""
     I, P, N = cfg.n_islands, cfg.pop_size, cfg.n_slots
     K = max(1, int(round(options.optimizer_probability * I * P)))
     S = 1 + options.optimizer_nrestarts
@@ -457,7 +497,9 @@ def make_const_opt_fn(options: Options, cfg: EvoConfig, scorer: EngineScorer,
     opset = options.operators
     neldermead = options.optimizer_algorithm == "NelderMead"
 
-    def const_opt(state: EvoState, data: ScoreData) -> EvoState:
+    def prepare(state: EvoState, data: ScoreData, ctx: EvoContext):
+        """One lane's rows (a fresh draw under batching), members and
+        restart starts, in its solo run's draw order."""
         X, y, w = data.X, data.y, data.w
         if cfg.batching:
             idx = torch.randint(0, X.shape[1], (ctx.batch_rows,), generator=ctx.gen,
@@ -469,9 +511,50 @@ def make_const_opt_fn(options: Options, cfg: EvoConfig, scorer: EngineScorer,
                                               state.feat, state.val, state.length)))
         prog_k, _ = pack_batch(members, opset)
         # instance b = tree b // S, restart b % S
-        prog_b = torch.repeat_interleave(prog_k, S, dim=0)
-        mask_b = torch.repeat_interleave(mask_k, S, dim=0)
-        x = starts.reshape(B, N).contiguous()
+        return dict(rows=(X, y, w), ii=ii, pp=pp, val0=val0, mask_k=mask_k, members=members,
+                    prog_b=torch.repeat_interleave(prog_k, S, dim=0),
+                    mask_b=torch.repeat_interleave(mask_k, S, dim=0),
+                    x=starts.reshape(B, N).contiguous())
+
+    def finish(state: EvoState, data: ScoreData, ctx: EvoContext, pre: dict, x, f, f0):
+        """One lane's best restart per member, accepted and scattered."""
+        val0, mask_k = pre["val0"], pre["mask_k"]
+        fs = torch.where(torch.isfinite(f), f, torch.inf).reshape(K, S)
+        best = torch.argmin(fs, 1)
+        rows = torch.arange(K, device=x.device)
+        vals = x.reshape(K, S, N)[rows, best].to(val0.dtype)
+        fbest = fs[rows, best].to(val0.dtype)
+        n_ev = float(K * S * 2 * iters)
+        base = None
+        if cfg.batching:
+            base = f0.reshape(K, S)[:, 0].to(val0.dtype)
+            n_ev *= cfg.eval_fraction
+        if cfg.units_check:
+            # const-opt never changes structure, so the dimensional penalty
+            # is one constant per tree: add it to every loss the accept
+            # rule compares (stored losses already carry it)
+            pen_k = dim_penalty_batch(pre["members"], cfg, ctx)
+            fbest = fbest + pen_k
+            if base is not None:
+                base = base + pen_k
+        return _accept_and_scatter(
+            state, cfg, pre["ii"], pre["pp"], mask_k, val0, vals, fbest,
+            n_ev, norm=data.norm, base_loss=base, ctx=ctx,
+        )
+
+    def const_opt(states, datas, ctxs, lanes) -> list:
+        L = len(states)
+        pres = [prepare(st, d, ctx) for st, d, ctx in zip(states, datas, ctxs)]
+        if L == 1:
+            X, y, w = pres[0]["rows"]
+        elif cfg.batching:
+            X, y, w = (None if pres[0]["rows"][k] is None
+                       else torch.stack([p["rows"][k] for p in pres]) for k in range(3))
+        else:
+            X, y, w = stacked(lanes)[:3]
+        prog_b = torch.cat([p["prog_b"] for p in pres])
+        mask_b = torch.cat([p["mask_b"] for p in pres])
+        x = torch.cat([p["x"] for p in pres])
 
         def vloss(v):
             return scorer.packed_losses(prog_b, v.contiguous(), X, y, w)
@@ -487,48 +570,56 @@ def make_const_opt_fn(options: Options, cfg: EvoConfig, scorer: EngineScorer,
             x, f = _neldermead(_PackedObjective(scorer, prog_b, X, y, w), x, mask_b, iters,
                                g_tol)
         else:
-            x, f, f0 = _bfgs_lockstep(x, mask_b, vloss, vgrad, iters, g_tol)
-        fs = torch.where(torch.isfinite(f), f, torch.inf).reshape(K, S)
-        best = torch.argmin(fs, 1)
-        rows = torch.arange(K, device=x.device)
-        vals = x.reshape(K, S, N)[rows, best].to(val0.dtype)
-        fbest = fs[rows, best].to(val0.dtype)
-        n_ev = float(K * S * 2 * iters)
-        base = None
-        if cfg.batching:
-            base = f0.reshape(K, S)[:, 0].to(val0.dtype)
-            n_ev *= cfg.eval_fraction
-        if cfg.units_check:
-            # const-opt never changes structure, so the dimensional penalty
-            # is one constant per tree: add it to every loss the accept
-            # rule compares (stored losses already carry it)
-            pen_k = dim_penalty_batch(members, cfg, ctx)
-            fbest = fbest + pen_k
-            if base is not None:
-                base = base + pen_k
-        return _accept_and_scatter(
-            state, cfg, ii, pp, mask_k, val0, vals, fbest,
-            n_ev, norm=data.norm, base_loss=base, ctx=ctx,
-        )
+            x, f, f0 = _bfgs_lockstep(x, mask_b, vloss, vgrad, iters, g_tol, lanes=L)
+        return [
+            finish(st, d, ctx, pre, x[l * B:(l + 1) * B], f[l * B:(l + 1) * B],
+                   None if f0 is None else f0[l * B:(l + 1) * B])
+            for l, (st, d, ctx, pre) in enumerate(zip(states, datas, ctxs, pres))
+        ]
 
     return const_opt
 
 
-def _bfgs_lockstep(x, mask_b, vloss, vgrad, iters: int, g_tol: float):
+def _lane_bmm(a, b, lanes: int):
+    """``torch.bmm`` on each lane's block of a lane-major batch: cuBLAS may
+    choose another algorithm for another batch count, so each lane's
+    products are taken at its solo run's batch count, and have its bits."""
+    if lanes == 1:
+        return torch.bmm(a, b)
+    return torch.cat([torch.bmm(u, v) for u, v in zip(a.chunk(lanes), b.chunk(lanes))])
+
+
+def _bfgs_lockstep(x, mask_b, vloss, vgrad, iters: int, g_tol: float, lanes: int = 1):
     """BFGS over every instance of the batch in lockstep (the JAX package's
     ``_make_const_opt_fn_pallas`` loop): Armijo backtracking (c1 = 1e-4,
     halving, at most 12 steps) that syncs once per step to stop when every
     instance is satisfied, and the g_tol gate, which syncs once per
-    iteration and not at all when it is 0. Returns (x, f, f at the start)."""
+    iteration and not at all when it is 0. Returns (x, f, f at the start).
+
+    ``lanes``: the batch is that many searches' instances, lane-major (a
+    fleet). The g_tol gate then holds lane by lane: a lane whose own max
+    |g| is under ``g_tol`` freezes (its x, f and g stay as they are, which is
+    what its solo run's ``break`` leaves) while the others go on, and the
+    loop ends when every lane is frozen, still at one sync per iteration.
+    The Armijo stop stays fleet-wide: an instance already satisfied keeps
+    its ``alpha`` and ``f_new`` through ``torch.where``, so the halvings a
+    fleetmate still needs change nothing for it, and a frozen lane counts as
+    satisfied."""
     B, N = x.shape
     eye = torch.eye(N, dtype=x.dtype, device=x.device).expand(B, N, N)
     f, g = vgrad(x)
     f0 = f
     H = eye
+    frozen = fz = None
     for _ in range(iters):
-        if g_tol > 0 and bool(g.abs().max() < g_tol):
-            break
-        d = -torch.bmm(H, g[:, :, None])[:, :, 0]
+        if g_tol > 0:
+            conv = g.abs().reshape(lanes, -1).amax(1) < g_tol
+            frozen = conv if frozen is None else frozen | conv
+            if bool(frozen.all()):
+                break
+            if lanes > 1:
+                fz = torch.repeat_interleave(frozen, B // lanes)
+        d = -_lane_bmm(H, g[:, :, None], lanes)[:, :, 0]
         d = torch.where(mask_b, d, 0.0)
         gtd = (g * d).sum(-1)
         bad = gtd >= 0
@@ -540,21 +631,28 @@ def _bfgs_lockstep(x, mask_b, vloss, vgrad, iters: int, g_tol: float):
         f_new = vloss(x + d)
         for _ in range(12):
             armijo = f_new <= f + 1e-4 * alpha * gtd
+            if fz is not None:
+                armijo = armijo | fz
             if bool(armijo.all()):
                 break
             alpha = torch.where(armijo, alpha, alpha * 0.5)
             f_new = torch.where(armijo, f_new, vloss(x + alpha[:, None] * d))
         ok = torch.isfinite(f_new) & (f_new < f)
+        if fz is not None:
+            # a frozen lane keeps x (so s = 0 and H stays), f and g
+            ok = ok & ~fz
         x_new = torch.where(ok[:, None], x + alpha[:, None] * d, x)
         f = torch.where(ok, f_new, f)
         _, g_new = vgrad(x_new)
+        if fz is not None:
+            g_new = torch.where(fz[:, None], g, g_new)
         s = x_new - x
         yk = g_new - g
         sy = (s * yk).sum(-1)
         good = sy > 1e-10
         rho = torch.where(good, 1.0 / torch.where(good, sy, 1.0), 0.0)
         I_rsy = eye - rho[:, None, None] * (s[:, :, None] * yk[:, None, :])
-        H_new = torch.bmm(torch.bmm(I_rsy, H), I_rsy.transpose(1, 2)) + (
+        H_new = _lane_bmm(_lane_bmm(I_rsy, H, lanes), I_rsy.transpose(1, 2), lanes) + (
             rho[:, None, None] * (s[:, :, None] * s[:, None, :])
         )
         H = torch.where(good[:, None, None], H_new, H)
@@ -873,6 +971,82 @@ def _make_block_fn(mode: str | None, options: Options, ecfg: EvoConfig, data: Sc
 # ---------------------------------------------------------------------------
 
 
+class _EngineLane:
+    """One search's engine set-up, the solo search's prelude, which each
+    lane of a fleet runs too: the baseline loss, the configs, the dataset
+    on the device, the scorer, the initial trees (drawn from ``rng`` unless
+    given), the engine's generator seeded from ``rng`` after them (the JAX
+    package's order: same seed, same initial trees), the context and the
+    scored initial state.
+
+    ``fleet``: the lane's ``cfg.niterations`` is 0 when there is no warmup
+    schedule (the only thing it drives), so that lanes of other budgets
+    share one engine config, as the JAX package's ``_FleetLane`` does."""
+
+    def __init__(self, dataset: Dataset, options: Options, niterations: int,
+                 rng: np.random.Generator, init_trees=None, fleet: bool = False):
+        self.dataset, self.options = dataset, options
+        device = self.device = torch.device(options.device)
+        I, P = options.populations, options.population_size
+        eng_dt = self.eng_dt = np.dtype(options.dtype)
+        vdt = self.vdt = getattr(torch, eng_dt.name)
+
+        # baseline loss of the constant mean predictor (reference
+        # update_baseline_loss!, SymbolicRegression.jl
+        # src/LossFunctions.jl:201-215), from numpy: it becomes a score constant
+        y = dataset.y.astype(eng_dt)
+        w = None if dataset.weights is None else dataset.weights.astype(eng_dt)
+        elem = np.asarray(
+            options.loss(torch.from_numpy(np.full_like(y, dataset.avg_y)), torch.from_numpy(y)),
+            np.float64,
+        )
+        bl = float((elem * w).sum() / w.sum()) if w is not None else float(elem.mean())
+        use_baseline = bool(np.isfinite(bl))
+        dataset.baseline_loss = bl if use_baseline else 1.0
+        dataset.use_baseline = use_baseline
+
+        cfg = build_evo_config(
+            options, n_features=dataset.n_features, baseline_loss=dataset.baseline_loss,
+            use_baseline=use_baseline, niterations=niterations, n_islands=I, n_rows=dataset.n,
+            dataset=dataset,
+        )
+        if fleet and cfg.warmup_maxsize_by == 0:
+            cfg = dataclasses.replace(cfg, niterations=0)
+        self.cfg = cfg
+        # engine config: the score normalization travels as data.norm
+        self.ecfg = ecfg = dataclasses.replace(cfg, baseline_loss=1.0, use_baseline=True)
+        norm_val = (dataset.baseline_loss if (use_baseline and dataset.baseline_loss >= 0.01)
+                    else 0.01)
+        self.data = _make_score_data(dataset, eng_dt, device, norm_val)
+        self.use_kernel = loss_kernel_eligible(options.operators, options.loss, eng_dt)
+        self.scorer = EngineScorer(options, self.use_kernel)
+
+        # --- initial populations (host trees -> device state) ---------------
+        if init_trees is None:
+            init_trees = Population.random_trees(I * P, options, dataset.n_features, rng)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(rng.integers(0, 2**31 - 1)))
+        batch_rows = min(int(options.batch_size), dataset.n) if options.batching else 0
+        self.ctx = EvoContext(ecfg, device, gen, self.scorer.losses, batch_rows=batch_rows)
+        self.bflat = flatten_trees(init_trees, options.max_nodes, dtype=eng_dt)
+        losses0 = self.score_call(_flat_to_tree(self.bflat, device, vdt))
+        state = init_state(self.bflat, losses0, ecfg, device)
+        comp = _complexity_members(state, ecfg, self.ctx).to(vdt)
+        self.state = state._replace(score=_score_of(state.loss, comp, cfg))  # real baseline
+
+    def score_call(self, batch: Tree) -> torch.Tensor:
+        """Losses of a batch the host hands the engine (initial members, the
+        warm start's hall of fame, the simplify pool), with the same
+        structure-only dimensional penalty the legs add."""
+        data = self.data
+        losses = self.scorer.losses(batch, data.X, data.y, data.w)
+        if self.ecfg.units_check:
+            losses = losses.to(self.vdt) + dim_penalty_batch(batch, self.ecfg, self.ctx)
+        return losses
+
+
+
+
 def device_search_one_output(
     dataset: Dataset,
     options: Options,
@@ -907,76 +1081,29 @@ def device_search_one_output(
     if own_recorder:
         recorder = Recorder(options)
     t_setup = time.perf_counter()
-    device = torch.device(options.device)
     I, P = options.populations, options.population_size
-    N = options.max_nodes
-    eng_dt = np.dtype(options.dtype)
-    vdt = getattr(torch, eng_dt.name)
     injector = faults.install(options.fault_spec) if options.fault_spec else faults.active()
     ckptr = (SearchCheckpointer.from_options(options, checkpoint_base)
              if checkpoint_base else None)
 
-    # baseline loss of the constant mean predictor (reference
-    # update_baseline_loss!, SymbolicRegression.jl src/LossFunctions.jl:201-215),
-    # from numpy: it becomes a score constant
-    y = dataset.y.astype(eng_dt)
-    w = None if dataset.weights is None else dataset.weights.astype(eng_dt)
-    elem = np.asarray(
-        options.loss(torch.from_numpy(np.full_like(y, dataset.avg_y)), torch.from_numpy(y)),
-        np.float64,
-    )
-    bl = float((elem * w).sum() / w.sum()) if w is not None else float(elem.mean())
-    use_baseline = bool(np.isfinite(bl))
-    dataset.baseline_loss = bl if use_baseline else 1.0
-    dataset.use_baseline = use_baseline
-
-    cfg = build_evo_config(
-        options, n_features=dataset.n_features, baseline_loss=dataset.baseline_loss,
-        use_baseline=use_baseline, niterations=niterations, n_islands=I, n_rows=dataset.n,
-        dataset=dataset,
-    )
-    # engine config: the score normalization travels as data.norm
-    ecfg = dataclasses.replace(cfg, baseline_loss=1.0, use_baseline=True)
-    norm_val = dataset.baseline_loss if (use_baseline and dataset.baseline_loss >= 0.01) else 0.01
-    data = _make_score_data(dataset, eng_dt, device, norm_val)
-    use_kernel = loss_kernel_eligible(options.operators, options.loss, eng_dt)
-    scorer = EngineScorer(options, use_kernel)
-
-    def score_call(batch: Tree) -> torch.Tensor:
-        """Losses of a batch the host hands the engine (initial members, the
-        warm start's hall of fame, the simplify pool), with the same
-        structure-only dimensional penalty the legs add."""
-        losses = scorer.losses(batch, data.X, data.y, data.w)
-        if ecfg.units_check:
-            losses = losses.to(vdt) + dim_penalty_batch(batch, ecfg, ctx)
-        return losses
-
-    # --- initial populations (host trees -> device state) -------------------
+    init_trees = None
     if saved_state is not None:
         init_trees = [m.tree for pop in saved_state.populations for m in pop.members][: I * P]
         if len(init_trees) < I * P:
             init_trees.extend(Population.random_trees(
                 I * P - len(init_trees), options, dataset.n_features, rng))
-    else:
-        init_trees = Population.random_trees(I * P, options, dataset.n_features, rng)
-    # the engine's generator, seeded from the search's numpy stream after the
-    # initial trees (the JAX package's order: same seed, same initial trees)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(rng.integers(0, 2**31 - 1)))
-    batch_rows = min(int(options.batch_size), dataset.n) if options.batching else 0
-    ctx = EvoContext(ecfg, device, gen, scorer.losses, batch_rows=batch_rows)
+    lane = _EngineLane(dataset, options, niterations, rng, init_trees)
+    device, eng_dt, vdt = lane.device, lane.eng_dt, lane.vdt
+    cfg, ecfg, data, ctx = lane.cfg, lane.ecfg, lane.data, lane.ctx
+    use_kernel, scorer, score_call, bflat, state = (
+        lane.use_kernel, lane.scorer, lane.score_call, lane.bflat, lane.state)
+    N = options.max_nodes
     const_opt = (
         make_const_opt_fn(options, ecfg, scorer, ctx)
         if options.should_optimize_constants else None
     )
     block_mode = _block_mode(ecfg, device, use_kernel, dataset.n)
     block_fn = _make_block_fn(block_mode, options, ecfg, data, ctx)
-    bflat = flatten_trees(init_trees, N, dtype=eng_dt)
-    batch0 = _flat_to_tree(bflat, device, vdt)
-    losses0 = score_call(batch0)
-    state = init_state(bflat, losses0, ecfg, device)
-    comp = _complexity_members(state, ecfg, ctx).to(vdt)
-    state = state._replace(score=_score_of(state.loss, comp, cfg))  # real baseline
 
     replay = None
     if options.use_recorder:
@@ -1176,13 +1303,391 @@ def device_search_one_output(
     return result
 
 
+# ---------------------------------------------------------------------------
+# The fleet: N concurrent searches as one batched engine
+# ---------------------------------------------------------------------------
+#
+# The JAX package runs a fleet as jit(vmap(the fused iteration)) over a
+# leading lane axis. The port keeps one state and one generator per lane and
+# shares every kernel launch across the lanes instead: one B3 launch per
+# iteration on the block (ops/evolve_block.run_block_iteration_fleet), one B1
+# or B2 launch per constant-optimization step (make_fleet_const_opt_fn), each
+# on the lane axis, and ONE stacked readback per iteration. Every other step
+# is the lane's solo code on its own tensors, so each lane ends bit for bit
+# where its solo device_search_one_output ends.
+
+
+@dataclasses.dataclass
 class FleetLaneSpec:
-    """One lane of a fleet — not ported yet."""
+    """One lane of a fleet: a single-output dataset and its Options (the JAX
+    package's ``FleetLaneSpec``).
 
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("FleetLaneSpec", "A, slice 5: fleet")
+    ``options.seed`` drives the lane's randomness exactly as a solo
+    ``equation_search(X, y, options=...)`` would (one
+    ``np.random.default_rng(seed)`` stream for the initial trees and the
+    engine's generator), so a lane's final frontier and ``num_evals`` are
+    bit-identical to the same search run solo on the same (padded) data.
+
+    ``init_trees`` / ``init_hof`` warm-start the lane: exactly
+    populations*population_size trees, and a live HallOfFame the lane adopts
+    (not copied). A warm-started lane is a continuation, not a replay: the
+    solo-bitwise guarantee holds for cold lanes."""
+
+    X: object
+    y: object
+    options: Options
+    weights: object = None
+    niterations: int = 10
+    label: str = ""
+    init_trees: object = None
+    init_hof: object = None
 
 
-def fleet_search(specs, **kwargs):
-    """N concurrent searches as one batched engine — not ported yet."""
-    raise _not_ported("fleet_search", "A, slice 5: fleet")
+def fleet_eligibility(options: Options) -> str | None:
+    """None when a search with these Options can run as a fleet lane, else
+    the reason it must run solo (the JAX package's reasons that apply to one
+    card)."""
+    reason = device_mode_supported(options)
+    if reason is not None:
+        return reason
+    if options.scheduler != "device":
+        return f"scheduler={options.scheduler!r} (fleet lanes run the device engine)"
+    if options.use_recorder:
+        return "use_recorder (per-lane replay logs are not demuxed)"
+    if options.fault_spec:
+        return "fault_spec (fault injection is a solo debugging rig)"
+    if options.save_to_file:
+        return "save_to_file (fleet lanes have no per-lane output file)"
+    if options.checkpoint_every is not None or options.checkpoint_every_seconds is not None:
+        return "checkpointing (fleet lanes snapshot via the serve spool only)"
+    return None
+
+
+class _FleetLane(_EngineLane):
+    """Per-lane host state: the solo prelude (``_EngineLane``) on the lane's
+    dataset, padded to the fleet's row count where it is shorter, plus the
+    loop's bookkeeping (hall of fame, evaluation counts, stop conditions)."""
+
+    def __init__(self, idx: int, spec: FleetLaneSpec, n_bucket: int, force_weights: bool):
+        from ..ops.scoring import pad_rows_np
+
+        self.idx, self.spec = idx, spec
+        options = spec.options
+        self.nit = int(spec.niterations)
+        X, y = np.asarray(spec.X), np.asarray(spec.y)
+        w = None if spec.weights is None else np.asarray(spec.weights)
+        if y.shape[0] < n_bucket or (force_weights and w is None):
+            # mixed row counts: pad to the fleet's rows with row-0 replicas
+            # at weight 0; the lane's bitwise reference is then the solo run
+            # on this padded, weighted dataset
+            X, y, w = pad_rows_np(X, y, w, n_bucket)
+        # one fresh stream per search, seeded from Options.seed, as
+        # equation_search's single-output entry
+        rng = np.random.default_rng(options.seed)
+        I, P = options.populations, options.population_size
+        init_trees = None
+        if spec.init_trees is not None:
+            init_trees = list(spec.init_trees)
+            if len(init_trees) != I * P:
+                raise ValueError(
+                    "init_trees must carry populations*population_size="
+                    f"{I * P} trees (got {len(init_trees)})"
+                )
+        super().__init__(Dataset(X, y, weights=w), options, self.nit, rng, init_trees,
+                         fleet=True)
+        self.block_mode = _block_mode(self.ecfg, self.device, self.use_kernel, self.dataset.n)
+        self.async_rb = options.async_readback is not False and not options.profile
+        self.early_stop = options.early_stop_fn()
+        self.hof = spec.init_hof if spec.init_hof is not None else HallOfFame(options.maxsize)
+        self.device_evals = self.host_evals = self.num_evals = 0.0
+        self.iterations = 0
+
+    def agreement_key(self) -> tuple:
+        """What every lane of a fleet must share beside the engine config:
+        the device, the readback mode, the scoring path and evolve leg, and
+        the constant optimization's settings."""
+        o = self.options
+        return (str(self.device), self.async_rb, self.use_kernel, self.block_mode,
+                o.should_optimize_constants, o.optimizer_algorithm, o.optimizer_probability,
+                o.optimizer_nrestarts, o.optimizer_iterations, o.optimizer_g_tol,
+                o.operators, o.loss, self.data.w is not None)
+
+
+class _FleetData:
+    """The active lanes' datasets stacked on a leading lane axis (X [L, F, R],
+    y and w [L, R], norm [L]) for the kernels' lane axis, rebuilt only when
+    the set of active lanes changes."""
+
+    def __init__(self, datas):
+        self.datas = datas
+        self.key = self.value = None
+
+    def __call__(self, lanes) -> ScoreData:
+        key = tuple(lanes)
+        if key != self.key:
+            ds = [self.datas[l] for l in lanes]
+            self.key, self.value = key, ScoreData(
+                torch.stack([d.X for d in ds]), torch.stack([d.y for d in ds]),
+                None if ds[0].w is None else torch.stack([d.w for d in ds]),
+                torch.stack([d.norm for d in ds]),
+            )
+        return self.value
+
+
+def _make_fleet_block_fn(mode: str | None, options: Options, ecfg: EvoConfig,
+                         stacked: _FleetData):
+    """The fleet's evolve leg ``(states, datas, ctxs, lanes) -> states`` for
+    ``mode``, or None (the event leg, lane after lane): one B3 launch over
+    every active lane's islands ("kernel"), or B3's plain version on the
+    same lane axis ("plain")."""
+    if mode is None:
+        return None
+    opset, loss_elem = options.operators, options.loss
+    block = evolve_block
+    if mode == "kernel":
+        build("evolve_block")
+    else:
+        block = evolve_block_reference
+
+    def fleet_block(states, datas, ctxs, lanes):
+        d = stacked(lanes)
+        return run_block_iteration_fleet(
+            states, datas, ctxs,
+            lambda *a: block(*a, d.X, d.y, d.w, ecfg, opset, loss_elem),
+        )
+
+    return fleet_block
+
+
+_STOP_REASONS = {0: None, 1: "early_stop", 2: "timeout", 3: "max_evals", 5: "callback"}
+
+
+def fleet_search(
+    specs,
+    verbosity: int = 0,
+    coalesce_wait_s: float = 0.0,
+    on_lane_done=None,
+    lane_bucket: int | None = None,
+    data_update_hook=None,
+    on_lanes_ready=None,
+):
+    """Run N compatible single-output searches as one batched engine (the
+    JAX package's ``fleet_search``). Returns ``[SearchResult]`` in spec
+    order.
+
+    Every lane must be fleet-eligible (``fleet_eligibility``) and the lanes
+    must share one engine configuration: equal engine EvoConfig (operators,
+    sizes, cycles: everything but the per-lane baseline and seed), the same
+    device, scoring path, evolve leg, readback mode and constant
+    optimization. Lanes of different row counts are padded to the largest
+    (``pad_rows_np``), and then every lane carries explicit weights. Each
+    lane keeps its own niterations, timeout, max_evals, early stop and
+    iteration_callback: a finished lane stops running while the rest go on.
+
+    An iteration is one "evolve" leg (one B3 launch for every active lane on
+    the block, else each lane's event leg in turn), one "const_opt" leg
+    (one BFGS over all lanes' instances, each B1 / B2 launch on the lane
+    axis), "finalize" under batching, and one "readback" leg: ONE stacked
+    tensor copied to the host and demuxed into each lane's hall of fame,
+    simplify pool and ``fleet_migrate_from_pool``.
+
+    ``on_lane_done(idx, result)`` fires as each lane ends.
+    ``coalesce_wait_s`` is bookkeeping only. ``lane_bucket`` is accepted
+    and changes nothing: the JAX package pads the lane axis with inert lanes
+    so that fleets of other sizes share one compiled program, and the port
+    compiles nothing per fleet size, so it launches only the real lanes.
+    ``data_update_hook`` and ``on_lanes_ready`` (the stream session's live
+    row swaps) come with the stream slice."""
+    from ..search import IterationReport, SearchResult  # late import (module cycle)
+
+    if data_update_hook is not None:
+        raise _not_ported("fleet_search(data_update_hook=...)", "A, slice 5: stream/")
+    if on_lanes_ready is not None:
+        raise _not_ported("fleet_search(on_lanes_ready=...)", "A, slice 5: stream/")
+    specs = list(specs)
+    L = len(specs)
+    if L == 0:
+        return []
+    for spec in specs:
+        reason = fleet_eligibility(spec.options)
+        if reason is not None:
+            raise ValueError(f"spec not fleet-eligible: {reason}")
+    if lane_bucket is not None and int(lane_bucket) < 1:
+        raise ValueError(f"lane_bucket must be >= 1 (got {lane_bucket})")
+    t_setup = time.perf_counter()
+
+    ns = [np.asarray(s.y).shape[0] for s in specs]
+    n_bucket = max(ns)
+    # mixed row counts (or mixed weight presence) force explicit weights on
+    # EVERY lane, so that the lanes' data stack
+    force_weights = any(s.weights is not None for s in specs) or any(n < n_bucket for n in ns)
+    lanes = [_FleetLane(i, s, n_bucket, force_weights) for i, s in enumerate(specs)]
+    lead = lanes[0]
+    ecfg, options = lead.ecfg, lead.options
+    for lane in lanes[1:]:
+        if lane.ecfg != ecfg:
+            raise ValueError(
+                "fleet lanes must share one engine EvoConfig (operators, "
+                "population geometry, cycles, maxsize, dtype, batching); "
+                f"lane {lane.idx} ({lane.spec.label!r}) differs"
+            )
+        if lane.agreement_key() != lead.agreement_key():
+            raise ValueError(
+                "fleet lanes must agree on async_readback/profile, the "
+                f"const-opt configuration and the device; lane {lane.idx} differs"
+            )
+
+    device = lead.device
+    datas = [lane.data for lane in lanes]
+    ctxs = [lane.ctx for lane in lanes]
+    states = [lane.state for lane in lanes]
+    for lane in lanes:
+        lane.state = None  # the fleet's list is the state from here on
+    stacked = _FleetData(datas)
+    scorer = EngineScorer(options, lead.use_kernel)
+    const_opt = (make_fleet_const_opt_fn(options, ecfg, scorer, stacked)
+                 if options.should_optimize_constants else None)
+    block_fn = _make_fleet_block_fn(lead.block_mode, options, ecfg, stacked)
+    frac_hof = float(options.fraction_replaced_hof)
+    async_rb = lead.async_rb
+    prof = (StageProfiler(device=device) if any(ln.options.profile for ln in lanes)
+            else NULL_PROFILER)
+    timer = _LegTimer(device, prof)
+    readback = _Readback(device)
+    active = [lane.nit > 0 for lane in lanes]
+    results: list = [None] * L
+    pending = None  # (fetch, the lanes it holds): the pipelined carry
+    setup_seconds = time.perf_counter() - t_setup
+    start_time = time.time()
+
+    def consume_rows(buf: np.ndarray, consumers) -> None:
+        """Demux one stacked readback into the lanes' halls of fame and
+        simplify pools, then inject the pools (``fleet_migrate_from_pool``;
+        a lane without a pool is left alone)."""
+        nonlocal states
+        pools = [None] * L
+        for l in sorted(consumers):
+            lane = lanes[l]
+            with prof.stage("decode_hof"):
+                bs_loss, bs_exists, bs_len, fields, lane.device_evals = _decode_readback(
+                    buf[l], lane.cfg)
+                members = _bs_to_members(bs_loss, bs_exists, bs_len, fields, lane.cfg,
+                                         lane.options)
+                for m in members:
+                    lane.hof.update(m, lane.options)
+            if lane.options.should_simplify:
+                with prof.stage("simplify"):
+                    pools[l], n_scored = _simplified_frontier_pool(
+                        members, lane.options, lane.cfg, lane.score_call, lane.hof, device)
+                lane.host_evals += n_scored
+            lane.num_evals = lane.device_evals + lane.host_evals
+        if any(p is not None for p in pools):
+            with prof.stage("migrate"):
+                states = fleet_migrate_from_pool(
+                    states, ctxs, pools, [p is not None for p in pools], frac_hof,
+                    [d.norm for d in datas])
+                prof.fence()
+
+    def stop_lanes(stopping) -> None:
+        """The solo's post-loop sequence for each (lane, stop code): drain
+        its pending readback (simplify injection included); then, the main
+        loop's seconds taken (before any final decode, as the solo's), decode
+        its populations, fold them into its hall of fame, build its
+        SearchResult. A lane's drain touches only its own state."""
+        nonlocal pending
+        for l, _ in stopping:
+            active[l] = False
+            if pending is not None and l in pending[1]:
+                pending[1].discard(l)
+                consume_rows(pending[0](), (l,))
+        iteration_seconds = time.time() - start_time
+        for l, stop_code in stopping:
+            finish_lane(l, stop_code, iteration_seconds)
+
+    def finish_lane(l: int, stop_code: int, iteration_seconds: float) -> None:
+        lane = lanes[l]
+        pops, _, _ = _decode_state_populations(states[l], lane.ctx.cfg.n_islands,
+                                               lane.options.population_size, lane.cfg,
+                                               lane.options)
+        for pop in pops:
+            lane.hof.update_many(pop.members, lane.options)
+        result = SearchResult(hall_of_fame=lane.hof, populations=pops, dataset=lane.dataset,
+                              options=lane.options, num_evals=lane.num_evals)
+        result.stop_reason = _STOP_REASONS[stop_code]
+        result.iteration_seconds = iteration_seconds
+        result.setup_seconds = setup_seconds
+        result.use_kernel = lane.use_kernel
+        result.engine_stats = {
+            "iterations": lane.iterations,
+            "block": lane.block_mode,
+            "score_calls": lane.scorer.score_calls,
+            "grad_calls": lane.scorer.grad_calls,
+            "fleet": {"lanes": L, "lane_bucket": lane_bucket,
+                      "coalesce_wait_s": float(coalesce_wait_s)},
+        }
+        results[l] = result
+        if on_lane_done is not None:
+            on_lane_done(l, result)
+
+    stop_lanes([(l, 0) for l, lane in enumerate(lanes) if lane.nit <= 0])
+
+    for it in range(max(lane.nit for lane in lanes)):
+        if not any(active):
+            break
+        on = {l for l in range(L) if active[l]}
+        states = run_fleet_iteration_fused(states, datas, ctxs, active, copt=const_opt,
+                                           leg=timer.leg, block=block_fn)
+        for l in on:
+            lanes[l].iterations += 1
+        with timer.leg("readback", stage=False):
+            with prof.stage("readback_pack"):
+                rb = torch.stack([_readback_pack(st) for st in states])
+                prof.fence()
+            fetch = readback.start(rb)
+            if async_rb:
+                prev, pending = pending, (fetch, set(on))
+                if prev is not None and prev[1]:
+                    consume_rows(prev[0](), prev[1])
+            else:
+                with prof.stage("readback_d2h"):
+                    buf = fetch()
+                consume_rows(buf, on)
+        prof.next_iteration()
+
+        t_now = time.time()
+        stopping = []
+        for l in sorted(on):
+            lane = lanes[l]
+            o = lane.options
+            stop_code = 0
+            if o.iteration_callback is not None and o.iteration_callback(IterationReport(
+                iteration=it + 1, niterations=lane.nit, hall_of_fame=lane.hof,
+                num_evals=float(lane.num_evals), elapsed=t_now - start_time,
+            )):
+                stop_code = 5
+            elif lane.early_stop is not None and any(
+                lane.early_stop(m.loss, m.get_complexity(o)) for m in lane.hof.pareto_frontier()
+            ):
+                stop_code = 1
+            elif o.timeout_in_seconds is not None and t_now - start_time > o.timeout_in_seconds:
+                stop_code = 2
+            elif o.max_evals is not None and lane.num_evals >= o.max_evals:
+                stop_code = 3
+            if stop_code or it + 1 >= lane.nit:
+                stopping.append((l, stop_code))
+        stop_lanes(stopping)
+        if verbosity > 0:
+            print(f"[fleet iter {it + 1}] lanes={L} live={sum(active)}")
+
+    fleet_stats = {
+        "score_calls": scorer.score_calls,
+        "grad_calls": scorer.grad_calls,
+        "host_seconds": dict(timer.host),
+        "device_seconds": timer.device_seconds(),
+    }
+    summary = prof.summary() if prof.enabled else None
+    for result in results:
+        result.engine_stats["fleet"].update(fleet_stats)
+        if summary is not None:
+            result.engine_profile = summary
+    return results

@@ -31,7 +31,15 @@ this module changes only how they are expressed:
   iteration, in its readback leg;
 - the dimensional check (``cfg.units_check``) is one batched pass over the
   postorder slots of every tree of a batch (``dim_violates_batch``), where
-  the JAX package ``vmap``s a per-tree ``fori_loop``.
+  the JAX package ``vmap``s a per-tree ``fori_loop``;
+- a fleet of searches (``run_fleet_iteration_fused``, the JAX package's
+  ``vmap`` of the fused iteration over a lane axis) keeps one state and one
+  generator per lane. The kernels' launches are shared across lanes (the
+  block, the constant optimization); every other step is the lane's solo
+  code on its own tensors. Which lanes run is host bookkeeping (a lane
+  stops on the host's stop conditions), so a stopped lane is not run at
+  all, where JAX computes it and selects the old state: its state and its
+  generator stay as they were, and no step reads a mask back.
 """
 
 from __future__ import annotations
@@ -64,8 +72,10 @@ __all__ = [
     "run_iteration",
     "run_finalize",
     "run_iteration_fused",
+    "run_fleet_iteration_fused",
     "extract_topn_pool",
     "migrate_from_pool",
+    "fleet_migrate_from_pool",
     "merge_best_seen",
     "complexity_batch",
     "state_tree",
@@ -1151,6 +1161,44 @@ def run_iteration_fused(state: EvoState, data, ctx: EvoContext, copt=None,
     return state
 
 
+def run_fleet_iteration_fused(states, datas, ctxs, active, copt=None, leg=None,
+                              block=None) -> list:
+    """One iteration of a fleet of searches (the JAX package's
+    ``_run_fleet_iteration_fused_impl``): every active lane advances as its
+    solo ``run_iteration_fused`` would, and an inactive lane keeps its state
+    and its generator untouched. ``states``, ``datas``, ``ctxs``: one per
+    lane; ``active``: host bools. ``copt`` and ``block``, when given, take
+    the active lanes' (states, datas, ctxs, lane indices) and return their
+    new states, sharing each kernel launch across the lanes; without
+    ``block`` the event leg runs lane after lane. ``leg``: as in
+    ``run_iteration_fused``, entered once per leg for the whole fleet."""
+    leg = leg or (lambda name: contextlib.nullcontext())
+    states = list(states)
+    on = [l for l, a in enumerate(active) if a]
+    if not on:
+        return states
+
+    def run(fn):
+        new = fn([states[l] for l in on], [datas[l] for l in on], [ctxs[l] for l in on], on)
+        for l, st in zip(on, new):
+            states[l] = st
+
+    with leg("evolve"):
+        if block is None:
+            for l in on:
+                states[l] = run_iteration(states[l], datas[l], ctxs[l])
+        else:
+            run(block)
+    if copt is not None:
+        with leg("const_opt"):
+            run(copt)
+    if ctxs[on[0]].cfg.batching:
+        with leg("finalize"):
+            for l in on:
+                states[l] = run_finalize(states[l], datas[l], ctxs[l])
+    return states
+
+
 def _topn_pool(state: EvoState, cfg: EvoConfig):
     """Migration pool from each island's best ``topn`` members (best_sub_pop,
     SymbolicRegression.jl src/Migration.jl:25-31): the 8-tuple (kind, op,
@@ -1228,3 +1276,18 @@ def migrate_from_pool(state: EvoState, ctx: EvoContext, pool, frac: float, norm=
     replacement; rows with non-finite loss or length < 1 are never drawn."""
     pool_valid = torch.isfinite(pool[7]) & (pool[6] >= 1)
     return _inject_pool(state, ctx, pool, pool_valid, frac, norm)
+
+
+def fleet_migrate_from_pool(states, ctxs, pools, apply, frac: float, norms) -> list:
+    """Fleet twin of ``migrate_from_pool`` (the JAX package's
+    ``fleet_migrate_from_pool``): one lane per entry of ``states``,
+    ``ctxs``, ``pools`` and ``norms``. A lane whose ``apply`` is False keeps
+    its state verbatim and does not touch its generator, exactly as a solo
+    run that skipped the call (a lane whose simplify pass produced nothing
+    must not diverge from its solo run because a fleetmate's did); its pool
+    may be None. ``apply`` is host bookkeeping, so choosing costs no
+    sync."""
+    return [
+        migrate_from_pool(st, ctx, pool, frac, nm) if ap else st
+        for st, ctx, pool, ap, nm in zip(states, ctxs, pools, apply, norms)
+    ]

@@ -32,7 +32,9 @@ What changes is the expression:
 interpreter with B1's loss rule, sums in f64) is B3's plain version; the
 kernel is ``ops/evolve_block_cuda.evolve_block``. ``run_block_iteration``
 wraps either into one engine iteration (unpack, best-seen merge, frequency
-decay, migration), the block counterpart of ``evolve.run_iteration``.
+decay, migration), the block counterpart of ``evolve.run_iteration``;
+``run_block_iteration_fleet`` does the same for a fleet of searches with one
+block over all their lanes (the JAX package's ``vmap`` of the iteration).
 """
 
 from __future__ import annotations
@@ -73,6 +75,7 @@ __all__ = [
     "block_eligible",
     "run_block",
     "run_block_iteration",
+    "run_block_iteration_fleet",
     "make_plain_eval",
     "pack_state_words",
     "unpack_pointers",
@@ -804,10 +807,60 @@ def run_block_iteration(state: EvoState, data, ctx: EvoContext, *, eval_fn=None,
     the data) or ``eval_fn`` (for ``run_block``) is given. ``seed``: the
     block's uint32 seed; by default one draw from the engine's generator.
     No step reads a tensor back to the host on the kernel path."""
+    pop, seed, curmaxsize, fnorm = _block_prologue(state, ctx, seed)
+    if kernel_fn is not None:
+        dev = state.kind.device
+        if not torch.is_tensor(curmaxsize):
+            curmaxsize = torch.full((), curmaxsize, dtype=torch.int32, device=dev)
+        if not torch.is_tensor(seed):
+            seed = torch.full((), seed, dtype=torch.int64, device=dev)
+        out = kernel_fn(*pop, fnorm, seed, state.step, curmaxsize, data.norm)
+    else:
+        if eval_fn is None:
+            raise ValueError("run_block_iteration needs eval_fn or kernel_fn")
+        out = run_block(pop, seed, state.step, curmaxsize, fnorm, data.norm, ctx.cfg, eval_fn,
+                        stages)
+    return _block_epilogue(state, out, data, ctx)
+
+
+def run_block_iteration_fleet(states, datas, ctxs, kernel_fn, seeds=None) -> list:
+    """``run_block_iteration`` for a fleet of searches in ONE block launch:
+    each lane draws its seed from its own generator and packs its own
+    population, ``kernel_fn`` runs every lane's islands at once on the lane
+    axis (``evolve_block_cuda.evolve_block`` bound to the lane-stacked data
+    on the card, ``evolve_block_reference`` elsewhere), and each lane
+    unpacks, merges and migrates on its own generator. Every step but the
+    block is the solo's code on the lane's own tensors, and the block gives
+    each lane its solo launch's outputs, so each lane ends where its solo
+    iteration ends. ``seeds``: the lanes' block seeds; by default each one
+    draw from its lane's generator. Returns the lanes' new states."""
+    seeds = [None] * len(states) if seeds is None else seeds
+    pro = [_block_prologue(st, ctx, sd) for st, ctx, sd in zip(states, ctxs, seeds)]
+    dev = states[0].kind.device
+
+    def scalar(v, dtype):
+        return v.to(dtype) if torch.is_tensor(v) else torch.full((), v, dtype=dtype, device=dev)
+
+    pop = tuple(torch.cat([p[0][k] for p in pro]) for k in range(6))
+    out = kernel_fn(
+        *pop, torch.stack([p[3] for p in pro]),
+        torch.stack([scalar(p[1], torch.int64) for p in pro]),
+        torch.stack([st.step for st in states]),
+        torch.stack([scalar(p[2], torch.int32) for p in pro]),
+        torch.stack([d.norm for d in datas]),
+    )
+    I = ctxs[0].cfg.n_islands
+    return [
+        _block_epilogue(st, tuple(o[l * I:(l + 1) * I] for o in out), d, ctx)
+        for l, (st, d, ctx) in enumerate(zip(states, datas, ctxs))
+    ]
+
+
+def _block_prologue(state: EvoState, ctx: EvoContext, seed):
+    """What the block takes from one search's state: (the packed population
+    6-tuple, the uint32 seed, the current maxsize, the normalized size
+    histogram). ``seed`` None draws it from the search's generator."""
     cfg = ctx.cfg
-    I, P, N = state.kind.shape
-    S1 = cfg.maxsize + 1
-    dev = state.kind.device
     if seed is None:
         seed = draw_seed(ctx)
     seed = _u32(seed)
@@ -817,17 +870,16 @@ def run_block_iteration(state: EvoState, data, ctx: EvoContext, *, eval_fn=None,
     pop = tuple(a.contiguous() for a in (words, consts, state.length,
                                          state.loss.to(torch.float32),
                                          state.score.to(torch.float32), state.birth))
-    if kernel_fn is not None:
-        if not torch.is_tensor(curmaxsize):
-            curmaxsize = torch.full((), curmaxsize, dtype=torch.int32, device=dev)
-        if not torch.is_tensor(seed):
-            seed = torch.full((), seed, dtype=torch.int64, device=dev)
-        out = kernel_fn(*pop, fnorm, seed, state.step, curmaxsize, data.norm)
-    else:
-        if eval_fn is None:
-            raise ValueError("run_block_iteration needs eval_fn or kernel_fn")
-        out = run_block(pop, seed, state.step, curmaxsize, fnorm, data.norm, cfg, eval_fn,
-                        stages)
+    return pop, seed, curmaxsize, fnorm
+
+
+def _block_epilogue(state: EvoState, out, data, ctx: EvoContext) -> EvoState:
+    """One search's state after its block ``out`` (the 11-tuple carry):
+    unpack, fold the best-seen carries into the frontier, decay the size
+    histogram, migrate."""
+    cfg = ctx.cfg
+    I, P, N = state.kind.shape
+    S1 = cfg.maxsize + 1
     (n_words, n_consts, n_len, n_loss, n_score, n_birth, fd, b_loss, b_w, b_c, b_len) = out
 
     vdt = state.val.dtype

@@ -41,6 +41,16 @@ its wrapper is ``ops/evolve_block_cuda.evolve_block``.
 
 Unlike the TPU kernels, rows are masked by index (no 10240-row padding, no
 (8, C) sublane layout) and any batch size P is accepted.
+
+B1 and B2 take a lane axis, the counterpart of ``jax.vmap`` over the
+``pallas_call`` in the JAX package's fleet (``ops/evolve.py``
+``_run_fleet_iteration_fused_impl``): X [L, F, R], y [L, R] and w [L, R]
+hold L datasets, the P programs are L lanes of P / L, lane-major, and
+program p is scored on lane p // (P / L). The launch shape is taken from the
+lane's P / L programs, so each program's rows are cut into the chunks of its
+solo launch and its loss and gradient have the solo's bits. A solo call
+(X [F, R]) is the one-lane case of the same entry point. The plain versions
+run lane by lane (``over_lanes``).
 """
 
 from __future__ import annotations
@@ -72,6 +82,7 @@ __all__ = [
     "pack_programs_fused",
     "unpack_programs_fused",
     "loss_kernel_eligible",
+    "over_lanes",
     "build",
     "build_all",
     "BUILD_INFO",
@@ -226,12 +237,39 @@ def plain_losses(flat: FlatTrees, vals: torch.Tensor, X, y, w, opset: OperatorSe
     return losses, grads
 
 
+def over_lanes(fn, prog, vals, X, y, w):
+    """``fn(prog, vals, X, y, w)`` on each lane of a lane-major batch (X
+    [L, F, R], y and w [L, R], the programs L lanes of P / L), its results
+    concatenated in lane order (each part of a tuple result on its own); on
+    one dataset (X [F, R]) just ``fn``. The plain versions' lane axis."""
+    if X.dim() == 2:
+        return fn(prog, vals, X, y, w)
+    L = X.shape[0]
+    P_lane = _lanes(prog.shape[0], L)
+    outs = [fn(prog[l * P_lane:(l + 1) * P_lane], vals[l * P_lane:(l + 1) * P_lane], X[l],
+               y[l], None if w is None else w[l]) for l in range(L)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+def _lanes(P: int, L: int) -> int:
+    """Programs per lane of a lane-major batch of P programs over L lanes."""
+    if L < 1 or P % L:
+        raise ValueError(f"{P} programs do not split into {L} lanes")
+    return P // L
+
+
 def fused_loss_reference(prog, vals, X, y, w, opset: OperatorSet, loss_elem) -> torch.Tensor:
     """The plain PyTorch version of B1: same inputs, same function
     (``plain_losses``: loss in f32, w*loss and w summed in f64, the ok
-    rule)."""
-    flat = unpack_programs_fused(prog.cpu().numpy(), vals.cpu().numpy(), opset)
-    return plain_losses(flat, vals, X, y, w, opset, loss_elem)
+    rule), lane by lane on a lane axis."""
+
+    def one(prog, vals, X, y, w):
+        flat = unpack_programs_fused(prog.cpu().numpy(), vals.cpu().numpy(), opset)
+        return plain_losses(flat, vals, X, y, w, opset, loss_elem)
+
+    return over_lanes(one, prog, vals, X, y, w)
 
 
 # -- build and launch ------------------------------------------------------------
@@ -260,15 +298,16 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
 _vp, _ci, _cf, _cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _cs = ctypes.c_size_t
 #: the entry points' argtypes. B1: prog, prog_ld, vals, optab, n_ops, X,
-#: ldx, y, w, P, N, R, threads, rpt, tpb, rows_per_chunk, n_chunks, smem
-#: bytes (``loss_smem``), loss_id, q0..q3, partials, out, stream. B2: the
-#: same with smem bytes from ``grad_smem`` and grads after out. B4: prog,
-#: prog_ld, vals, optab, n_ops, X, ldx, P, N, R, threads, rpt, tpb,
-#: rows_per_chunk, n_chunks, smem bytes (``preds_smem``), preds, stream.
+#: ldx, lsx (X's lane stride), y, w, lsy (y's and w's), P, P_lane, N, R,
+#: threads, rpt, tpb, rows_per_chunk, n_chunks, smem bytes (``loss_smem``),
+#: loss_id, q0..q3, partials, out, stream. B2: the same with smem bytes from
+#: ``grad_smem`` and grads after out. B4: prog, prog_ld, vals, optab, n_ops,
+#: X, ldx, P, N, R, threads, rpt, tpb, rows_per_chunk, n_chunks, smem bytes
+#: (``preds_smem``), preds, stream.
 _SIGNATURES = {
-    "fused_loss": ([_vp, _ci, _vp, _vp, _ci, _vp, _cl, _vp, _vp] + [_ci] * 8
+    "fused_loss": ([_vp, _ci, _vp, _vp, _ci, _vp, _cl, _cl, _vp, _vp, _cl] + [_ci] * 9
                    + [_cs, _ci] + [_cf] * 4 + [_vp, _vp, _vp]),
-    "fused_loss_grad": ([_vp, _ci, _vp, _vp, _ci, _vp, _cl, _vp, _vp] + [_ci] * 8
+    "fused_loss_grad": ([_vp, _ci, _vp, _vp, _ci, _vp, _cl, _cl, _vp, _vp, _cl] + [_ci] * 9
                         + [_cs, _ci] + [_cf] * 4 + [_vp, _vp, _vp, _vp]),
     "eval_preds": [_vp, _ci, _vp, _vp, _ci, _vp, _cl] + [_ci] * 8 + [_cs, _vp, _vp],
 }
@@ -421,8 +460,9 @@ def preds_geometry(P: int, N: int, R: int, n_ops: int = 64):
 
 
 def _checked_launch_args(kernel: str, prog, vals, X, y, w, opset, loss_elem):
-    """Validate a CUDA launch: (optab, loss spec, P, N, R, prog_ld). Raises
-    on whatever the kernel does not take."""
+    """Validate a CUDA launch: (optab, loss spec, P, P_lane, N, R, prog_ld).
+    X is [F, R] or, with a lane axis, [L, F, R] (y and w then [L, R]).
+    Raises on whatever the kernel does not take."""
     if X.device.type != "cuda":
         raise ValueError(f"{kernel}: unsupported device {X.device}")
     optab = kernel_op_table(opset)
@@ -431,21 +471,26 @@ def _checked_launch_args(kernel: str, prog, vals, X, y, w, opset, loss_elem):
         raise ValueError(f"{kernel}: operator set or loss has no kernel implementation")
     P, prog_ld = prog.shape
     N = vals.shape[1]
-    F, R = X.shape
+    if X.dim() not in (2, 3):
+        raise ValueError(f"{kernel}: X must be [F, R] or [L, F, R]")
+    lanes = X.shape[:-2]
+    R = X.shape[-1]
     dev = X.device
     for name, t, dt in (("prog", prog, torch.int32), ("vals", vals, torch.float32),
                         ("X", X, torch.float32), ("y", y, torch.float32)):
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} must be contiguous {dt} on {dev}")
-    if prog_ld != 4 * N + 1 or vals.shape[0] != P or y.shape != (R,):
+    if prog_ld != 4 * N + 1 or vals.shape[0] != P or y.shape != (*lanes, R):
         raise ValueError(f"{kernel}: inconsistent shapes")
     if w is not None and (w.device != dev or w.dtype != torch.float32
-                          or not w.is_contiguous() or w.shape != (R,)):
-        raise ValueError(f"{kernel}: w must be contiguous float32 [R] on the same device")
-    return optab, spec, P, N, R, prog_ld
+                          or not w.is_contiguous() or w.shape != y.shape):
+        raise ValueError(f"{kernel}: w must be contiguous float32 shaped as y on the same "
+                         "device")
+    P_lane = _lanes(P, lanes[0]) if lanes else P
+    return optab, spec, P, P_lane, N, R, prog_ld
 
 
-def _launch(kernel: str, prog, vals, X, y, w, optab, spec, P, N, R, prog_ld, geometry,
+def _launch(kernel: str, prog, vals, X, y, w, optab, spec, P, P_lane, N, R, prog_ld, geometry,
             partials_shape, outs) -> None:
     """One launch of B1 or B2 on the current stream: ``geometry`` holds the
     launch-shape arguments the kernel takes after R, ``partials_shape`` the
@@ -454,10 +499,12 @@ def _launch(kernel: str, prog, vals, X, y, w, optab, spec, P, N, R, prog_ld, geo
     dev = X.device
     partials = torch.empty(partials_shape, dtype=torch.float64, device=dev)
     q = list(spec[1]) + [0.0] * (4 - len(spec[1]))
+    lane_axis = X.dim() == 3
     err = getattr(lib, f"sr_{kernel}")(
         prog.data_ptr(), prog_ld, vals.data_ptr(), _optab_tensor(optab, dev).data_ptr(),
-        len(optab), X.data_ptr(), X.stride(0), y.data_ptr(),
-        None if w is None else w.data_ptr(), P, N, R, *geometry, spec[0], *q,
+        len(optab), X.data_ptr(), X.stride(-2), X.stride(0) if lane_axis else 0, y.data_ptr(),
+        None if w is None else w.data_ptr(), y.stride(0) if lane_axis else 0, P, P_lane, N, R,
+        *geometry, spec[0], *q,
         partials.data_ptr(), *(o.data_ptr() for o in outs),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -530,7 +577,9 @@ eval_trees_kernel.launches = 0
 
 
 def fused_loss(prog, vals, X, y, w, opset: OperatorSet, loss_elem) -> torch.Tensor:
-    """Per-tree losses [P] f32 of packed programs on (X [F, R], y [R], w).
+    """Per-tree losses [P] f32 of packed programs on (X [F, R], y [R], w),
+    or on a lane axis (X [L, F, R], y and w [L, R]; program p on lane
+    p // (P / L)).
 
     CPU tensors take ``fused_loss_reference``. CUDA tensors launch the kernel
     on the current stream (no synchronisation) or raise. The kernel evaluates
@@ -540,7 +589,7 @@ def fused_loss(prog, vals, X, y, w, opset: OperatorSet, loss_elem) -> torch.Tens
     entries scores inf there."""
     if X.device.type == "cpu":
         return fused_loss_reference(prog, vals, X, y, w, opset, loss_elem)
-    optab, spec, P, N, R, prog_ld = _checked_launch_args(
+    optab, spec, P, P_lane, N, R, prog_ld = _checked_launch_args(
         "fused_loss", prog, vals, X, y, w, opset, loss_elem
     )
     out = torch.empty((P,), dtype=torch.float32, device=X.device)
@@ -548,9 +597,9 @@ def fused_loss(prog, vals, X, y, w, opset: OperatorSet, loss_elem) -> torch.Tens
         return out
     if R == 0:
         return out.fill_(torch.inf)
-    threads, rpt, tpb, rows_per_chunk, n_chunks = loss_geometry(P, N, R, len(optab))
+    threads, rpt, tpb, rows_per_chunk, n_chunks = loss_geometry(P_lane, N, R, len(optab))
     smem = loss_smem(N, threads, tpb, rpt, len(optab))
-    _launch("fused_loss", prog, vals, X, y, w, optab, spec, P, N, R, prog_ld,
+    _launch("fused_loss", prog, vals, X, y, w, optab, spec, P, P_lane, N, R, prog_ld,
             (threads, rpt, tpb, rows_per_chunk, n_chunks, smem),
             (P, n_chunks, 3) if n_chunks > 1 else (1,), (out,))
     fused_loss.launches += 1
@@ -563,7 +612,8 @@ fused_loss.launches = 0
 def fused_loss_grad(prog, vals, X, y, w, opset: OperatorSet, loss_elem):
     """(losses [P] f32, grads [P, N] f32): ``fused_loss``'s losses and their
     gradients with respect to every constant slot (0 on other slots, and on
-    every slot of a tree whose loss is not ok).
+    every slot of a tree whose loss is not ok). Takes ``fused_loss``'s lane
+    axis.
 
     CPU tensors take ``fused_loss_grad_reference``. CUDA tensors launch the
     kernel on the current stream (no synchronisation) or raise. As
@@ -571,7 +621,7 @@ def fused_loss_grad(prog, vals, X, y, w, opset: OperatorSet, loss_elem):
     inf with zero gradients there."""
     if X.device.type == "cpu":
         return fused_loss_grad_reference(prog, vals, X, y, w, opset, loss_elem)
-    optab, spec, P, N, R, prog_ld = _checked_launch_args(
+    optab, spec, P, P_lane, N, R, prog_ld = _checked_launch_args(
         "fused_loss_grad", prog, vals, X, y, w, opset, loss_elem
     )
     out = torch.empty((P,), dtype=torch.float32, device=X.device)
@@ -580,9 +630,9 @@ def fused_loss_grad(prog, vals, X, y, w, opset: OperatorSet, loss_elem):
         return out, grads
     if R == 0:
         return out.fill_(torch.inf), grads.zero_()
-    threads, rpt, tpb, rows_per_chunk, n_chunks = grad_geometry(P, N, R, len(optab))
+    threads, rpt, tpb, rows_per_chunk, n_chunks = grad_geometry(P_lane, N, R, len(optab))
     smem = grad_smem(N, threads, tpb, rpt, len(optab))
-    _launch("fused_loss_grad", prog, vals, X, y, w, optab, spec, P, N, R, prog_ld,
+    _launch("fused_loss_grad", prog, vals, X, y, w, optab, spec, P, P_lane, N, R, prog_ld,
             (threads, rpt, tpb, rows_per_chunk, n_chunks, smem),
             (P, n_chunks, 3 + N) if n_chunks > 1 else (1,), (out, grads))
     fused_loss_grad.launches += 1
@@ -594,9 +644,14 @@ fused_loss_grad.launches = 0
 
 def fused_loss_grad_reference(prog, vals, X, y, w, opset: OperatorSet, loss_elem):
     """The plain PyTorch version of B2: ``plain_losses`` with gradients (the
-    interpreter's reverse sweep and autograd of the loss)."""
-    flat = unpack_programs_fused(prog.cpu().numpy(), vals.cpu().numpy(), opset)
-    return plain_losses(flat, vals, X, y, w, opset, loss_elem, with_grad=True)
+    interpreter's reverse sweep and autograd of the loss), lane by lane on a
+    lane axis."""
+
+    def one(prog, vals, X, y, w):
+        flat = unpack_programs_fused(prog.cpu().numpy(), vals.cpu().numpy(), opset)
+        return plain_losses(flat, vals, X, y, w, opset, loss_elem, with_grad=True)
+
+    return over_lanes(one, prog, vals, X, y, w)
 
 
 class DiffLoss(torch.autograd.Function):
@@ -632,20 +687,22 @@ def _optab_tensor(optab: np.ndarray, device) -> torch.Tensor:
     return _OPTAB_CACHE[key]
 
 
-def work_counts(prog: np.ndarray, R: int, F: int, weighted: bool) -> dict:
+def work_counts(prog: np.ndarray, R: int, F: int, weighted: bool, lanes: int = 1) -> dict:
     """Slot evaluations, operations and bytes one B1 call needs (the bound):
     each real slot of each tree once per row, plus the loss and the two sums
-    per row; each input read once and the output written once."""
+    per row; each input read once (``lanes`` datasets on a lane axis) and
+    the output written once."""
     prog = np.asarray(prog)
     P, L = prog.shape
     N = (L - 1) // 4
     slot_evals = int(prog[:, 4 * N].astype(np.int64).sum()) * R
     ops = slot_evals + 4 * P * R
-    bytes_ = prog.nbytes + P * N * 4 + F * R * 4 + R * 4 * (2 if weighted else 1) + P * 4
+    data = lanes * (F * R * 4 + R * 4 * (2 if weighted else 1))
+    bytes_ = prog.nbytes + P * N * 4 + data + P * 4
     return {"slot_evals": slot_evals, "operations": ops, "bytes": bytes_}
 
 
-def grad_work_counts(prog: np.ndarray, R: int, F: int, weighted: bool) -> dict:
+def grad_work_counts(prog: np.ndarray, R: int, F: int, weighted: bool, lanes: int = 1) -> dict:
     """The same for one B2 call: each real slot evaluated forward and once
     in reverse per row, plus per row the loss, its derivative, the two loss
     sums and one gradient sum per constant slot; each input read once, the
@@ -657,8 +714,8 @@ def grad_work_counts(prog: np.ndarray, R: int, F: int, weighted: bool) -> dict:
     n_const = int(((prog[:, :N] == 0) & live).sum())
     slot_evals = int(prog[:, 4 * N].astype(np.int64).sum()) * R
     ops = 2 * slot_evals + 4 * P * R + n_const * R
-    bytes_ = (prog.nbytes + P * N * 4 + F * R * 4 + R * 4 * (2 if weighted else 1)
-              + P * 4 + P * N * 4)
+    data = lanes * (F * R * 4 + R * 4 * (2 if weighted else 1))
+    bytes_ = prog.nbytes + P * N * 4 + data + P * 4 + P * N * 4
     return {"slot_evals": 2 * slot_evals, "operations": ops, "bytes": bytes_}
 
 

@@ -31,6 +31,7 @@ __all__ = [
     "batched_loss_bucketed",
     "loss_to_score",
     "baseline_loss",
+    "pad_rows_np",
 ]
 
 
@@ -114,3 +115,36 @@ def baseline_loss(dataset, opset: OperatorSet, loss_elem, dtype=np.float32, devi
     if np.isfinite(val):
         return val, True
     return 1.0, False
+
+
+def pad_rows_np(X, y, weights, n_bucket: int):
+    """Pad a dataset's row axis to a fleet's row count, on the host (numpy;
+    the JAX package's ``pad_rows_np``).
+
+    Returns ``(Xp [F, n_bucket], yp [n_bucket], wp [n_bucket])``: the pad
+    rows REPLICATE row 0 and carry weight 0, and ``wp`` is always
+    materialized (ones over the real rows when ``weights`` is None). A
+    zero-weight row adds an exact 0 to both sums of the weighted mean, and
+    a replica of a real row is finite wherever row 0 is, so the padded loss
+    equals the unpadded one (a fleet lane on padded rows is then held to the
+    solo run on the same padded, weighted dataset). Edge: where the element
+    loss of row 0 overflows to inf on a finite prediction, ``inf * 0`` makes
+    the padded loss NaN where the unpadded one is inf; both are rejected
+    alike."""
+    X = np.asarray(X)
+    y = np.asarray(y)
+    n = y.shape[0]
+    if n_bucket < n:
+        raise ValueError(f"n_bucket {n_bucket} < dataset rows {n}")
+    w = (
+        np.ones((n,), dtype=y.dtype)
+        if weights is None
+        else np.asarray(weights, dtype=y.dtype)
+    )
+    pad = n_bucket - n
+    if pad == 0:
+        return X, y, w
+    Xp = np.concatenate([X, np.repeat(X[:, :1], pad, axis=1)], axis=1)
+    yp = np.concatenate([y, np.repeat(y[:1], pad)])
+    wp = np.concatenate([w, np.zeros((pad,), dtype=y.dtype)])
+    return Xp, yp, wp

@@ -371,14 +371,17 @@ def test_hall_of_fame_csv_crosses_both_ways(writer, tmp_path):
 
 
 def test_port_imports_with_jax_blocked(jax_snapshot):
-    """Every module of the port imports, and a JAX-written snapshot loads,
-    in a process where importing jax or the JAX package fails."""
+    """Every module of the port imports (the stream package among them),
+    and a JAX-written snapshot loads, in a process where importing jax or
+    the JAX package fails."""
     code = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "symbolicregression_jl_tpu"):
             sys.modules[name] = None
         sys.path.insert(0, {str(ROOT)!r})
         import symbolicregression_jl_tpu_torch as T
+        from symbolicregression_jl_tpu_torch.stream import multitarget_search
+        assert T.multitarget_search is multitarget_search
         n = 0
         for info in pkgutil.walk_packages(T.__path__, T.__name__ + "."):
             importlib.import_module(info.name)

@@ -223,7 +223,7 @@ def test_device_engine_on_the_card(cuda, monkeypatch):
 
 
 def _block_inputs(device, ncycles, weighted, populations=6, population_size=20, maxsize=14,
-                  trees=None):
+                  trees=None, seed=None):
     import dataclasses
 
     from symbolicregression_jl_tpu_torch.models.device_search import build_evo_config
@@ -233,7 +233,7 @@ def _block_inputs(device, ncycles, weighted, populations=6, population_size=20, 
     opts = Options(binary_operators=["+", "-", "*", "/"], unary_operators=["cos", "exp"],
                    populations=populations, population_size=population_size, maxsize=maxsize,
                    device="cuda")
-    rng = np.random.default_rng(ncycles)
+    rng = np.random.default_rng(ncycles if seed is None else seed)
     X = torch.from_numpy(rng.normal(size=(3, 300)).astype(np.float32)).to(device)
     y = torch.cos(X[0]) * 2 + X[1]
     w = torch.from_numpy(rng.uniform(0.5, 2.0, 300).astype(np.float32)).to(device)
@@ -242,7 +242,7 @@ def _block_inputs(device, ncycles, weighted, populations=6, population_size=20, 
         build_evo_config(opts, 3, 1.0, True, 1, n_rows=300), ncycles=ncycles)
     I, P, N = cfg.n_islands, cfg.pop_size, cfg.n_slots
     if trees is None:
-        trees = _trees(opts.operators, I * P, 3, ncycles, N)
+        trees = _trees(opts.operators, I * P, 3, ncycles if seed is None else seed, N)
     prog, vals = pack_programs_fused(flatten_trees(trees, N), opts.operators)
     flat = unpack_programs_fused(prog, vals, opts.operators)
     words, consts = pack_state_words(*(torch.from_numpy(np.asarray(a)).to(device)
@@ -781,3 +781,117 @@ def test_engine_recorder_and_units_on_the_card(cuda, monkeypatch, tmp_path):
     for m in res.pareto_frontier:
         if violates_dimensional_constraints(m.tree, res.dataset, uopts):
             assert m.loss >= 1000.0
+
+
+# --------------------------------------------------------------------------
+# The lane axis (the fleet)
+# --------------------------------------------------------------------------
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("P_lane", [4200, 64])
+@pytest.mark.parametrize("weighted", [False, True], ids=["plain", "weighted"])
+def test_lane_axis_loss_kernels_equal_solo_launches(cuda, P_lane, weighted):
+    """B1 and B2 on the lane axis (3 lanes, one y and w each, 10k rows): one
+    launch each, within tolerance of the plain versions, and bit for bit the
+    three solo launches. At 4,200 programs a lane the solo launch cuts each
+    program's rows into 2 chunks, where a shape taken from all 12,600 would
+    take 1: the geometry comes from one lane."""
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import loss_geometry
+
+    L, R = 3, 10_000
+    opts = Options(binary_operators=["+", "-", "*", "/"], unary_operators=["cos", "exp", "abs"],
+                   maxsize=20, device="cuda")
+    prog, vals, X, y, w = _inputs(opts, L * P_lane, R, seed=P_lane, device=cuda)
+    if P_lane == 4200:
+        assert loss_geometry(P_lane, opts.max_nodes, R)[4] == 2
+        assert loss_geometry(L * P_lane, opts.max_nodes, R)[4] == 1
+    Xl = X.expand(L, -1, -1).contiguous()
+    Y = torch.stack([y * (l + 1) for l in range(L)])
+    W = torch.stack([w.roll(l) for l in range(L)]) if weighted else None
+    ops, loss = opts.operators, opts.loss
+    b1, b2 = fused_loss.launches, fused_loss_grad.launches
+    got = fused_loss(prog, vals, Xl, Y, W, ops, loss)
+    gl, gg = fused_loss_grad(prog, vals, Xl, Y, W, ops, loss)
+    assert (fused_loss.launches, fused_loss_grad.launches) == (b1 + 1, b2 + 1)
+    P = P_lane
+    solo = [fused_loss(prog[l * P:(l + 1) * P], vals[l * P:(l + 1) * P], X, Y[l],
+                       None if W is None else W[l], ops, loss) for l in range(L)]
+    solo_g = [fused_loss_grad(prog[l * P:(l + 1) * P], vals[l * P:(l + 1) * P], X, Y[l],
+                              None if W is None else W[l], ops, loss) for l in range(L)]
+    assert torch.equal(_bits(got), _bits(torch.cat(solo)))
+    assert torch.equal(_bits(gl), _bits(torch.cat([s[0] for s in solo_g])))
+    assert torch.equal(_bits(gg), _bits(torch.cat([s[1] for s in solo_g])))
+    _close(got, fused_loss_reference(prog, vals, Xl, Y, W, ops, loss))
+    rl, rg = fused_loss_grad_reference(prog, vals, Xl, Y, W, ops, loss)
+    _close(gl, rl)
+    assert_grads_close(gg, rg)
+
+
+def test_lane_axis_block_kernel_equals_solo_launches(cuda):
+    """B3 on the lane axis: 3 lanes, each its own population, data and
+    scalars, in one launch of 3 x 6 blocks: bit for bit the solo launches,
+    integers equal to the plain version."""
+    from symbolicregression_jl_tpu_torch.ops.evolve_block_cuda import (
+        evolve_block, evolve_block_reference,
+    )
+
+    lanes = [_block_inputs(cuda, 4, True, seed=10 + l) for l in range(3)]
+    cfg, ops, loss = lanes[0][-3:]
+    stacked = tuple(torch.cat([a[k] for a in lanes]) for k in range(6))
+    scal = tuple(torch.stack([a[k] for a in lanes]) for k in range(6, 11))
+    data = tuple(torch.stack([a[k] for a in lanes]) for k in range(11, 14))
+    before = evolve_block.launches
+    got = evolve_block(*stacked, *scal, *data, cfg, ops, loss)
+    assert evolve_block.launches == before + 1
+    solo = [evolve_block(*a) for a in lanes]
+    for k, g in enumerate(got):
+        assert torch.equal(_bits(g), _bits(torch.cat([s[k] for s in solo]))), k
+    ref = evolve_block_reference(*stacked, *scal, *data, cfg, ops, loss)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        if not r.dtype.is_floating_point:
+            assert torch.equal(g.cpu(), r.cpu())
+
+
+@pytest.mark.parametrize("block", [True, False], ids=["block", "event"])
+def test_fleet_on_the_card(cuda, monkeypatch, block):
+    """Two lanes of the quick engine on the card equal their solo runs; on
+    the block one B3 launch per iteration for both, with no host sync in the
+    evolve leg."""
+    import contextlib
+
+    import symbolicregression_jl_tpu_torch.models.device_search as ds
+    from symbolicregression_jl_tpu_torch import equation_search
+    from symbolicregression_jl_tpu_torch.models.device_search import FleetLaneSpec, fleet_search
+    from symbolicregression_jl_tpu_torch.ops.evolve_block_cuda import evolve_block
+
+    if block:
+        monkeypatch.delenv("SR_ENGINE_BLOCK", raising=False)
+    else:
+        monkeypatch.setenv("SR_ENGINE_BLOCK", "0")
+
+    @contextlib.contextmanager
+    def guard(name):
+        torch.cuda.set_sync_debug_mode("error" if name == "evolve" else 0)
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    X, y, opts = _quick_engine()
+    y2 = (X[0] * X[1] + 1).astype(np.float32)
+    _, _, opts2 = _quick_engine(seed=1)
+    b3 = evolve_block.launches
+    monkeypatch.setattr(ds, "_LEG_WRAP", guard)
+    res = fleet_search([FleetLaneSpec(X=X, y=y, options=opts, niterations=2),
+                        FleetLaneSpec(X=X, y=y2, options=opts2, niterations=2)])
+    assert evolve_block.launches - b3 == (2 if block else 0)
+    monkeypatch.setattr(ds, "_LEG_WRAP", None)
+    for r, yy, o in ((res[0], y, opts), (res[1], y2, opts2)):
+        solo = equation_search(X, yy, options=o, niterations=2, verbosity=0)
+        assert r.engine_stats["block"] == solo.engine_stats["block"]
+        assert _frontier(r) == _frontier(solo) and r.num_evals == solo.num_evals

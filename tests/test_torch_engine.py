@@ -291,10 +291,14 @@ def test_out_of_slice_options_name_their_item(kw, tmp_path):
 
 
 def test_out_of_slice_entry_points_name_their_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, A, slice 5: fleet"):
-        tds.fleet_search([])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, A, slice 5: fleet"):
-        tds.FleetLaneSpec(None, None)
+    """The fleet is ported; the stream session's hooks into it are not yet,
+    and name their item."""
+    X, y = _planted()
+    spec = tds.FleetLaneSpec(X=X, y=y, options=_opts(seed=0), niterations=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, A, slice 5: stream/"):
+        tds.fleet_search([spec], data_update_hook=lambda it: None)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, A, slice 5: stream/"):
+        tds.fleet_search([spec], on_lanes_ready=lambda lanes: None)
 
 
 def test_device_mode_supported():

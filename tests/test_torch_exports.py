@@ -18,9 +18,7 @@ _UNPORTED = {
     "PeerLossError": "slice 4: membership.py",
     "DriftConfig": "slice 5: stream/",
     "DriftDetector": "slice 5: stream/",
-    "MultitargetSearch": "slice 5: stream/",
     "StreamSession": "slice 5: stream/",
-    "multitarget_search": "slice 5: stream/",
 }
 
 # (name, factory arguments or None for a plain loss): every loss the two
