@@ -93,7 +93,29 @@ JAX or of the JAX package. Phases, each of which raises on failure:
    (``SR_ENGINE_BLOCK=0``) at the quick start's size, each equal to its
    solo. The fleet runs' launches are the path ``fleet``, their solo
    references' ``fleet solos``; the kernels line's ``lane_axis`` holds the
-   lane-axis check's error and times.
+   lane-axis check's error and times;
+10. ``stream``, a ``StreamSession`` (one fleet lane whose rows change
+   between iterations), gated at every iteration boundary: (a) at config3
+   width on a 10,240-row bucket (the block) from config3's rows 0-7,999,
+   rows 8,000-8,999 and 9,000-9,999 pushed: after each swap the lane's X, y,
+   w and norm keep their pointers, no kernel is built, B3 ran once per
+   iteration and the resident y and w equal the padded host rows bit for
+   bit, with the iteration times around the swaps and the hook's host ms;
+   after the second push B1 and B2 on the lane's 10,240 resident rows (the
+   frontier's trees, and 4,200 programs at the BFGS's shape), B1 on the
+   probe's 1,000 incoming rows, and B3 on the engine's last launch's
+   inputs (8 cycles) against their plain versions, within the smoke's
+   tolerances;
+   (b) a replace with the same X and another law at iteration 5: drift, a
+   rescore whose best loss is above twice the fitted one, two more
+   iterations with a finite frontier, the probe's and rescore's host ms;
+   (c) rows 10,000-10,999 pushed: one restart on a 16,384-row bucket with
+   the same hall of fame, one iteration there, and which evolve leg each
+   epoch ran; B1 and B2 on its 16,384 rows against their plain versions as
+   in (a); (d) every frame decodes with ``niterations`` 0 and the stop
+   is a callback stop; (e) the quick start's size on a 256-row bucket twice
+   with one seed, one run re-staging its identical rows at iteration 1:
+   identical frontiers. Its launches are the path ``stream``.
 
 The last lines are the kernels JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}`` (``count`` is the number of cards the
@@ -2285,6 +2307,388 @@ def fleet_event_leg(device, iterations=2, cycles=100, seed=0):
     return tuple(fl), tuple(sl)
 
 
+class _Gate:
+    """Holds a stream session's engine at every iteration boundary (its
+    iteration callback) until the caller lets it go on, so that a staged
+    update lands at a chosen iteration; ``step`` returns the host seconds
+    of each iteration it let through (release to the next boundary)."""
+
+    def __init__(self):
+        import threading
+
+        self.release = threading.Semaphore(0)
+        self.arrived = threading.Semaphore(0)
+
+    def cb(self, report):
+        self.arrived.release()
+        self.release.acquire()
+        return None
+
+    def step(self, sess, n=1, timeout=600):
+        walls = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            self.release.release()
+            if not self.arrived.acquire(timeout=timeout):
+                _fail(f"stream: no iteration boundary within {timeout} s ({sess.error})")
+            walls.append(time.perf_counter() - t0)
+        return walls
+
+    def drain(self, sess, timeout=600):
+        """Stop the session at its next boundary and wait for its end."""
+        sess.request_stop()
+        self.release.release()
+        if not sess.wait(timeout=timeout):
+            _fail("stream: the session did not stop")
+        while self.arrived.acquire(timeout=0.01):
+            self.release.release()
+        return sess.stop()
+
+
+def _timed_calls(obj, name, calls):
+    """Wrap the bound method ``obj.name`` on the instance so that each call
+    appends (its host seconds, its result) to ``calls``."""
+    fn = getattr(obj, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        calls.append((time.perf_counter() - t0, out))
+        return out
+
+    setattr(obj, name, timed)
+
+
+@contextlib.contextmanager
+def _block_inputs(captured):
+    """While open, every B3 launch the engine makes leaves its arguments in
+    ``captured[0]`` (the last launch's: the population and scalars the
+    prologue built, the lane-axis data views, the config)."""
+    from symbolicregression_jl_tpu_torch.models import device_search
+
+    real = device_search.evolve_block
+
+    def capture(*args):
+        captured[:] = [args]
+        return real(*args)
+
+    device_search.evolve_block = capture
+    try:
+        yield captured
+    finally:
+        device_search.evolve_block = real
+
+
+def stream_kernel_check(device, tag, lane, block_args=None, probe=None, block_cycles=8):
+    """Phase 10's kernel check at the shapes the session gives B1, B2 and
+    B3, while the engine is held at an iteration boundary: B1 and B2 on the
+    lane's resident rows (the whole bucket, pad rows at weight 0) at the
+    rescore's shape (the hall of fame's frontier trees) and at the BFGS's
+    (4,200 random config3 programs); B1 on the drift probe's rows
+    (``probe``: the incoming X, y, at weight 1) with the best member; B3 on
+    the inputs of the engine's last launch (``block_args``: its
+    population, scalars and lane-axis data), cut to ``block_cycles``
+    cycles as phase 3's check. Each against its plain version at the
+    smoke's tolerances; these launches are not counted. Returns {kernel:
+    max abs err}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from symbolicregression_jl_tpu_torch.ops.evolve_block_cuda import (
+        evolve_block, evolve_block_reference,
+    )
+    from symbolicregression_jl_tpu_torch.ops.flat import flatten_trees
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import (
+        fused_loss, fused_loss_grad, fused_loss_grad_reference, fused_loss_reference,
+        pack_programs_fused,
+    )
+
+    saved = fused_loss.launches, fused_loss_grad.launches, evolve_block.launches
+    opts, data = lane.options, lane.data
+    opset, N, loss = opts.operators, lane.cfg.n_slots, opts.loss
+    F, R = data.X.shape
+    frontier = lane.hof.pareto_frontier()
+    if not frontier:
+        _fail(f"stream kernel check {tag}: an empty frontier")
+    best = min(frontier, key=lambda m: m.loss)
+    errs = {"fused_loss": 0.0, "fused_loss_grad": 0.0}
+
+    def on_card(prog_np, vals_np):
+        return torch.from_numpy(prog_np).to(device), torch.from_numpy(vals_np).to(device)
+
+    cases = [(f"{len(frontier)} frontier trees",
+              *on_card(*pack_programs_fused(flatten_trees([m.tree for m in frontier], N),
+                                            opset))),
+             ("4200 BFGS-shape programs", *on_card(*random_programs(opset, 4200, N, F,
+                                                                     seed=4200)))]
+    for what, prog, vals in cases:
+        name = f"stream {tag}: {what} x {R} rows"
+        got = fused_loss(prog, vals, data.X, data.y, data.w, opset, loss)
+        ref = fused_loss_reference(prog, vals, data.X, data.y, data.w, opset, loss)
+        gl, gg = fused_loss_grad(prog, vals, data.X, data.y, data.w, opset, loss)
+        rl, rg = fused_loss_grad_reference(prog, vals, data.X, data.y, data.w, opset, loss)
+        torch.cuda.synchronize()
+        errs["fused_loss"] = max(errs["fused_loss"], compare(f"B1 {name}", got, ref))
+        errs["fused_loss_grad"] = max(errs["fused_loss_grad"], compare(f"B2 {name}", gl, rl),
+                                      compare(f"B2 vs B1 {name}", gl, got),
+                                      compare_grads(f"B2 {name}", gg, rg))
+    shapes = [f"B1 and B2 on {R} rows x ({', '.join(c[0] for c in cases)})"]
+    if probe is not None:
+        Xp, yp = (torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in probe)
+        wp = torch.ones_like(yp)
+        prog, vals = on_card(*pack_programs_fused(flatten_trees([best.tree], N), opset))
+        got = fused_loss(prog, vals, Xp, yp, wp, opset, loss)
+        ref = fused_loss_reference(prog, vals, Xp, yp, wp, opset, loss)
+        torch.cuda.synchronize()
+        errs["fused_loss"] = max(errs["fused_loss"],
+                                 compare(f"B1 stream {tag}: the probe on {yp.numel()} rows",
+                                         got, ref))
+        shapes.append(f"B1 on the probe's {yp.numel()} rows x 1 tree")
+    if block_args is not None:
+        cfg = dataclasses.replace(block_args[14], ncycles=block_cycles)
+        args = (*block_args[:14], cfg, *block_args[15:])
+        got = evolve_block(*args)
+        ref = evolve_block_reference(*args)
+        torch.cuda.synchronize()
+        errs["evolve_block"] = compare_block(f"B3 stream {tag}", got, ref)
+        X = block_args[11]
+        shapes.append(f"B3 on the engine's last launch's inputs ({block_args[0].shape[0]} "
+                      f"islands, X {list(X.shape)}, weighted), {block_cycles} cycles")
+    fused_loss.launches, fused_loss_grad.launches, evolve_block.launches = saved
+    print(f"stream kernel check {tag}: " + "; ".join(shapes) + " within tolerance of the "
+          "plain versions; max abs err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()),
+          flush=True)
+    return errs
+
+
+def stream_session_config3(device, cycles=ENGINE_CYCLES, seed=0,
+                           rows=(8000, 9000, 10_000, 11_000), bucket=10_240, width=100):
+    """Phase 10 (a)-(d): one ``StreamSession`` at config3 width (100 x 100,
+    maxsize 20, ``cycles`` cycles, ``row_bucket=10_240``, on the block)
+    from config3's rows 0-7,999, gated at every iteration boundary. (a) rows
+    8,000-8,999 and 9,000-9,999 pushed in the bucket: the lane's tensors
+    keep their pointers, no kernel is built, B3 runs once per iteration, the
+    resident y equals the padded host y bit for bit; (b) at iteration 5 a
+    replace with the same X and ``fleet_targets``' third law: drift, a
+    rescore whose best loss is above twice the fitted one, two more
+    iterations with a finite frontier; (c) rows 10,000-10,999 pushed: one
+    restart on a 16,384-row bucket with the same hall of fame, one iteration
+    there (the event leg: above the block's row cap); (d) every frame decodes
+    with niterations 0 and the stop is a callback stop. After the second
+    push and in epoch 2, ``stream_kernel_check`` holds B1, B2 and (on the
+    block) B3 against their plain versions at the shapes the session gives
+    them. Returns the B3 launches and {kernel: max abs err} of those
+    checks."""
+    import numpy as np
+    import torch
+
+    from symbolicregression_jl_tpu_torch import Options
+    from symbolicregression_jl_tpu_torch.ops import interp_cuda
+    from symbolicregression_jl_tpu_torch.ops.evolve_block_cuda import evolve_block
+    from symbolicregression_jl_tpu_torch.ops.scoring import pad_rows_np
+    from symbolicregression_jl_tpu_torch.stream import StreamSession, next_row_bucket
+    from symbolicregression_jl_tpu_torch.utils.checkpoint import load_frontier_bytes
+
+    n0, n1, n2, n3 = rows
+    X, y = config3_data(n_rows=n3)
+    y_shift = fleet_targets(X)[2]
+    gate = _Gate()
+    frames = []
+    opts = Options(populations=width, population_size=width, maxsize=20,
+                   ncycles_per_iteration=cycles, seed=seed, save_to_file=False, progress=False,
+                   device=device.type, scheduler="device", warmup_maxsize_by=0.0,
+                   iteration_callback=gate.cb, **CONFIG3_OPS)
+    builds = {k: v["library"] for k, v in interp_cuda.BUILD_INFO.items()}
+    hook_s, probe_s, rescore_s = [], [], []
+
+    def swap_ms(calls):
+        return [sec * 1e3 for sec, upd in calls if upd is not None]
+
+    with engine_block_env(True), _block_inputs([]) as captured:
+        sess = StreamSession(X[:, :n0], y[:n0], opts, row_bucket=bucket,
+                             on_frame=frames.append)
+        _timed_calls(sess, "_hook", hook_s)
+        _timed_calls(sess, "_probe_best_loss", probe_s)
+        _timed_calls(sess, "_rescore_frontier", rescore_s)
+        b3_0 = evolve_block.launches
+        t0 = time.perf_counter()
+        sess.start()
+        if not gate.arrived.acquire(timeout=600):
+            _fail(f"stream: no first iteration ({sess.error})")
+        first_s = time.perf_counter() - t0
+        lane = sess._lane
+        ptrs = tuple(t.data_ptr() for t in lane.data)
+        if lane.block_mode != "kernel":
+            _fail(f"stream: the {bucket}-row bucket ran the evolve leg {lane.block_mode!r}")
+        before = gate.step(sess)
+
+        def check_swap(tag, n_rows, iterations):
+            if tuple(t.data_ptr() for t in lane.data) != ptrs:
+                _fail(f"stream {tag}: the lane's tensors moved")
+            if {k: v["library"] for k, v in interp_cuda.BUILD_INFO.items()} != builds:
+                _fail(f"stream {tag}: a kernel was built")
+            if evolve_block.launches - b3_0 != iterations:
+                _fail(f"stream {tag}: {evolve_block.launches - b3_0} B3 launches in "
+                      f"{iterations} iterations")
+            _, yp, wp = pad_rows_np(X[:, :n_rows], y[:n_rows], None, bucket)
+            if not (torch.equal(lane.data.y.cpu(), torch.from_numpy(yp))
+                    and torch.equal(lane.data.w.cpu(), torch.from_numpy(wp))):
+                _fail(f"stream {tag}: the resident y/w differ from the padded host rows")
+
+        # (a) two pushes in the bucket, up to config3's 10,000 rows
+        sess.push_rows(X[:, n0:n1], y[n0:n1])
+        swap_walls = gate.step(sess)
+        check_swap(f"push {n0}-{n1 - 1}", n1, 3)
+        sess.push_rows(X[:, n1:n2], y[n1:n2])
+        swap_walls += gate.step(sess)
+        check_swap(f"push {n1}-{n2 - 1}", n2, 4)
+        errs = [stream_kernel_check(device, f"(a), {n2} rows on the {bucket}-row bucket", lane,
+                                    captured[0], probe=(X[:, n1:n2], y[n1:n2]))]
+        after = gate.step(sess)
+        st = sess.stats
+        if st.updates_applied != 2 or st.recompile_events != 0 or st.rows != n2:
+            _fail(f"stream (a): {st.summary()}")
+        print(f"stream (a), config3 width ({width}x{width}, {cycles} cycles, bucket {bucket} rows, "
+              f"block {lane.block_mode}): first iteration (set-up included) {first_s:.3f} s; "
+              f"ms per iteration before the swaps {before[0] * 1e3:.3f}, at the two swaps "
+              + ", ".join(f"{w * 1e3:.3f}" for w in swap_walls)
+              + f", after {after[0] * 1e3:.3f}; hook host ms per push "
+              + ", ".join(f"{v:.3f}" for v in swap_ms(hook_s))
+              + "; the lane's X/y/w/norm kept their pointers, no kernel built, B3 once per "
+              f"iteration ({evolve_block.launches - b3_0} in 5), the resident y and w equal "
+              "the padded host rows bit for bit", flush=True)
+
+        # (b) drift: the same X, another law
+        best_before = min(m.loss for m in sess.frontier())
+        obs = sess._detector.observations
+        if obs < sess._detector.config.min_obs:
+            _fail(f"stream (b): {obs} observations before the replace")
+        sess.replace_rows(X[:, :n2], y_shift[:n2])
+        drift_walls = gate.step(sess, 3)
+        st = sess.stats
+        if st.drifts < 1 or st.rescores < 1:
+            _fail(f"stream (b): no drift response: {st.summary()}")
+        if not st.last_rescore_best > 2 * best_before:
+            _fail(f"stream (b): rescored best {st.last_rescore_best} not above twice "
+                  f"{best_before}")
+        fr = sess.frontier()
+        if not fr or not all(np.isfinite(m.loss) for m in fr):
+            _fail("stream (b): the frontier after the drift is not finite")
+        _, yp, _ = pad_rows_np(X[:, :n2], y_shift[:n2], None, bucket)
+        if not torch.equal(lane.data.y.cpu(), torch.from_numpy(yp)):
+            _fail("stream (b): the resident y is not the replaced target")
+        print(f"stream (b), drift at iteration {st.iterations - 2}: best frontier loss "
+              f"{best_before:.6g} before, {st.last_rescore_best:.6g} rescored on the new law "
+              f"(drifts {st.drifts}, rescores {st.rescores}), "
+              f"{min(m.loss for m in fr):.6g} two iterations later; hook host ms "
+              f"{swap_ms(hook_s)[-1]:.3f} (probe {probe_s[-1][0] * 1e3:.3f}, rescore "
+              f"{rescore_s[-1][0] * 1e3:.3f}); ms per iteration "
+              + ", ".join(f"{w * 1e3:.3f}" for w in drift_walls), flush=True)
+
+        # (c) overflow: 11,000 rows, a restart on the next bucket
+        hof = sess.hof
+        sess.push_rows(X[:, n2:], y_shift[n2:])
+        grow_walls = gate.step(sess)
+        b3_epoch1 = evolve_block.launches - b3_0
+        if b3_epoch1 != sess.stats.iterations:
+            _fail(f"stream (c): {b3_epoch1} B3 launches in {sess.stats.iterations} iterations")
+        grow_walls += gate.step(sess)
+        st = sess.stats
+        lane2 = sess._lane
+        errs.append(stream_kernel_check(
+            device, f"(c), {n3} rows on the {lane2.dataset.n}-row bucket", lane2))
+        if st.recompile_events != 1 or st.epochs != 2 or st.row_bucket != next_row_bucket(n3):
+            _fail(f"stream (c): {st.summary()}")
+        if sess.hof is not hof or lane2 is lane or lane2.hof is not hof:
+            _fail("stream (c): the restart did not keep the hall of fame")
+        if lane2.dataset.n != st.row_bucket or st.rows != n3:
+            _fail(f"stream (c): {lane2.dataset.n} rows on the lane, {st.rows} in the session")
+        b3_epoch2 = evolve_block.launches - b3_0 - b3_epoch1
+        res = gate.drain(sess)
+    if sess.error is not None or res is None or res.stop_reason != "callback":
+        _fail(f"stream (d): stop {getattr(res, 'stop_reason', None)!r}, error {sess.error}")
+    if res.engine_stats["block"] != lane2.block_mode or res.engine_stats["iterations"] < 1:
+        _fail(f"stream (c): epoch 2 {res.engine_stats}")
+    print(f"stream (c), overflow to {n3} rows: restart on a {st.row_bucket}-row bucket "
+          f"(recompile_events {st.recompile_events}, epochs {st.epochs}, the same hall of "
+          f"fame); evolve leg epoch 1 block {lane.block_mode!r} ({b3_epoch1} B3 launches), "
+          f"epoch 2 block {lane2.block_mode!r} ({b3_epoch2} B3 launches, "
+          f"{res.engine_stats['iterations']} iterations); ms per iteration at the boundary "
+          f"and in epoch 2: " + ", ".join(f"{w * 1e3:.3f}" for w in grow_walls), flush=True)
+    if not frames:
+        _fail("stream (d): no frame")
+    for f in frames:
+        upd = load_frontier_bytes(f)
+        if upd.niterations != 0 or not upd.members:
+            _fail(f"stream (d): frame at iteration {upd.iteration}: niterations "
+                  f"{upd.niterations}, {len(upd.members)} members")
+    print(f"stream (d): {len(frames)} frames, each decoded with niterations 0; stop reason "
+          f"{res.stop_reason!r}; session {sess.stats.summary()}", flush=True)
+    return b3_epoch1 + b3_epoch2, {k: max(e.get(k, 0.0) for e in errs) for k in errs[0]}
+
+
+def stream_noop(device, seed=0):
+    """Phase 10 (e): the README quick start's size (200 x 2, ``+ - *``,
+    ``cos``, 15 x 33, default cycles) as a session on a 256-row bucket, run
+    twice with one seed; in one run ``replace_rows`` re-stages the identical
+    rows at iteration 1. Then 3 more iterations: the two frontiers are
+    identical string for string. Returns the B3 launches."""
+    import numpy as np
+
+    from symbolicregression_jl_tpu_torch import Options
+    from symbolicregression_jl_tpu_torch.ops.evolve_block_cuda import evolve_block
+    from symbolicregression_jl_tpu_torch.stream import StreamSession
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(2, 200)).astype(np.float32)
+    y = (2 * np.cos(X[1]) + X[0] ** 2 - 2).astype(np.float32)
+    fronts, b3 = [], evolve_block.launches
+    t0 = time.perf_counter()
+    with engine_block_env(True):
+        for touch in (False, True):
+            gate = _Gate()
+            opts = Options(binary_operators=["+", "-", "*"], unary_operators=["cos"], seed=seed,
+                           save_to_file=False, progress=False, device=device.type,
+                           scheduler="device", iteration_callback=gate.cb)
+            sess = StreamSession(X, y, opts, row_bucket=256)
+            sess.start()
+            if not gate.arrived.acquire(timeout=600):
+                _fail(f"stream (e): no first iteration ({sess.error})")
+            if touch:
+                sess.replace_rows(X, y)
+            gate.step(sess, 3)
+            res = gate.drain(sess)
+            if sess.error is not None or sess.stats.updates_applied != int(touch):
+                _fail(f"stream (e): {sess.error}, {sess.stats.summary()}")
+            fronts.append(_frontier(res))
+    if fronts[0] != fronts[1]:
+        _fail("stream (e): an identical replace_rows changed the frontier")
+    print(f"stream (e), the quick start's size on a 256-row bucket, 1 + 3 iterations twice: "
+          f"an identical replace_rows at iteration 1 leaves the frontier identical "
+          f"({len(fronts[0])} members); {time.perf_counter() - t0:.3f} s", flush=True)
+    return evolve_block.launches - b3
+
+
+def stream_path(device):
+    """Phase 10: the stream session. Returns its (B1, B2, B3) launches, the
+    path "stream", and {kernel: max abs err} of its kernel checks."""
+    from symbolicregression_jl_tpu_torch.ops.evolve_block_cuda import evolve_block
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import fused_loss, fused_loss_grad
+
+    t0 = time.perf_counter()
+    fused_loss.launches = fused_loss_grad.launches = evolve_block.launches = 0
+    b3, errs = stream_session_config3(device)
+    b3 += stream_noop(device)
+    counts = (fused_loss.launches, fused_loss_grad.launches, evolve_block.launches)
+    if counts[2] != b3 or not (counts[0] and counts[1]):
+        _fail(f"stream: launches B1, B2, B3 {counts} (B3 counted per run: {b3})")
+    print(f"stream phase: {time.perf_counter() - t0:.3f} s; launches B1 {counts[0]}, B2 "
+          f"{counts[1]}, B3 {counts[2]}", flush=True)
+    return counts, errs
+
+
 def fleet_path(device):
     """Phase 9: the fleet. (a) the lane-axis kernels, (b) multitarget_search
     at config3 width, (c) mixed rows and budgets, (d) the event leg. Returns
@@ -2365,6 +2769,11 @@ def main() -> int:
             rec["launches_by_path"][path] = n
     for rec in (b1, b2, b3):
         rec["lane_axis"] = lanes[rec["name"]]
+    stream_counts, stream_errs = stream_path(device)
+    for rec, n in zip((b1, b2, b3, b4), (*stream_counts, 0)):
+        rec["launches_by_path"]["stream"] = n
+    for rec in (b1, b2, b3):
+        rec["max_abs_err"] = max(rec["max_abs_err"], stream_errs[rec["name"]])
     for rec in (b1, b2, b3, b4):
         rec["launches"] = sum(rec["launches_by_path"].values())
 

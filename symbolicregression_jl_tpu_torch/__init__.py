@@ -8,7 +8,8 @@ eval+loss kernel (``csrc/fused_loss.cu``), batched constant optimization
 through the interpreter's reverse-sweep gradient, and a complexity-indexed
 hall of fame. ``fleet_search`` (models/device_search.py) and
 ``multitarget_search`` run many device-engine searches as one, sharing each
-kernel launch across them. Entry points run on ``cuda`` unless the caller
+kernel launch across them; ``StreamSession`` keeps one such lane alive over
+a dataset whose rows change between iterations. Entry points run on ``cuda`` unless the caller
 asks for the CPU (``Options(device="cpu")``). The package imports nothing of the JAX
 package; ``convert.py`` carries state across from it as numpy arrays.
 """
@@ -67,8 +68,15 @@ from .utils.checkpoint import (
     load_checkpoint,
     load_saved_state,
 )
-# many targets over one X as one fleet of device-engine lanes
-from .stream import MultitargetSearch, multitarget_search
+# the streaming runtime (live row swaps over a resident fleet lane, drift-
+# aware frontiers) and many targets over one X as one fleet of lanes
+from .stream import (
+    DriftConfig,
+    DriftDetector,
+    MultitargetSearch,
+    StreamSession,
+    multitarget_search,
+)
 
 __version__ = "0.1.0"
 
@@ -125,7 +133,10 @@ __all__ = [
     "LogisticLoss",
     "loss_zoo",
     "make_loss",
+    "DriftConfig",
+    "DriftDetector",
     "MultitargetSearch",
+    "StreamSession",
     "multitarget_search",
     "__version__",
 ]

@@ -71,7 +71,11 @@ each lane keeps its solo state and generator, and every kernel launch is
 shared across the lanes on the kernels' lane axis (one B3 launch per
 iteration, one B1 or B2 launch per constant-optimization step), with one
 stacked readback per iteration. A lane ends bit for bit where its solo
-``device_search_one_output`` ends.
+``device_search_one_output`` ends. The stream session (stream/session.py)
+keeps one lane alive and swaps its rows between iterations through
+``fleet_search``'s ``data_update_hook``: the swap writes the lane's resident
+tensors in place (``LaneDataUpdate``), so every kernel reads the new rows
+through the same pointers.
 """
 
 from __future__ import annotations
@@ -116,7 +120,7 @@ from ..ops.interp_cuda import (
     unpack_programs_fused,
 )
 from ..ops.treeops import Tree
-from ..options import Options, _not_ported
+from ..options import Options
 from ..utils.profiling import NULL_PROFILER, StageProfiler
 from .hall_of_fame import HallOfFame
 from .pop_member import PopMember
@@ -125,7 +129,7 @@ from .population import Population
 __all__ = [
     "device_search_one_output", "device_mode_supported", "build_evo_config",
     "ScoreData", "EngineScorer", "pack_batch", "fleet_search", "FleetLaneSpec",
-    "fleet_eligibility",
+    "fleet_eligibility", "LaneDataUpdate",
 ]
 
 
@@ -971,6 +975,26 @@ def _make_block_fn(mode: str | None, options: Options, ecfg: EvoConfig, data: Sc
 # ---------------------------------------------------------------------------
 
 
+def _baseline_norm(dataset: Dataset, options: Options, eng_dt) -> float:
+    """Set ``dataset.baseline_loss`` and ``use_baseline`` from the loss of
+    the constant mean predictor (reference update_baseline_loss!,
+    SymbolicRegression.jl src/LossFunctions.jl:201-215), computed from numpy
+    in the engine dtype, and return the score normalization max(baseline,
+    0.01) (0.01 when the baseline is not finite). The lane prelude and a live
+    row swap both use it, so the same rows give the same bits."""
+    y = dataset.y.astype(eng_dt)
+    w = None if dataset.weights is None else dataset.weights.astype(eng_dt)
+    elem = np.asarray(
+        options.loss(torch.from_numpy(np.full_like(y, dataset.avg_y)), torch.from_numpy(y)),
+        np.float64,
+    )
+    bl = float((elem * w).sum() / w.sum()) if w is not None else float(elem.mean())
+    use_baseline = bool(np.isfinite(bl))
+    dataset.baseline_loss = bl if use_baseline else 1.0
+    dataset.use_baseline = use_baseline
+    return bl if (use_baseline and bl >= 0.01) else 0.01
+
+
 class _EngineLane:
     """One search's engine set-up, the solo search's prelude, which each
     lane of a fleet runs too: the baseline loss, the configs, the dataset
@@ -991,32 +1015,17 @@ class _EngineLane:
         eng_dt = self.eng_dt = np.dtype(options.dtype)
         vdt = self.vdt = getattr(torch, eng_dt.name)
 
-        # baseline loss of the constant mean predictor (reference
-        # update_baseline_loss!, SymbolicRegression.jl
-        # src/LossFunctions.jl:201-215), from numpy: it becomes a score constant
-        y = dataset.y.astype(eng_dt)
-        w = None if dataset.weights is None else dataset.weights.astype(eng_dt)
-        elem = np.asarray(
-            options.loss(torch.from_numpy(np.full_like(y, dataset.avg_y)), torch.from_numpy(y)),
-            np.float64,
-        )
-        bl = float((elem * w).sum() / w.sum()) if w is not None else float(elem.mean())
-        use_baseline = bool(np.isfinite(bl))
-        dataset.baseline_loss = bl if use_baseline else 1.0
-        dataset.use_baseline = use_baseline
-
+        norm_val = _baseline_norm(dataset, options, eng_dt)
         cfg = build_evo_config(
             options, n_features=dataset.n_features, baseline_loss=dataset.baseline_loss,
-            use_baseline=use_baseline, niterations=niterations, n_islands=I, n_rows=dataset.n,
-            dataset=dataset,
+            use_baseline=dataset.use_baseline, niterations=niterations, n_islands=I,
+            n_rows=dataset.n, dataset=dataset,
         )
         if fleet and cfg.warmup_maxsize_by == 0:
             cfg = dataclasses.replace(cfg, niterations=0)
         self.cfg = cfg
         # engine config: the score normalization travels as data.norm
         self.ecfg = ecfg = dataclasses.replace(cfg, baseline_loss=1.0, use_baseline=True)
-        norm_val = (dataset.baseline_loss if (use_baseline and dataset.baseline_loss >= 0.01)
-                    else 0.01)
         self.data = _make_score_data(dataset, eng_dt, device, norm_val)
         self.use_kernel = loss_kernel_eligible(options.operators, options.loss, eng_dt)
         self.scorer = EngineScorer(options, self.use_kernel)
@@ -1412,26 +1421,87 @@ class _FleetLane(_EngineLane):
                 o.optimizer_nrestarts, o.optimizer_iterations, o.optimizer_g_tol,
                 o.operators, o.loss, self.data.w is not None)
 
+    def rebuild_score_data(self, X, y, weights) -> tuple[ScoreData, Dataset]:
+        """A ScoreData for a live row swap (the stream session's update
+        between iterations), on the lane's device, and the Dataset the lane's
+        SearchResult then reports (the JAX package's
+        ``_FleetLane.rebuild_score_data``).
+
+        The lane prelude's host arithmetic runs exactly (the engine-dtype
+        cast, the weighted baseline loss, the norm clamp: ``_baseline_norm``),
+        so the lane's own rows give bit-identical tensors. The shapes and the
+        presence of weights must be the lane's: the swap writes the lane's
+        resident tensors in place (``LaneDataUpdate``)."""
+        X, y = np.asarray(X), np.asarray(y)
+        w = None if weights is None else np.asarray(weights)
+        old = self.dataset
+        if X.shape != old.X.shape or y.shape != old.y.shape or (w is None) != (
+                old.weights is None):
+            raise ValueError(
+                f"row swap must keep the lane's shapes: X {old.X.shape}/y {old.y.shape}/"
+                f"weights {old.weights is not None} vs swapped X {X.shape}/y {y.shape}/"
+                f"weights {w is not None}"
+            )
+        ds = Dataset(X, y, weights=w)
+        norm = _baseline_norm(ds, self.options, self.eng_dt)
+        return _make_score_data(ds, self.eng_dt, self.device, norm), ds
+
+
+@dataclasses.dataclass
+class LaneDataUpdate:
+    """One lane's data swap between iterations, returned by a
+    ``fleet_search`` ``data_update_hook`` (the JAX package's
+    ``LaneDataUpdate``): a ScoreData of the lane's shapes (from
+    ``_FleetLane.rebuild_score_data``), the Dataset the lane's SearchResult
+    reports, and whether to reset the lane's parsimony-frequency histogram to
+    the ``init_state`` uniform (the drift response that forgets the sizes
+    learned on the old rows)."""
+
+    score_data: ScoreData | None = None
+    dataset: Dataset | None = None
+    reset_freq: bool = False
+
+
+def _write_score_data(dst: ScoreData, src: ScoreData, what: str) -> None:
+    """Copy ``src`` into ``dst``'s tensors in place: every holder of ``dst``
+    (the legs, the scorer, the BFGS, the lane-axis stack whose views they
+    are) reads the new values through the same pointers. The copy is ordered on the stream
+    after the work already queued on the old values. Raises ValueError when
+    the shapes, dtypes or weight presence differ."""
+    if (src.w is None) != (dst.w is None) or any(
+            a is not None and (a.shape != b.shape or a.dtype != b.dtype)
+            for a, b in zip(dst, src)):
+        raise ValueError(
+            f"{what} changes the ScoreData structure; rebuild it with "
+            "_FleetLane.rebuild_score_data"
+        )
+    for a, b in zip(dst, src):
+        if a is not None:
+            a.copy_(b)
+
 
 class _FleetData:
-    """The active lanes' datasets stacked on a leading lane axis (X [L, F, R],
-    y and w [L, R], norm [L]) for the kernels' lane axis, rebuilt only when
-    the set of active lanes changes."""
+    """The lanes' datasets on a leading lane axis (X [L, F, R], y and w
+    [L, R], norm [L]) for the kernels' lane axis, allocated once. Each
+    lane's ``data`` is rebound to views of its slice, so a lane's in-place
+    swap reaches every holder, the lane-axis launches included. ``(lanes)``
+    gives the active lanes' stack: a view where they are consecutive, else a
+    gather."""
 
-    def __init__(self, datas):
-        self.datas = datas
-        self.key = self.value = None
+    def __init__(self, lanes):
+        self.full = ScoreData(*(
+            None if ts[0] is None else torch.stack(ts) for ts in zip(*(ln.data for ln in lanes))
+        ))
+        for l, lane in enumerate(lanes):
+            lane.data = ScoreData(*(None if t is None else t[l] for t in self.full))
 
     def __call__(self, lanes) -> ScoreData:
-        key = tuple(lanes)
-        if key != self.key:
-            ds = [self.datas[l] for l in lanes]
-            self.key, self.value = key, ScoreData(
-                torch.stack([d.X for d in ds]), torch.stack([d.y for d in ds]),
-                None if ds[0].w is None else torch.stack([d.w for d in ds]),
-                torch.stack([d.norm for d in ds]),
-            )
-        return self.value
+        lanes = list(lanes)
+        a, n = lanes[0], len(lanes)
+        if lanes == list(range(a, a + n)):
+            return ScoreData(*(None if t is None else t[a:a + n] for t in self.full))
+        idx = torch.tensor(lanes, device=self.full.X.device)
+        return ScoreData(*(None if t is None else t.index_select(0, idx) for t in self.full))
 
 
 def _make_fleet_block_fn(mode: str | None, options: Options, ecfg: EvoConfig,
@@ -1496,14 +1566,18 @@ def fleet_search(
     and changes nothing: the JAX package pads the lane axis with inert lanes
     so that fleets of other sizes share one compiled program, and the port
     compiles nothing per fleet size, so it launches only the real lanes.
-    ``data_update_hook`` and ``on_lanes_ready`` (the stream session's live
-    row swaps) come with the stream slice."""
+
+    The stream session's hooks (``stream/session.py``):
+    ``on_lanes_ready(lanes)`` fires once, after the lanes are built, with the
+    live ``_FleetLane`` objects. ``data_update_hook(it)`` runs at the top of
+    each iteration, before the evolve leg, with the 0-based iteration index,
+    and may return ``{lane index: LaneDataUpdate}``. A lane's update is
+    written in place into its resident X, y, w and norm, which are views of
+    its slice of the lane-axis stack, so every kernel reads the new rows
+    through the same pointers and nothing is rebuilt; an update of other
+    shapes raises ValueError."""
     from ..search import IterationReport, SearchResult  # late import (module cycle)
 
-    if data_update_hook is not None:
-        raise _not_ported("fleet_search(data_update_hook=...)", "A, slice 5: stream/")
-    if on_lanes_ready is not None:
-        raise _not_ported("fleet_search(on_lanes_ready=...)", "A, slice 5: stream/")
     specs = list(specs)
     L = len(specs)
     if L == 0:
@@ -1538,12 +1612,14 @@ def fleet_search(
             )
 
     device = lead.device
+    stacked = _FleetData(lanes)
     datas = [lane.data for lane in lanes]
     ctxs = [lane.ctx for lane in lanes]
     states = [lane.state for lane in lanes]
     for lane in lanes:
         lane.state = None  # the fleet's list is the state from here on
-    stacked = _FleetData(datas)
+    if on_lanes_ready is not None:
+        on_lanes_ready(lanes)
     scorer = EngineScorer(options, lead.use_kernel)
     const_opt = (make_fleet_const_opt_fn(options, ecfg, scorer, stacked)
                  if options.should_optimize_constants else None)
@@ -1634,6 +1710,15 @@ def fleet_search(
     for it in range(max(lane.nit for lane in lanes)):
         if not any(active):
             break
+        if data_update_hook is not None:
+            for l, upd in (data_update_hook(it) or {}).items():
+                lane = lanes[l]
+                if upd.score_data is not None:
+                    _write_score_data(lane.data, upd.score_data, f"lane {l} data update")
+                if upd.dataset is not None:
+                    lane.dataset = upd.dataset
+                if upd.reset_freq:
+                    states[l] = states[l]._replace(freq=torch.ones_like(states[l].freq))
         on = {l for l in range(L) if active[l]}
         states = run_fleet_iteration_fused(states, datas, ctxs, active, copt=const_opt,
                                            leg=timer.leg, block=block_fn)

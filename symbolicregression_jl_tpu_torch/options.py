@@ -201,7 +201,9 @@ class Options:
     # (None = auto: concurrent; False = serial). Concurrent and serial runs
     # are seed-for-seed identical (per-output RNG streams either way).
     parallel_outputs: bool | None = None
-    profile: bool = False  # device-engine stage profiling: later slice (raises)
+    # device-engine stage profiling: SearchResult.engine_profile, and a
+    # synchronous readback (models/device_search.py)
+    profile: bool = False
     # device engine: pipelined readback (None = auto: on; False: the
     # iteration's readback is consumed before the next iteration starts)
     async_readback: bool | None = None

@@ -10,8 +10,10 @@ in both packages, so a JAX snapshot decodes to equal trees, losses, RNG
 state and counters. Such a snapshot resumes as a rescored warm start
 (``exact`` is cleared on load): the port's scoring does not repeat the JAX
 package's bits, so a verbatim continuation would not be the JAX run's. The
-other direction is closed: the JAX loader checks the payload's class, which
-a port snapshot does not name. Hall-of-fame CSVs cross both ways.
+other direction is closed for snapshots: the JAX loader checks the
+payload's class, which a port snapshot does not name. Frontier frames are
+written under the JAX package's class names (:class:`_JaxNamedPickler`),
+so they decode in both packages. Hall-of-fame CSVs cross both ways.
 
 Two tiers of persistence live here:
 
@@ -639,13 +641,37 @@ def dump_checkpoint_bytes(ckpt: SearchCheckpoint) -> bytes:
     them with :func:`load_checkpoint_bytes` — the identical (verified)
     representation the on-disk snapshots use, so shard adoption inherits
     every flat-IR invariant check for free."""
+    return pickle.dumps(_flat_checkpoint(ckpt), protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def _flat_checkpoint(ckpt: SearchCheckpoint) -> SearchCheckpoint:
+    """``ckpt`` with its populations flat-encoded (format 2), where it has
+    any to encode."""
     if isinstance(ckpt.populations, list):
         flat = flatten_populations(ckpt.populations, ckpt.options_fingerprint)
         if flat is not None:
             ckpt = dataclasses.replace(
                 ckpt, populations=flat, format_version=CHECKPOINT_FORMAT
             )
-    return pickle.dumps(ckpt, protocol=pickle.HIGHEST_PROTOCOL)
+    return ckpt
+
+
+class _JaxNamedPickler(pickle._Pickler):
+    """Writes a global of the port (``symbolicregression_jl_tpu_torch.<module>``)
+    under the JAX package's name (``symbolicregression_jl_tpu.<module>``),
+    which has the same modules and classes, so that the JAX package's loader
+    reads the bytes; :class:`_PortUnpickler` maps the names back. Python's
+    own pickler, because the C one imports every global it writes to check
+    it."""
+
+    def save_global(self, obj, name=None):
+        module = getattr(obj, "__module__", None) or ""
+        if module != _PORT_PACKAGE and not module.startswith(_PORT_PACKAGE + "."):
+            return super().save_global(obj, name)
+        self.save(_JAX_PACKAGE + module[len(_PORT_PACKAGE):])
+        self.save(name or obj.__qualname__)
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
 
 
 def load_checkpoint_bytes(data: bytes) -> SearchCheckpoint:
@@ -691,7 +717,9 @@ def dump_frontier_bytes(
     Members are copied before encoding, so the caller may pass the LIVE
     hall of fame from an iteration callback. ``fingerprint``
     (:func:`options_fingerprint`) supplies the operator counts for the
-    decode-side op-range checks."""
+    decode-side op-range checks. The frame names the JAX package's classes
+    (:class:`_JaxNamedPickler`): a subscriber decodes it with either
+    package's :func:`load_frontier_bytes`."""
     from ..models.hall_of_fame import HallOfFame
     from ..models.population import Population
 
@@ -708,7 +736,9 @@ def dump_frontier_bytes(
         wall_time=float(wall_time),
         out_j=int(out_j),
     )
-    return dump_checkpoint_bytes(ckpt)
+    buf = io.BytesIO()
+    _JaxNamedPickler(buf, protocol=pickle.HIGHEST_PROTOCOL).dump(_flat_checkpoint(ckpt))
+    return buf.getvalue()
 
 
 def load_frontier_bytes(data: bytes) -> FrontierUpdate:

@@ -895,3 +895,73 @@ def test_fleet_on_the_card(cuda, monkeypatch, block):
         solo = equation_search(X, yy, options=o, niterations=2, verbosity=0)
         assert r.engine_stats["block"] == solo.engine_stats["block"]
         assert _frontier(r) == _frontier(solo) and r.num_evals == solo.num_evals
+
+
+@pytest.mark.parametrize("block", [True, False], ids=["block", "event"])
+def test_stream_session_on_the_card(cuda, monkeypatch, block):
+    """A stream session on the card, a step at a time: an identical
+    ``replace_rows`` changes no bit of the frontier; a push in the bucket
+    is written into the lane's tensors (same pointers, the rows read back
+    equal to the padded host rows), with B3 once per iteration on the block
+    and no host sync in any evolve leg."""
+    import contextlib
+    import dataclasses
+    import threading
+
+    import symbolicregression_jl_tpu_torch.models.device_search as ds
+    from symbolicregression_jl_tpu_torch.ops.evolve_block_cuda import evolve_block
+    from symbolicregression_jl_tpu_torch.ops.scoring import pad_rows_np
+    from symbolicregression_jl_tpu_torch.stream import StreamSession
+
+    if block:
+        monkeypatch.delenv("SR_ENGINE_BLOCK", raising=False)
+    else:
+        monkeypatch.setenv("SR_ENGINE_BLOCK", "0")
+
+    @contextlib.contextmanager
+    def guard(name):
+        torch.cuda.set_sync_debug_mode("error" if name == "evolve" else 0)
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    monkeypatch.setattr(ds, "_LEG_WRAP", guard)
+    X, y, opts = _quick_engine()
+
+    def run(touch):
+        arrived, release = threading.Semaphore(0), threading.Semaphore(0)
+
+        def cb(report):
+            arrived.release()
+            release.acquire()
+
+        def step():
+            release.release()
+            assert arrived.acquire(timeout=300), sess.error
+
+        sess = StreamSession(X[:, :400], y[:400], dataclasses.replace(opts, iteration_callback=cb),
+                             row_bucket=512)
+        b3 = evolve_block.launches
+        sess.start()
+        assert arrived.acquire(timeout=300), sess.error
+        ptrs = tuple(t.data_ptr() for t in sess._lane.data)
+        if touch:
+            sess.replace_rows(X[:, :400], y[:400])
+        step()
+        sess.push_rows(X[:, 400:], y[400:])
+        step()
+        assert tuple(t.data_ptr() for t in sess._lane.data) == ptrs
+        _, yp, wp = pad_rows_np(X, y, None, 512)
+        assert torch.equal(sess._lane.data.y.cpu(), torch.from_numpy(yp))
+        assert torch.equal(sess._lane.data.w.cpu(), torch.from_numpy(wp))
+        sess.request_stop()
+        release.release()
+        assert sess.wait(timeout=300), sess.error
+        res = sess.stop()
+        assert sess.error is None and res.stop_reason == "callback"
+        assert sess.stats.updates_applied == 1 + int(touch)
+        assert evolve_block.launches - b3 == (3 if block else 0)
+        return _frontier(res)
+
+    assert run(False) == run(True)

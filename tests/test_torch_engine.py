@@ -291,14 +291,27 @@ def test_out_of_slice_options_name_their_item(kw, tmp_path):
 
 
 def test_out_of_slice_entry_points_name_their_item():
-    """The fleet is ported; the stream session's hooks into it are not yet,
-    and name their item."""
+    """The stream session's hooks into the fleet run: a hook that returns
+    None at every iteration changes no bit of the search, ``on_lanes_ready``
+    is handed the live lanes once, and an update that is not a
+    same-shape ScoreData raises ValueError."""
     X, y = _planted()
-    spec = tds.FleetLaneSpec(X=X, y=y, options=_opts(seed=0), niterations=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, A, slice 5: stream/"):
-        tds.fleet_search([spec], data_update_hook=lambda it: None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, A, slice 5: stream/"):
-        tds.fleet_search([spec], on_lanes_ready=lambda lanes: None)
+    spec = tds.FleetLaneSpec(X=X, y=y, options=_opts(seed=0), niterations=2)
+    plain = tds.fleet_search([spec])[0]
+    its, lanes = [], []
+    hooked = tds.fleet_search([spec], data_update_hook=lambda it: its.append(it),
+                              on_lanes_ready=lanes.append)[0]
+    assert its == [0, 1] and len(lanes) == 1 and len(lanes[0]) == 1
+    assert _frontier(hooked) == _frontier(plain) and hooked.num_evals == plain.num_evals
+
+    def bad(it):
+        data, ds = lanes[-1][0].rebuild_score_data(X, y, None)
+        return {0: tds.LaneDataUpdate(score_data=data._replace(w=torch.ones_like(data.y)))}
+
+    with pytest.raises(ValueError, match="ScoreData structure"):
+        tds.fleet_search([spec], data_update_hook=bad, on_lanes_ready=lanes.append)
+    with pytest.raises(ValueError, match="shapes"):
+        lanes[-1][0].rebuild_score_data(X[:, :50], y[:50], None)
 
 
 def test_device_mode_supported():

@@ -16,9 +16,6 @@ import symbolicregression_jl_tpu_torch as T
 
 _UNPORTED = {
     "PeerLossError": "slice 4: membership.py",
-    "DriftConfig": "slice 5: stream/",
-    "DriftDetector": "slice 5: stream/",
-    "StreamSession": "slice 5: stream/",
 }
 
 # (name, factory arguments or None for a plain loss): every loss the two

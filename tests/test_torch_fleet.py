@@ -514,9 +514,16 @@ def test_fleet_rejects_what_it_does_not_take():
                       FleetLaneSpec(X=X, y=y, options=_opts(maxsize=12))])
     with pytest.raises(ValueError, match="init_trees"):
         fleet_search([FleetLaneSpec(X=X, y=y, options=_opts(), init_trees=[])])
-    with pytest.raises(NotImplementedError, match="stream"):
-        fleet_search([FleetLaneSpec(X=X, y=y, options=_opts())],
-                     data_update_hook=lambda it: None)
+    lanes = []
+
+    def grown(it):
+        data, ds = lanes[0].rebuild_score_data(X, y, None)
+        return {0: tds.LaneDataUpdate(score_data=data._replace(X=torch.cat([data.X, data.X])),
+                                      dataset=ds)}
+
+    with pytest.raises(ValueError, match="ScoreData structure"):
+        fleet_search([FleetLaneSpec(X=X, y=y, options=_opts())], data_update_hook=grown,
+                     on_lanes_ready=lanes.extend)
     assert fleet_search([]) == []
 
 
