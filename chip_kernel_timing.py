@@ -5,6 +5,7 @@ NVIDIA GPU, with the timing code of this repository's ``chip_smoke.py``.
 
     python3 chip_kernel_timing.py [--root DIR] [--label NAME]
     python3 chip_kernel_timing.py --pairs DIR [--n-pairs 10]
+    python3 chip_kernel_timing.py --legs [--root DIR] [--label NAME] [--build-dir DIR]
 
 ``--root`` is the root of the checkout whose package is built and timed
 (default: this repository). Because the timing code is always this file's
@@ -39,6 +40,16 @@ alone (the launch queued behind a sleeping kernel, so the host's part is
 hidden) and the host's time in the wrapper alone. Both sides get the same
 inputs and must give the same outputs.
 
+``--legs`` instead times, for the checkout at ``--root``, the two paths
+whose time is the host's launch rate: config3's device engine on the event
+leg (``chip_smoke.engine_path`` with ``SR_ENGINE_BLOCK=0``: evolve ms per
+cycle from CUDA events, and each evolve leg's host ms) and the units run on
+the engine (``chip_smoke.options_units``: its event leg's ms per cycle).
+Run in turns as above, one process per side. ``--build-dir`` points the
+checkout's kernel build directory there: the libraries are named by the
+hash of their sources and flags, so checkouts with the same kernel sources
+build once between them.
+
 Needs a CUDA card and ``nvcc``.
 """
 
@@ -66,6 +77,10 @@ def main() -> int:
     ap.add_argument("--n-pairs", type=int, default=10)
     ap.add_argument("--shapes", type=int, default=0, metavar="ROUNDS",
                     help="time B2 and B4 at each launch shape in SHAPES, ROUNDS times")
+    ap.add_argument("--legs", action="store_true",
+                    help="time the config3 event leg and the units event leg")
+    ap.add_argument("--build-dir", default=None,
+                    help="the kernel build directory (shared between checkouts)")
     args = ap.parse_args()
     import torch
 
@@ -91,6 +106,15 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"[{args.label}] card: {smi}; package {pkg}", flush=True)
     device = torch.device("cuda", 0)
+    if args.build_dir:
+        from pathlib import Path
+
+        interp_cuda.BUILD_DIR = Path(os.path.abspath(args.build_dir))
+    if args.legs:
+        interp_cuda.build_all()
+        out = legs(chip_smoke, device)
+        print(json.dumps({"label": args.label, "card": smi, "legs": out}), flush=True)
+        return 0
     if args.pairs:
         out = pairs(chip_smoke, device, os.path.abspath(args.pairs), args.n_pairs)
         print(json.dumps({"label": args.label, "card": smi, "pairs": out}), flush=True)
@@ -124,6 +148,16 @@ def measure(chip_smoke, device) -> dict:
 
 #: the (threads, RPT) launch shapes ``--shapes`` times for B2 and B4
 SHAPES = ((256, 4), (128, 4), (256, 2), (128, 2), (64, 4), (256, 1))
+
+
+def legs(chip_smoke, device) -> dict:
+    """The config3 event leg and the units run on the engine's event leg,
+    as chip_smoke.py runs and checks them (phases 5 and 8 (b))."""
+    _, event = chip_smoke.engine_path(device, None, block=False)
+    units = chip_smoke.options_units(device)
+    return {"event_ms_per_cycle": event["ms_per_cycle"],
+            "event_evolve_leg_host_ms": event["leg_walls_ms"]["evolve"],
+            "units_ms_per_cycle": units["device_ms_per_cycle"]}
 
 
 def shapes(chip_smoke, device, rounds: int) -> dict:

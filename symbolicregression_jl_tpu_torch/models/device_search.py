@@ -76,12 +76,26 @@ keeps one lane alive and swaps its rows between iterations through
 ``fleet_search``'s ``data_update_hook``: the swap writes the lane's resident
 tensors in place (``LaneDataUpdate``), so every kernel reads the new rows
 through the same pointers.
+
+What outlives a search goes through the process's program cache
+(``serve/program_cache.py``, ``PROGRAM_CACHE``): the dataset's ``ScoreData``
+upload, keyed on its digest, norm, dtype and device (``_cached_score_data``;
+never written in place: a fleet stacks copies of it), and the kernels'
+operator table, which each scorer looks up once (``scorer.cached_optab``).
+Searches of one process may run at once (serve workers,
+``parallel_outputs``): each has its own state, generator and tensors, but
+the kernels' launch counters, the test seams ``_DISPATCH_HOOK`` and
+``_LEG_WRAP`` and the synchronizations of the leg timer and profiler are
+process-wide, so under concurrent searches the counters and the hook's
+calls sum over all of them and a leg's times include the other searches'
+queued work.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import os
 import time
 from typing import Callable, NamedTuple
@@ -121,10 +135,12 @@ from ..ops.interp_cuda import (
 )
 from ..ops.treeops import Tree
 from ..options import Options
+from ..serve.program_cache import global_program_cache, oom_site
 from ..utils.profiling import NULL_PROFILER, StageProfiler
 from .hall_of_fame import HallOfFame
 from .pop_member import PopMember
 from .population import Population
+from .scorer import cached_optab
 
 __all__ = [
     "device_search_one_output", "device_mode_supported", "build_evo_config",
@@ -304,6 +320,41 @@ def _make_score_data(dataset: Dataset, dtype, device, norm: float) -> ScoreData:
     return ScoreData(X, y, w, torch.tensor(norm, dtype=X.dtype, device=X.device))
 
 
+# the process's cache of what outlives a search (serve/program_cache.py)
+PROGRAM_CACHE = global_program_cache()
+
+
+def _dataset_key(dataset: Dataset) -> tuple:
+    """Content key of a dataset's rows (the JAX package's ``_dataset_key``:
+    digest, shape and dtype of X, y and the weights)."""
+    def part(a):
+        if a is None:
+            return None
+        a = np.ascontiguousarray(a)
+        return hashlib.blake2b(a.tobytes(), digest_size=16).hexdigest(), a.shape, str(a.dtype)
+
+    return part(dataset.X), part(dataset.y), part(dataset.weights)
+
+
+def _cached_score_data(dataset: Dataset, dtype, device, norm: float) -> ScoreData:
+    """The dataset's ScoreData from ``PROGRAM_CACHE`` (kind "score_data",
+    charged by its bytes), uploaded on a miss. Keyed as the JAX package keys
+    it (``models/device_search.py:389-415``): the rows' digest, the norm (it
+    depends on the loss, not only on the rows), the engine dtype and the
+    device. The tensors are shared by every search of the dataset: nothing
+    writes them in place (``_FleetData`` stacks copies; a stream swap's data
+    is built by ``_FleetLane.rebuild_score_data``, outside the cache)."""
+    key = (_dataset_key(dataset), float(norm), np.dtype(dtype).name, str(torch.device(device)))
+    data = PROGRAM_CACHE.get("score_data", key)
+    if data is None:
+        # uploaded outside the cache's lock; a racing upload of the same key
+        # loses to the first put
+        data = _make_score_data(dataset, dtype, device, norm)
+        data = PROGRAM_CACHE.put("score_data", key, data, nbytes=sum(
+            t.numel() * t.element_size() for t in data if t is not None))
+    return data
+
+
 def pack_batch(batch: Tree, opset) -> tuple[torch.Tensor, torch.Tensor]:
     """A tree batch -> the kernels' (prog int32 [B, 4N+1], vals [B, N]) on
     its own device (``pack_programs_fused`` without the host round trip)."""
@@ -325,15 +376,19 @@ class EngineScorer:
     """Every loss and gradient the engine asks for, with its counts.
 
     ``use_kernel`` (f32, built-in operators and loss): losses through B1,
-    gradients through one B2 launch each (``DiffLoss``). Otherwise the plain
-    versions (``plain_losses``), on the engine dtype. ``score_calls`` counts loss calls (one B1
-    launch each on the card), ``grad_calls`` gradient calls (one B2 launch
-    each on the card)."""
+    gradients through one B2 launch each (``DiffLoss``), each handed the
+    operator table the scorer looked up once on ``device`` (default
+    ``options.device``; ``cached_optab``). Otherwise the plain versions
+    (``plain_losses``), on the engine dtype. ``score_calls`` counts loss
+    calls (one B1 launch each on the card), ``grad_calls`` gradient calls
+    (one B2 launch each on the card)."""
 
-    def __init__(self, options: Options, use_kernel: bool):
+    def __init__(self, options: Options, use_kernel: bool, device=None):
         self.opset = options.operators
         self.loss_elem = options.loss
         self.use_kernel = use_kernel
+        device = options.device if device is None else device
+        self.table = cached_optab(self.opset, device) if use_kernel else None
         self.score_calls = 0
         self.grad_calls = 0
 
@@ -345,7 +400,7 @@ class EngineScorer:
         lane axis (``fused_loss``'s)."""
         self.score_calls += 1
         if self.use_kernel:
-            return fused_loss(prog, vals, X, y, w, self.opset, self.loss_elem)
+            return fused_loss(prog, vals, X, y, w, self.opset, self.loss_elem, self.table)
         return over_lanes(
             lambda p, v, Xl, yl, wl: plain_losses(self._unpacked(p), v, Xl, yl, wl, self.opset,
                                                   self.loss_elem),
@@ -359,7 +414,7 @@ class EngineScorer:
         if self.use_kernel:
             with torch.enable_grad():
                 v = vals.detach().requires_grad_(True)
-                f = DiffLoss.apply(v, prog, X, y, w, self.opset, self.loss_elem)
+                f = DiffLoss.apply(v, prog, X, y, w, self.opset, self.loss_elem, self.table)
                 (g,) = torch.autograd.grad(f.sum(), v)
             return f.detach(), g
         return over_lanes(
@@ -669,10 +724,13 @@ def _bfgs_lockstep(x, mask_b, vloss, vgrad, iters: int, g_tol: float, lanes: int
 # ---------------------------------------------------------------------------
 
 # test seam: when set to a callable, the engine main loop reports each leg
-# it runs by name ("evolve", "const_opt", "finalize", "readback")
+# it runs by name ("evolve", "const_opt", "finalize", "readback"); it is
+# process-wide, so under concurrent searches (serve workers) it sees the
+# legs of all of them
 _DISPATCH_HOOK = None
 # test seam: when set, a callable (leg name) -> context manager entered
-# around the leg (chip_smoke.py checks the evolve leg makes no host sync)
+# around the leg (chip_smoke.py checks the evolve leg makes no host sync);
+# process-wide like _DISPATCH_HOOK
 _LEG_WRAP = None
 
 
@@ -1026,9 +1084,9 @@ class _EngineLane:
         self.cfg = cfg
         # engine config: the score normalization travels as data.norm
         self.ecfg = ecfg = dataclasses.replace(cfg, baseline_loss=1.0, use_baseline=True)
-        self.data = _make_score_data(dataset, eng_dt, device, norm_val)
+        self.data = _cached_score_data(dataset, eng_dt, device, norm_val)
         self.use_kernel = loss_kernel_eligible(options.operators, options.loss, eng_dt)
-        self.scorer = EngineScorer(options, self.use_kernel)
+        self.scorer = EngineScorer(options, self.use_kernel, device)
 
         # --- initial populations (host trees -> device state) ---------------
         if init_trees is None:
@@ -1086,6 +1144,7 @@ def device_search_one_output(
     from ..utils.stdin_reader import StdinReader
 
     _reject_out_of_slice(options)
+    cache_stats0 = PROGRAM_CACHE.stats() if options.profile else None
     own_recorder = recorder is None
     if own_recorder:
         recorder = Recorder(options)
@@ -1306,10 +1365,29 @@ def device_search_one_output(
         "nan_flooded_islands": flooded_islands,
     }
     if options.profile:
+        prof.set_counters("program_cache", _cache_counters(cache_stats0))
         result.engine_profile = prof.summary()
     if own_recorder:
         recorder.dump()
     return result
+
+
+def _cache_counters(stats0: dict, fleet: bool = False) -> dict:
+    """The engine profile's ``program_cache`` counter block (the JAX
+    package's keys): this search's hits, misses and evictions since
+    ``stats0``, the live entries and data bytes; a fleet's also its
+    ``fleet``-kind hits and misses (the JAX package's compiled fleet
+    programs: the port caches no such kind, so they stay 0). Under
+    concurrent searches the deltas include the others' traffic (the cache
+    is process-wide)."""
+    cs = PROGRAM_CACHE.stats()
+    out = {k: cs[k] - stats0[k] for k in ("hits", "misses", "evictions")}
+    if fleet:
+        out["fleet_hits"] = cs["fleet"]["hits"] - stats0["fleet"]["hits"]
+        out["fleet_misses"] = cs["fleet"]["misses"] - stats0["fleet"]["misses"]
+    out["entries"] = cs["entries"]
+    out["data_bytes"] = cs["data_bytes"]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1489,6 +1567,9 @@ class _FleetData:
     gather."""
 
     def __init__(self, lanes):
+        # the fleet's largest allocation: the ``oom_compile`` fault site
+        # (the stack itself is never cached, since stream swaps write into it)
+        oom_site("fleet_aot", (len(lanes), tuple(lanes[0].data.X.shape)))
         self.full = ScoreData(*(
             None if ts[0] is None else torch.stack(ts) for ts in zip(*(ln.data for ln in lanes))
         ))
@@ -1589,6 +1670,8 @@ def fleet_search(
     if lane_bucket is not None and int(lane_bucket) < 1:
         raise ValueError(f"lane_bucket must be >= 1 (got {lane_bucket})")
     t_setup = time.perf_counter()
+    cache_stats0 = (PROGRAM_CACHE.stats() if any(s.options.profile for s in specs)
+                    else None)
 
     ns = [np.asarray(s.y).shape[0] for s in specs]
     n_bucket = max(ns)
@@ -1620,7 +1703,7 @@ def fleet_search(
         lane.state = None  # the fleet's list is the state from here on
     if on_lanes_ready is not None:
         on_lanes_ready(lanes)
-    scorer = EngineScorer(options, lead.use_kernel)
+    scorer = EngineScorer(options, lead.use_kernel, device)
     const_opt = (make_fleet_const_opt_fn(options, ecfg, scorer, stacked)
                  if options.should_optimize_constants else None)
     block_fn = _make_fleet_block_fn(lead.block_mode, options, ecfg, stacked)
@@ -1770,7 +1853,10 @@ def fleet_search(
         "host_seconds": dict(timer.host),
         "device_seconds": timer.device_seconds(),
     }
-    summary = prof.summary() if prof.enabled else None
+    summary = None
+    if prof.enabled:
+        prof.set_counters("program_cache", _cache_counters(cache_stats0, fleet=True))
+        summary = prof.summary()
     for result in results:
         result.engine_stats["fleet"].update(fleet_stats)
         if summary is not None:

@@ -22,11 +22,27 @@ import torch
 
 from ..dataset import Dataset
 from ..ops.flat import flatten_trees
-from ..ops.interp_cuda import fused_loss, loss_kernel_eligible, pack_programs_fused
+from ..ops.interp_cuda import fused_loss, loss_kernel_eligible, optab_tensor, pack_programs_fused
+from ..ops.operators import kernel_op_table
 from ..ops.scoring import batched_loss_bucketed, baseline_loss, loss_to_score
+from ..serve.program_cache import global_program_cache
 from ..tree import Node
 
-__all__ = ["BatchScorer"]
+__all__ = ["BatchScorer", "cached_optab"]
+
+
+def cached_optab(opset, device) -> torch.Tensor | None:
+    """The kernels' operator table of ``opset`` on ``device``
+    (``interp_cuda.optab_tensor``), held for the process in the program
+    cache (kind "optab", keyed on the table and the device). A scorer looks
+    it up once per search and hands it to every B1 and B2 launch it makes.
+    None for an operator set the kernels do not take."""
+    table = kernel_op_table(opset)
+    if table is None:
+        return None
+    return global_program_cache().get_or_build(
+        "optab", (table.tobytes(), str(torch.device(device))),
+        lambda: optab_tensor(opset, device))
 
 
 class BatchScorer:
@@ -41,6 +57,7 @@ class BatchScorer:
         X, y, w = dataset.device_arrays(self.dtype, self.device)
         self.X, self.y, self.w = X, y, w
         self.use_kernel = loss_kernel_eligible(self.opset, self.loss_elem, self.dtype)
+        self.table = cached_optab(self.opset, self.device) if self.use_kernel else None
         bl, use = baseline_loss(dataset, self.opset, self.loss_elem, self.dtype, self.device)
         dataset.baseline_loss = bl
         dataset.use_baseline = use
@@ -113,7 +130,7 @@ class BatchScorer:
             dev_losses = fused_loss(
                 torch.from_numpy(prog).to(self.device),
                 torch.from_numpy(vals).to(self.device),
-                X, y, w, self.opset, self.loss_elem,
+                X, y, w, self.opset, self.loss_elem, self.table,
             )
             fetch = _readback(dev_losses)
         else:

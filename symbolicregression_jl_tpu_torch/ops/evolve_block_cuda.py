@@ -16,7 +16,8 @@ tensor launches the kernel or raises. The scalars (seed, first birth step,
 current maxsize, score normalization) stay on the device and reach the
 kernel through a small device buffer, so the launch needs no host sync. The
 static configuration travels by value in ``SrBlockCfg``. The kernel is built
-with the others by ``interp_cuda.build_all``.
+with the others by ``interp_cuda.build_all``. ``evolve_block.launches``
+counts its launches process-wide (summed over concurrent searches).
 
 The lane axis (the JAX package's ``vmap`` of the block over a fleet, its
 ``ops/evolve.py`` ``_run_fleet_iteration_fused_impl``): with X [L, F, R] the

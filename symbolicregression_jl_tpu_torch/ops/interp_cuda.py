@@ -1,7 +1,8 @@
 """The fused tree kernels: CUDA kernels, plain versions, build, launch counts.
 
 Three hand-written CUDA kernels, each with a wrapper, a plain PyTorch version
-and a launch count (``<wrapper>.launches``):
+and a launch count (``<wrapper>.launches``, process-wide: under concurrent
+searches, such as a server's workers, it sums over all of them):
 
 - B1, ``fused_loss`` (``csrc/fused_loss.cu``), replaces the TPU kernel
   ``symbolicregression_jl_tpu/ops/interp_pallas.py:258``
@@ -60,6 +61,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -79,6 +81,7 @@ __all__ = [
     "eval_trees_kernel",
     "eval_preds",
     "DiffLoss",
+    "optab_tensor",
     "pack_programs_fused",
     "unpack_programs_fused",
     "loss_kernel_eligible",
@@ -112,6 +115,10 @@ NVCC_FLAGS = (
 BUILD_INFO: dict = {}
 _LIBS: dict = {}
 _SIGNED: set = set()
+# one build at a time in the process: threads of one server (or any two
+# searches) reaching a kernel first at once would otherwise both run nvcc
+# into the same pid-named temporary library
+_BUILD_LOCK = threading.Lock()
 _SMEM_LIMIT = 227 * 1024
 #: each kernel's block shape on the shared core, threads and rows per thread
 #: (RPT; 1, 2 or 4), chosen by measurement on the H100 (PERF.md), and the
@@ -322,7 +329,14 @@ def _lib_path(name: str) -> Path:
 def build_all(names=tuple(SOURCES)) -> dict:
     """Compile the named kernels' sources for sm_90a (once per source
     content; one ``nvcc`` per source, all started together) and load them.
-    Returns {name: library}. Raises if any nvcc fails."""
+    Returns {name: library}. Raises if any nvcc fails. Thread-safe: one
+    build runs at a time, and a thread that waited finds the libraries the
+    other loaded (each library is built once per process, ``BUILD_INFO``)."""
+    with _BUILD_LOCK:
+        return _build_all_locked(tuple(names))
+
+
+def _build_all_locked(names) -> dict:
     import time
 
     t0 = time.perf_counter()
@@ -459,10 +473,10 @@ def preds_geometry(P: int, N: int, R: int, n_ops: int = 64):
                           B4_THREADS, B4_RPT)
 
 
-def _checked_launch_args(kernel: str, prog, vals, X, y, w, opset, loss_elem):
-    """Validate a CUDA launch: (optab, loss spec, P, P_lane, N, R, prog_ld).
-    X is [F, R] or, with a lane axis, [L, F, R] (y and w then [L, R]).
-    Raises on whatever the kernel does not take."""
+def _checked_launch_args(kernel: str, prog, vals, X, y, w, opset, loss_elem, table):
+    """Validate a CUDA launch: (optab, loss spec, P, P_lane, N, R, prog_ld,
+    the table on the device). X is [F, R] or, with a lane axis, [L, F, R]
+    (y and w then [L, R]). Raises on whatever the kernel does not take."""
     if X.device.type != "cuda":
         raise ValueError(f"{kernel}: unsupported device {X.device}")
     optab = kernel_op_table(opset)
@@ -487,11 +501,30 @@ def _checked_launch_args(kernel: str, prog, vals, X, y, w, opset, loss_elem):
         raise ValueError(f"{kernel}: w must be contiguous float32 shaped as y on the same "
                          "device")
     P_lane = _lanes(P, lanes[0]) if lanes else P
-    return optab, spec, P, P_lane, N, R, prog_ld
+    return optab, spec, P, P_lane, N, R, prog_ld, _device_table(kernel, optab, table, dev)
 
 
-def _launch(kernel: str, prog, vals, X, y, w, optab, spec, P, P_lane, N, R, prog_ld, geometry,
-            partials_shape, outs) -> None:
+def optab_tensor(opset: OperatorSet, device) -> torch.Tensor | None:
+    """The kernels' operator table of ``opset`` (``kernel_op_table``) on
+    ``device``: one upload. A caller that launches many times (a search's
+    scorer) uploads it once and passes it as ``table=``; a launch without
+    one uploads its own. None for a set the kernels do not take."""
+    optab = kernel_op_table(opset)
+    return None if optab is None else torch.from_numpy(optab).to(device)
+
+
+def _device_table(kernel: str, optab: np.ndarray, table, dev) -> torch.Tensor:
+    """The launch's operator table on ``dev``: ``table`` when the caller
+    holds one (checked against ``optab``'s length), else a fresh upload."""
+    if table is None:
+        return torch.from_numpy(optab).to(dev)
+    if table.device != dev or table.dtype != torch.int32 or table.shape != optab.shape:
+        raise ValueError(f"{kernel}: table must be the int32 operator table on {dev}")
+    return table
+
+
+def _launch(kernel: str, prog, vals, X, y, w, optab, table, spec, P, P_lane, N, R, prog_ld,
+            geometry, partials_shape, outs) -> None:
     """One launch of B1 or B2 on the current stream: ``geometry`` holds the
     launch-shape arguments the kernel takes after R, ``partials_shape`` the
     shape of its f64 scratch, ``outs`` its outputs. Raises if it fails."""
@@ -501,7 +534,7 @@ def _launch(kernel: str, prog, vals, X, y, w, optab, spec, P, P_lane, N, R, prog
     q = list(spec[1]) + [0.0] * (4 - len(spec[1]))
     lane_axis = X.dim() == 3
     err = getattr(lib, f"sr_{kernel}")(
-        prog.data_ptr(), prog_ld, vals.data_ptr(), _optab_tensor(optab, dev).data_ptr(),
+        prog.data_ptr(), prog_ld, vals.data_ptr(), table.data_ptr(),
         len(optab), X.data_ptr(), X.stride(-2), X.stride(0) if lane_axis else 0, y.data_ptr(),
         None if w is None else w.data_ptr(), y.stride(0) if lane_axis else 0, P, P_lane, N, R,
         *geometry, spec[0], *q,
@@ -530,11 +563,12 @@ def eval_trees_kernel(flat: FlatTrees, X, opset: OperatorSet) -> torch.Tensor:
                       X, opset)
 
 
-def eval_preds(prog, vals, X, opset: OperatorSet) -> torch.Tensor:
+def eval_preds(prog, vals, X, opset: OperatorSet, table=None) -> torch.Tensor:
     """B4 on packed programs (``pack_programs_fused``) already on X's
     device: predictions [P, R] f32. A CPU tensor takes the plain version; a
     CUDA tensor launches the kernel on the current stream (no
-    synchronisation) or raises. Launches count on
+    synchronisation) or raises. ``table``: the operator table on X's device
+    (``optab_tensor``), uploaded here when not given. Launches count on
     ``eval_trees_kernel.launches``."""
     if X.device.type == "cpu":
         flat = unpack_programs_fused(prog.numpy(), vals.numpy(), opset)
@@ -555,13 +589,14 @@ def eval_preds(prog, vals, X, opset: OperatorSet) -> torch.Tensor:
             raise ValueError(f"eval_trees_kernel: {name} must be contiguous {dt} on {dev}")
     if prog_ld != 4 * N + 1 or vals.shape[0] != P:
         raise ValueError("eval_trees_kernel: inconsistent shapes")
+    table = _device_table("eval_trees_kernel", optab, table, dev)
     preds = torch.empty((P, R), dtype=torch.float32, device=dev)
     if P == 0 or R == 0:
         return preds
     lib = build("eval_preds", _SIGNATURES["eval_preds"])
     threads, rpt, tpb, rows_per_chunk, n_chunks = preds_geometry(P, N, R, len(optab))
     err = lib.sr_eval_preds(
-        prog.data_ptr(), prog_ld, vals.data_ptr(), _optab_tensor(optab, dev).data_ptr(),
+        prog.data_ptr(), prog_ld, vals.data_ptr(), table.data_ptr(),
         len(optab), X.data_ptr(), X.stride(0), P, N, R, threads, rpt, tpb, rows_per_chunk,
         n_chunks, preds_smem(N, threads, tpb, rpt, len(optab)), preds.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
@@ -576,7 +611,7 @@ def eval_preds(prog, vals, X, opset: OperatorSet) -> torch.Tensor:
 eval_trees_kernel.launches = 0
 
 
-def fused_loss(prog, vals, X, y, w, opset: OperatorSet, loss_elem) -> torch.Tensor:
+def fused_loss(prog, vals, X, y, w, opset: OperatorSet, loss_elem, table=None) -> torch.Tensor:
     """Per-tree losses [P] f32 of packed programs on (X [F, R], y [R], w),
     or on a lane axis (X [L, F, R], y and w [L, R]; program p on lane
     p // (P / L)).
@@ -586,11 +621,13 @@ def fused_loss(prog, vals, X, y, w, opset: OperatorSet, loss_elem) -> torch.Tens
     on the postfix stack, so it takes stack-sound programs, as every
     postorder flattening of a tree is (``flatten_trees``, the device
     engine's packing): a program whose children are not the stack's top
-    entries scores inf there."""
+    entries scores inf there. ``table``: the operator table on X's device
+    (``optab_tensor``; a search's scorer holds one), uploaded here when not
+    given."""
     if X.device.type == "cpu":
         return fused_loss_reference(prog, vals, X, y, w, opset, loss_elem)
-    optab, spec, P, P_lane, N, R, prog_ld = _checked_launch_args(
-        "fused_loss", prog, vals, X, y, w, opset, loss_elem
+    optab, spec, P, P_lane, N, R, prog_ld, table = _checked_launch_args(
+        "fused_loss", prog, vals, X, y, w, opset, loss_elem, table
     )
     out = torch.empty((P,), dtype=torch.float32, device=X.device)
     if P == 0:
@@ -599,7 +636,7 @@ def fused_loss(prog, vals, X, y, w, opset: OperatorSet, loss_elem) -> torch.Tens
         return out.fill_(torch.inf)
     threads, rpt, tpb, rows_per_chunk, n_chunks = loss_geometry(P_lane, N, R, len(optab))
     smem = loss_smem(N, threads, tpb, rpt, len(optab))
-    _launch("fused_loss", prog, vals, X, y, w, optab, spec, P, P_lane, N, R, prog_ld,
+    _launch("fused_loss", prog, vals, X, y, w, optab, table, spec, P, P_lane, N, R, prog_ld,
             (threads, rpt, tpb, rows_per_chunk, n_chunks, smem),
             (P, n_chunks, 3) if n_chunks > 1 else (1,), (out,))
     fused_loss.launches += 1
@@ -609,7 +646,7 @@ def fused_loss(prog, vals, X, y, w, opset: OperatorSet, loss_elem) -> torch.Tens
 fused_loss.launches = 0
 
 
-def fused_loss_grad(prog, vals, X, y, w, opset: OperatorSet, loss_elem):
+def fused_loss_grad(prog, vals, X, y, w, opset: OperatorSet, loss_elem, table=None):
     """(losses [P] f32, grads [P, N] f32): ``fused_loss``'s losses and their
     gradients with respect to every constant slot (0 on other slots, and on
     every slot of a tree whose loss is not ok). Takes ``fused_loss``'s lane
@@ -618,11 +655,11 @@ def fused_loss_grad(prog, vals, X, y, w, opset: OperatorSet, loss_elem):
     CPU tensors take ``fused_loss_grad_reference``. CUDA tensors launch the
     kernel on the current stream (no synchronisation) or raise. As
     ``fused_loss``, the kernel takes stack-sound programs: any other scores
-    inf with zero gradients there."""
+    inf with zero gradients there. ``table`` as ``fused_loss``'s."""
     if X.device.type == "cpu":
         return fused_loss_grad_reference(prog, vals, X, y, w, opset, loss_elem)
-    optab, spec, P, P_lane, N, R, prog_ld = _checked_launch_args(
-        "fused_loss_grad", prog, vals, X, y, w, opset, loss_elem
+    optab, spec, P, P_lane, N, R, prog_ld, table = _checked_launch_args(
+        "fused_loss_grad", prog, vals, X, y, w, opset, loss_elem, table
     )
     out = torch.empty((P,), dtype=torch.float32, device=X.device)
     grads = torch.empty((P, N), dtype=torch.float32, device=X.device)
@@ -632,8 +669,8 @@ def fused_loss_grad(prog, vals, X, y, w, opset: OperatorSet, loss_elem):
         return out.fill_(torch.inf), grads.zero_()
     threads, rpt, tpb, rows_per_chunk, n_chunks = grad_geometry(P_lane, N, R, len(optab))
     smem = grad_smem(N, threads, tpb, rpt, len(optab))
-    _launch("fused_loss_grad", prog, vals, X, y, w, optab, spec, P, P_lane, N, R, prog_ld,
-            (threads, rpt, tpb, rows_per_chunk, n_chunks, smem),
+    _launch("fused_loss_grad", prog, vals, X, y, w, optab, table, spec, P, P_lane, N, R,
+            prog_ld, (threads, rpt, tpb, rows_per_chunk, n_chunks, smem),
             (P, n_chunks, 3 + N) if n_chunks > 1 else (1,), (out, grads))
     fused_loss_grad.launches += 1
     return out, grads
@@ -661,30 +698,21 @@ class DiffLoss(torch.autograd.Function):
     the gradient it is one B2 launch instead, and the backward scales B2's
     gradients by the incoming cotangent without launching anything.
 
-    ``DiffLoss.apply(vals, prog, X, y, w, opset, loss_elem)``."""
+    ``DiffLoss.apply(vals, prog, X, y, w, opset, loss_elem[, table])``."""
 
     @staticmethod
-    def forward(ctx, vals, prog, X, y, w, opset, loss_elem):
+    def forward(ctx, vals, prog, X, y, w, opset, loss_elem, table=None):
         if ctx.needs_input_grad[0]:
-            losses, grads = fused_loss_grad(prog, vals, X, y, w, opset, loss_elem)
+            losses, grads = fused_loss_grad(prog, vals, X, y, w, opset, loss_elem, table)
             ctx.save_for_backward(grads)
             return losses
-        return fused_loss(prog, vals, X, y, w, opset, loss_elem)
+        return fused_loss(prog, vals, X, y, w, opset, loss_elem, table)
 
     @staticmethod
     def backward(ctx, ct):
+        # a trailing None past the inputs given is ignored (``table`` unset)
         (grads,) = ctx.saved_tensors
-        return ct[:, None] * grads, None, None, None, None, None, None
-
-
-_OPTAB_CACHE: dict = {}
-
-
-def _optab_tensor(optab: np.ndarray, device) -> torch.Tensor:
-    key = (optab.tobytes(), str(device))
-    if key not in _OPTAB_CACHE:
-        _OPTAB_CACHE[key] = torch.from_numpy(optab).to(device)
-    return _OPTAB_CACHE[key]
+        return ct[:, None] * grads, None, None, None, None, None, None, None
 
 
 def work_counts(prog: np.ndarray, R: int, F: int, weighted: bool, lanes: int = 1) -> dict:

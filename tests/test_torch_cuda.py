@@ -38,6 +38,7 @@ from symbolicregression_jl_tpu_torch.ops.interp_cuda import (
     fused_loss_grad_reference,
     fused_loss_reference,
     grad_geometry,
+    optab_tensor,
     pack_programs_fused,
     preds_geometry,
 )
@@ -106,6 +107,34 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="no kernel implementation"):
         fused_loss(prog, vals, X, y, None, opts.operators, lambda p, t: (p - t) ** 4)
     assert fused_loss.launches == before
+
+
+def test_held_operator_table_gives_the_same_bits(cuda):
+    """A scorer's operator table (``optab_tensor``, uploaded once) gives B1,
+    B2 and B4 the bits of a launch that uploads its own; a table of another
+    length, dtype or device is refused before any launch."""
+    opts = Options(binary_operators=list(BINARY_OPS), unary_operators=list(UNARY_OPS),
+                   maxsize=20, device="cuda")
+    prog, vals, X, y, w = _inputs(opts, 64, 300, seed=5, device=cuda)
+    ops, loss = opts.operators, opts.loss
+    tab = optab_tensor(ops, cuda)
+
+    def same_bits(a, b):  # NaN predictions compare by their bits
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    assert same_bits(fused_loss(prog, vals, X, y, w, ops, loss, tab),
+                     fused_loss(prog, vals, X, y, w, ops, loss))
+    for a, b in zip(fused_loss_grad(prog, vals, X, y, w, ops, loss, tab),
+                    fused_loss_grad(prog, vals, X, y, w, ops, loss)):
+        assert same_bits(a, b)
+    assert same_bits(eval_preds(prog, vals, X, ops, tab), eval_preds(prog, vals, X, ops))
+    before = fused_loss.launches, fused_loss_grad.launches
+    for bad in (tab[:-1], tab.long(), tab.cpu()):
+        with pytest.raises(ValueError, match="table must be"):
+            fused_loss(prog, vals, X, y, w, ops, loss, bad)
+        with pytest.raises(ValueError, match="table must be"):
+            fused_loss_grad(prog, vals, X, y, w, ops, loss, bad)
+    assert (fused_loss.launches, fused_loss_grad.launches) == before
 
 
 def test_scorer_launches_once_per_dispatch(cuda):
@@ -965,3 +994,35 @@ def test_stream_session_on_the_card(cuda, monkeypatch, block):
         return _frontier(res)
 
     assert run(False) == run(True)
+
+
+@pytest.mark.parametrize("block", [True, False], ids=["block", "event"])
+def test_server_coalesced_fleet_on_the_card(cuda, monkeypatch, block):
+    """Two same-bucket jobs through ``SearchServer(fleet=True)`` on the
+    card run as one fleet: each equals its direct run bit for bit, streams
+    one frame per iteration and the final one, and on the block the fleet
+    launches B3 once per iteration for both."""
+    from symbolicregression_jl_tpu_torch import equation_search
+    from symbolicregression_jl_tpu_torch.ops.evolve_block_cuda import evolve_block
+    from symbolicregression_jl_tpu_torch.serve import DONE, JobSpec, SearchServer
+
+    if block:
+        monkeypatch.delenv("SR_ENGINE_BLOCK", raising=False)
+    else:
+        monkeypatch.setenv("SR_ENGINE_BLOCK", "0")
+    X, y, opts = _quick_engine()
+    _, _, opts2 = _quick_engine(seed=1)
+    want = [equation_search(X, y, options=o, niterations=2, verbosity=0) for o in (opts, opts2)]
+    b3 = evolve_block.launches
+    with SearchServer(max_concurrency=2, fleet=True) as srv:
+        srv.pause_admission()
+        ids = [srv.submit(JobSpec(X, y, options=o, niterations=2)) for o in (opts, opts2)]
+        srv.resume_admission()
+        jobs = [srv.wait(i, timeout=300) for i in ids]
+        assert all(j.state == DONE for j in jobs), [j.summary() for j in jobs]
+        assert srv.stats()["fleet"]["batches"] == 1
+        assert all(len(srv.frames(j.id)) == 3 for j in jobs)
+    assert evolve_block.launches - b3 == (2 if block else 0)
+    for job, w in zip(jobs, want):
+        assert job.result.engine_stats["fleet"]["lanes"] == 2
+        assert _frontier(job.result) == _frontier(w) and job.result.num_evals == w.num_evals
