@@ -137,7 +137,29 @@ JAX or of the JAX package. Phases, each of which raises on failure:
    block iteration, no kernel built; (e) B3 on the fleet's last launch's
    inputs against its plain version. Each job's queue wait, time to first
    frame and submit-to-terminal time, and the server's stats, are printed.
-   Its launches are the path ``serve``.
+   Its launches are the path ``serve``;
+12. ``net``, the network front door (``NetServer`` and the ``SRClient`` /
+   ``AsyncSRClient`` SDK over 127.0.0.1) in front of a
+   ``SearchServer(max_concurrency=2)``, clients holding a token: (a) phase
+   9 (b)'s seed-0 config3 job submitted and streamed over the wire beside a
+   quick-start job on the async client: pushed frames equal pulled ones
+   byte for byte, a subscription from index 1 gets the suffix, the last
+   frame's frontier and num_evals equal phase 9 (b)'s lane bit for bit, an
+   unknown token is refused, B3 once per block iteration; the ping's round
+   trip (median of 50), the submit's for the config3 spec, and each job's
+   first frame at the client beside the server's ``ttff_seconds``; (b)
+   ``torn_frame@1;net_drop@3`` on a quick-start stream: every frame
+   delivered once after at least two reconnects; (c) kill and recover over
+   the wire: a server child with a journal on a fixed port runs two
+   quick-start jobs and a config3-width job of 8 iterations on the card, is
+   SIGKILLed mid-run and restarted with the two wire faults armed: 3 of 3
+   jobs DONE, the long one resumed from its spool snapshot, the stream
+   replayed exactly across the new boot, no kernel built; the restarted
+   child's time to READY, journal replay and adoption; (d) a subscription
+   on config3's rows 0-7,999, rows 8,000-9,999 pushed and a cancel, all over
+   the wire: DONE, cancelled, B3 once per block iteration, no kernel built.
+   The launches of (a), (b) and (d) are the path ``net``; the children's
+   are not counted.
 
 Every launch count in the kernels line is measured: each path sets the
 counts of B1-B4 to 0 just before it runs and reads all four just after
@@ -3052,6 +3074,542 @@ def serve_path(device, fleet_ref):
     return counts, err
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the network front door
+# ---------------------------------------------------------------------------
+
+# the phase's token: a client presents it, the server maps it to the tenant
+NET_TOKENS = {"tok-a": "lab"}
+# (b)'s stream: the quick start's size, NET_FAULT_ITERATIONS iterations, so
+# that its 5 frames reach both armed faults
+NET_FAULTS, NET_FAULT_ITERATIONS = "torn_frame@1;net_drop@3", 4
+# (c)'s long job: config3 width on the block, NET_LONG_ITERATIONS iterations,
+# killed once NET_KILL_AT iterations are done and a spool snapshot exists
+NET_LONG_ITERATIONS, NET_KILL_AT = 8, 3
+
+
+def _client(port, **kw):
+    from symbolicregression_jl_tpu_torch.serve.net import SRClient
+
+    return SRClient("127.0.0.1", port, token="tok-a", **kw)
+
+
+def _frame_frontier(update, options):
+    """A decoded frame's members as ``_frontier`` lists a result's."""
+    from symbolicregression_jl_tpu_torch.complexity import compute_complexity
+
+    return [(compute_complexity(m.tree, options), m.loss,
+             m.tree.string_tree(options.operators, precision=17)) for m in update.members]
+
+
+def _wire_times(tag, client_first_s, summary):
+    """The client's submit-to-first-frame beside the server's own
+    ``ttff_seconds``; their difference is the wire's share."""
+    server = summary["ttff_seconds"]
+    return (f"{tag}: first frame at the client {client_first_s * 1e3:.3f} ms, at the server "
+            f"{server * 1e3:.3f} ms, the wire's share {(client_first_s - server) * 1e3:.3f} ms")
+
+
+def _async_quick_start(port, spec, out):
+    """An ``AsyncSRClient`` submits ``spec`` and streams it to its end, in
+    its own event loop; fills ``out`` (id, client first frame s, frames,
+    pulled frames, summary, or the error)."""
+    import asyncio
+
+    from symbolicregression_jl_tpu_torch.serve.net import AsyncSRClient
+
+    async def run():
+        cli = await AsyncSRClient.connect("127.0.0.1", port, token="tok-a")
+        try:
+            t0 = time.perf_counter()
+            jid = await cli.submit(spec)
+            frames = []
+            async for frame in cli.iter_frames(jid, timeout=600):
+                if not frames:
+                    out["first_s"] = time.perf_counter() - t0
+                frames.append(frame)
+            out.update(id=jid, frames=frames, summary=await cli.wait(jid, timeout=600),
+                       pulled=await cli.frames(jid))
+        finally:
+            await cli.close()
+
+    try:
+        asyncio.run(run())
+    except BaseException as e:  # re-raised by the caller, on the main thread
+        out["error"] = e
+
+
+def net_config3(device, srv, nsrv, ref):
+    """Phase 12 (a): phase 9 (b)'s seed-0 config3 job submitted over the wire
+    by an ``SRClient`` holding a token and streamed with ``iter_frames``,
+    while an ``AsyncSRClient`` runs a quick-start job on the other worker.
+    The pushed frames equal the pulled ones byte for byte, a second client
+    subscribed from index 1 gets exactly the suffix, the last frame's
+    frontier and num_evals equal ``ref`` (phase 9 (b)'s lane) bit for bit,
+    an unknown token is refused, and the launches of B1, B2 and B3 equal
+    the two engines' own counts (B3 once per block iteration). Prints the
+    ping's round trip (median of 50), the submit's round trip for the
+    config3 spec, and each job's first frame at the client and at the
+    server. Returns its B3 launches."""
+    import pickle
+    import threading
+
+    from symbolicregression_jl_tpu_torch.serve import DONE, JobSpec
+    from symbolicregression_jl_tpu_torch.serve.net import AuthError, SRClient
+
+    Xn, _ = config3_data()
+    y0 = fleet_targets(Xn)[0]
+    Xq, yq, oq = _quick_start_problem(device, 0)
+    # a client presenting a token the server does not know is refused at
+    # its hello, before any request
+    try:
+        SRClient("127.0.0.1", nsrv.port, token="tok-unknown", auto_reconnect=False).close()
+    except AuthError:
+        pass
+    else:
+        _fail("net (a): a client with an unknown token was accepted")
+    quick = {}
+    with _block_launches() as b3, _client(nsrv.port) as cli:
+        pings = []
+        for _ in range(50):
+            t0 = time.perf_counter()
+            cli.ping()
+            pings.append(time.perf_counter() - t0)
+        spec = JobSpec(Xn, y0, options=_config3_options(device, 0), niterations=ENGINE_ITERATIONS,
+                       label="config3")
+        t0 = time.perf_counter()
+        raw = pickle.dumps(spec, protocol=pickle.HIGHEST_PROTOCOL)
+        pickle_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        jid = cli.submit(raw)
+        submit_s = time.perf_counter() - t0
+        qthread = threading.Thread(target=_async_quick_start, args=(
+            nsrv.port, JobSpec(Xq, yq, options=oq, niterations=DEVICE_QUICKSTART_ITERATIONS,
+                               label="quick start"), quick))
+        qthread.start()
+        frames, first_s = [], float("nan")
+        for frame in cli.iter_frames(jid, timeout=600):
+            if not frames:
+                first_s = time.perf_counter() - t0
+            frames.append(frame)
+        summary = cli.wait(jid, timeout=600)
+        qthread.join(600)
+        if qthread.is_alive():
+            _fail("net (a): the quick-start job over the async client did not end")
+        pulled = cli.frames(jid, 0)
+        with _client(nsrv.port) as late:
+            late.subscribe(jid, start=1)
+            suffix = list(late.iter_frames(jid, timeout=600))
+        last = cli.decode_frame(frames[-1])
+        launches = {name: rec[0] for name, rec in b3.items()}
+    counts = read_launches()
+    if "error" in quick:
+        raise quick["error"]
+    job, qjob = srv.job(jid), srv.job(quick["id"])
+    if summary["state"] != DONE or quick["summary"]["state"] != DONE:
+        _fail(f"net (a): {summary} {quick['summary']}")
+    if summary["tenant"] != "lab" or quick["summary"]["tenant"] != "lab":
+        _fail(f"net (a): tenants {summary['tenant']!r}, {quick['summary']['tenant']!r}")
+    if frames != pulled or len(frames) != ENGINE_ITERATIONS + 1 or suffix != frames[1:]:
+        _fail(f"net (a): {len(frames)} pushed frames, {len(pulled)} pulled, a suffix of "
+              f"{len(suffix)} (pushed == pulled: {frames == pulled}, suffix exact: "
+              f"{suffix == frames[1:]})")
+    if quick["frames"] != quick["pulled"] or len(quick["frames"]) != (
+            DEVICE_QUICKSTART_ITERATIONS + 1):
+        _fail(f"net (a): the async client's {len(quick['frames'])} frames")
+    o = ref.options
+    if _frame_frontier(last, o) != _frontier(ref) or last.num_evals != ref.num_evals or (
+            _frontier(job.result) != _frontier(ref) or job.result.num_evals != ref.num_evals):
+        _fail("net (a): the config3 job over the wire differs from phase 9 (b)'s seed-0 lane")
+    st = [job.result.engine_stats, qjob.result.engine_stats]
+    want = (sum(s["score_calls"] for s in st), sum(s["grad_calls"] for s in st),
+            sum(s["iterations"] for s in st))
+    if counts[:3] != want or sorted(launches.values()) != sorted(
+            [ENGINE_ITERATIONS, DEVICE_QUICKSTART_ITERATIONS]) or counts[3]:
+        _fail(f"net (a): launches B1, B2, B3, B4 {counts} for the engines' {want}; B3 by "
+              f"worker {launches}")
+    print(f"net (a): ping round trip median {statistics.median(pings) * 1e3:.3f} ms (50 pings, "
+          f"min {min(pings) * 1e3:.3f}, max {max(pings) * 1e3:.3f}); config3 spec "
+          f"{len(raw)} bytes, pickled in {pickle_s * 1e3:.3f} ms, submit round trip "
+          f"{submit_s * 1e3:.3f} ms", flush=True)
+    print("  " + _wire_times(f"config3 {jid}", first_s, summary), flush=True)
+    print("  " + _wire_times(f"quick start {quick['id']} (async client)", quick["first_s"],
+                             quick["summary"]), flush=True)
+    for j in (job, qjob):
+        print("  " + _job_times("net", j), flush=True)
+    print(f"net (a): config3 (100x100, {CONFIG3_ROWS} rows, {ENGINE_ITERATIONS} iterations on "
+          f"the block) over the wire, tenant 'lab' from its token: {len(frames)} frames pushed "
+          f"equal to the pulled ones, a subscription from index 1 got the {len(suffix)}-frame "
+          f"suffix, the last frame equal to phase 9 (b)'s seed-0 lane bit for bit (num_evals "
+          f"{last.num_evals:.0f}); beside it the async client's quick start "
+          f"({len(quick['frames'])} frames); an unknown token refused at its hello; launches B1 {counts[0]}, "
+          f"B2 {counts[1]} (config3 {st[0]['grad_calls']}), B3 by worker {launches}", flush=True)
+    return sum(launches.values())
+
+
+def net_wire_faults(device, srv, nsrv):
+    """Phase 12 (b): ``torn_frame@1;net_drop@3`` armed in this process while
+    one stream runs at the quick start's size: the client gets every frame
+    exactly once, equal to the server's, after at least two reconnects, and
+    both faults fired. Returns its B3 launches."""
+    from symbolicregression_jl_tpu_torch.serve import DONE, JobSpec
+    from symbolicregression_jl_tpu_torch.utils import faults
+
+    Xq, yq, oq = _quick_start_problem(device, 1)
+    faults.install(NET_FAULTS)
+    try:
+        with _block_launches() as b3, _client(nsrv.port) as cli:
+            jid = cli.submit(JobSpec(Xq, yq, options=oq, niterations=NET_FAULT_ITERATIONS,
+                                     label="wire faults"))
+            frames = list(cli.iter_frames(jid, timeout=600))
+            summary = cli.wait(jid, timeout=600)
+            reconnects, st = cli.reconnects, cli.stream_state(jid)
+            launches = sum(rec[0] for rec in b3.values())
+    finally:
+        faults.install(None)
+    stored = srv.frames(jid)
+    net_faults = nsrv.net_stats()["net_faults"]
+    if summary["state"] != DONE or frames != stored or len(frames) != NET_FAULT_ITERATIONS + 1:
+        _fail(f"net (b): {summary['state']}, {len(frames)} frames delivered for "
+              f"{len(stored)} stored (equal: {frames == stored})")
+    if reconnects < 2 or net_faults != 2 or st.next_index != len(stored):
+        _fail(f"net (b): {reconnects} reconnects, {net_faults} wire faults, cursor "
+              f"{st.next_index}")
+    if launches != NET_FAULT_ITERATIONS:
+        _fail(f"net (b): {launches} B3 launches in {NET_FAULT_ITERATIONS} iterations")
+    print(f"net (b): {NET_FAULTS} on a quick-start stream: {len(frames)} frames each delivered "
+          f"once, equal to the server's, after {reconnects} reconnects ({net_faults} wire "
+          f"faults, {st.dup_dropped} replayed duplicates dropped); B3 {launches}", flush=True)
+    return launches
+
+
+def net_subscription(device, srv, nsrv, rows=(8000, 10_000), bucket=10_240, seed=0):
+    """Phase 12 (d): a subscription on config3's first ``rows[0]`` rows
+    (``row_bucket=10_240``, the block) submitted over the wire; rows
+    ``rows[0]``-``rows[1] - 1`` pushed over the wire after its first frame;
+    once they are resident and a frame made after that has reached the
+    client, a cancel over the wire: DONE, cancelled, B3 once per block
+    iteration, no kernel built. Returns its B3 launches."""
+    from symbolicregression_jl_tpu_torch.ops import interp_cuda
+    from symbolicregression_jl_tpu_torch.serve import DONE, JobSpec
+
+    n0, n1 = rows
+    X, y = config3_data(n_rows=n1)
+    builds = {k: v["library"] for k, v in interp_cuda.BUILD_INFO.items()}
+    with _block_launches() as b3, _client(nsrv.port) as cli:
+        t0 = time.perf_counter()
+        jid = cli.submit(JobSpec(X[:, :n0], y[:n0],
+                                 options=_config3_options(device, seed, warmup_maxsize_by=0.0),
+                                 kind="subscription", stream_config={"row_bucket": bucket}))
+        stream = cli.iter_frames(jid, timeout=600)
+        if next(stream, None) is None:
+            _fail("net (d): no first frame")
+        first_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        cli.push_rows(jid, X[:, n0:], y[n0:])
+        push_s = time.perf_counter() - t1
+        job = srv.job(jid)
+        deadline = time.monotonic() + 600
+        while job.session.stats.rows != n1:
+            if time.monotonic() > deadline or job.terminal:
+                _fail(f"net (d): {job.summary()}")
+            time.sleep(0.01)
+        resident_at, got = len(srv.frames(jid)), 1
+        while got <= resident_at:
+            if next(stream, None) is None:
+                _fail(f"net (d): the stream ended before a frame after the push: {job.summary()}")
+            got += 1
+        cli.cancel(jid)
+        summary = cli.wait(jid, timeout=600)
+        got += len(list(stream))
+        launches = sum(rec[0] for rec in b3.values())
+    st = job.session.stats
+    if summary["state"] != DONE or summary["stop_reason"] != "cancelled" or (
+            got != summary["frames"]):
+        _fail(f"net (d): {summary}, {got} frames delivered")
+    if launches != st.iterations or st.recompile_events or job.session._lane.block_mode != "kernel":
+        _fail(f"net (d): {launches} B3 launches in {st.iterations} iterations, {st.summary()}")
+    if {k: v["library"] for k, v in interp_cuda.BUILD_INFO.items()} != builds:
+        _fail("net (d): a kernel was built")
+    print("  " + _wire_times(f"subscription {jid}", first_s, summary), flush=True)
+    print(f"net (d): subscription on {n0} rows (bucket {bucket}, the block) over the wire, "
+          f"{n1 - n0} rows pushed over the wire ({push_s * 1e3:.3f} ms round trip) after the "
+          f"first frame, {got - 1 - resident_at} frame(s) after they were resident, cancelled: "
+          f"DONE with {got} frames, {st.iterations} iterations, B3 {launches}, no kernel "
+          "built", flush=True)
+    return launches
+
+
+# (c)'s server child: the port only (it imports nothing of JAX), one worker,
+# a journal and a spool snapshot every 0.05 s, on a fixed port. It prints
+# READY with its start-up times; on SIGTERM it prints the kernel libraries it
+# loaded and whether any JAX module was imported, and exits.
+_NET_CHILD = """
+import json, os, signal, sys, time
+t0 = time.perf_counter()
+sys.path.insert(0, {root!r})
+from symbolicregression_jl_tpu_torch.ops import interp_cuda
+from symbolicregression_jl_tpu_torch.serve import NetServer, SearchServer
+from symbolicregression_jl_tpu_torch.serve.journal import JobJournal
+import_s = time.perf_counter() - t0
+spent = {{"replay": 0.0, "adopt": 0.0}}
+
+def timed(cls, name, key):
+    real = getattr(cls, name)
+
+    def run(*args, **kwargs):
+        s = time.perf_counter()
+        try:
+            return real(*args, **kwargs)
+        finally:
+            spent[key] += time.perf_counter() - s
+
+    setattr(cls, name, run)
+
+timed(JobJournal, "replay", "replay")
+timed(SearchServer, "_adopt_checkpoint", "adopt")
+jdir, port = sys.argv[1], int(sys.argv[2])
+s = time.perf_counter()
+srv = SearchServer(max_concurrency=1, journal_dir=jdir, ckpt_every_s=0.05).start()
+net = NetServer(srv, port=port).start()
+ready = dict(import_s=import_s, server_s=time.perf_counter() - s, replay_s=spent["replay"],
+             adopt_s=spent["adopt"], recovered=dict(srv._recovered))
+
+def stop(signum, frame):
+    libs = {{k: v["library"] for k, v in interp_cuda.BUILD_INFO.items()}}
+    jax = any(m == "jax" or m.startswith(("jax.", "symbolicregression_jl_tpu."))
+              for m in sys.modules)
+    print("STOPPED " + json.dumps(dict(libraries=libs, jax=jax)), flush=True)
+    os._exit(0)
+
+signal.signal(signal.SIGTERM, stop)
+print("READY " + json.dumps(ready), flush=True)
+while True:
+    time.sleep(3600)
+"""
+
+
+class _Child:
+    """One server child of (c): its process, and a thread draining its
+    output (stdout and stderr) into a queue of lines."""
+
+    def __init__(self, script, jdir, port, env):
+        import queue
+        import threading
+
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, script, jdir, str(port)],
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                     text=True, env=env, cwd=os.path.dirname(script))
+        self.lines, self.log = queue.Queue(), []
+        threading.Thread(target=self._drain, daemon=True).start()
+
+    def _drain(self):
+        for line in self.proc.stdout:
+            self.lines.put(line)
+        self.lines.put(None)
+
+    def expect(self, prefix, timeout):
+        """The JSON after the first output line starting with ``prefix``;
+        fails the smoke if the child exits or says nothing so in time."""
+        import json
+        import queue
+
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                line = self.lines.get(timeout=max(0.0, deadline - time.monotonic()))
+            except queue.Empty:
+                line = ""
+            if line is None or line == "":
+                _fail(f"net (c): the server child gave no {prefix.strip()} (exit code "
+                      f"{self.proc.poll()}); its last lines:\n" + "".join(self.log[-30:]))
+            if line.startswith(prefix):
+                return json.loads(line[len(prefix):])
+            self.log.append(line)
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=60)
+
+
+def _check_child_builds(stopped, parent_builds):
+    """The restarted child ran the card's kernels (B1 and B3 loaded) from
+    the libraries phase 1 built, and imported nothing of JAX."""
+    libs = stopped["libraries"]
+    if stopped["jax"] or not {"fused_loss", "evolve_block"} <= set(libs) or any(
+            parent_builds.get(k) != v for k, v in libs.items()):
+        _fail(f"net (c): the restarted child loaded {libs} (phase 1 built {parent_builds}); "
+              f"a JAX module imported: {stopped['jax']}")
+
+
+def net_kill_recover(device):
+    """Phase 12 (c), kill and recover over the wire: a server child on a
+    fixed port with a journal runs two quick-start jobs and a config3-width
+    job of NET_LONG_ITERATIONS iterations on the card; one client is closed
+    mid-stream; once the long job has NET_KILL_AT iterations and a spool
+    snapshot, the child is SIGKILLed and restarted on the same port and
+    journal with ``torn_frame@1;net_drop@3`` armed. The surviving client's
+    stream resumes across the new boot: the three jobs end DONE, the long
+    one resumed from its snapshot, one boot change, no duplicate, the replay
+    exact, at least three reconnects and both faults fired. The restarted
+    child builds no kernel and imports nothing of JAX. The children's
+    launches are their own processes' and are not counted. Returns a dict
+    of the times printed."""
+    import glob
+    import signal
+    import socket
+    import tempfile
+
+    from symbolicregression_jl_tpu_torch.ops import interp_cuda
+    from symbolicregression_jl_tpu_torch.serve import DONE, JobSpec
+    from symbolicregression_jl_tpu_torch.serve.net import ConnectionLost
+
+    Xn, yn = config3_data()
+    shorts_args = [_quick_start_problem(device, 2 + i) for i in range(2)]
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    built = sorted((p.name, p.stat().st_mtime_ns) for p in interp_cuda.BUILD_DIR.glob("*.so"))
+    parent_builds = {k: v["library"] for k, v in interp_cuda.BUILD_INFO.items()}
+    children = []
+    with tempfile.TemporaryDirectory() as d:
+        script = os.path.join(d, "net_child.py")
+        with open(script, "w") as f:
+            f.write(_NET_CHILD.format(root=os.path.dirname(os.path.abspath(__file__))))
+        jdir = os.path.join(d, "journal")
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("SR_FAULT_SPEC", "SR_ENGINE_BLOCK")}
+        try:
+            children.append(_Child(script, jdir, port, env))
+            boot1 = children[-1].expect("READY ", 300)
+            ready1_s = time.perf_counter() - children[-1].t0
+            doomed = _client(port, auto_reconnect=False)
+            shorts = [doomed.submit(JobSpec(X, y, options=o, niterations=2, label="short"))
+                      for X, y, o in shorts_args]
+            t_long = time.perf_counter()
+            long_id = doomed.submit(JobSpec(Xn, yn, options=_config3_options(device, 0),
+                                            niterations=NET_LONG_ITERATIONS, label="long"))
+            cli = _client(port, reconnect_deadline_s=300.0)
+            st = cli.subscribe(long_id)
+            # one client closed mid-stream: no unsubscribe, no goodbye
+            it = doomed.iter_frames(long_id, timeout=600)
+            got = [next(it), next(it)]
+            doomed.close()
+            cli.ping()
+            if got != cli.frames(long_id, 0)[:len(got)]:
+                _fail("net (c): the closed client's frames are not a prefix of the stored ones")
+            for jid in shorts:
+                if cli.wait(jid, timeout=600)["state"] != DONE:
+                    _fail(f"net (c): short job {jid} not DONE")
+            spool = os.path.join(jdir, "spool", long_id + ".engine.*")
+            deadline = time.monotonic() + 600
+            while not (cli.status(long_id)["iterations_done"] >= NET_KILL_AT
+                       and glob.glob(spool)):
+                if time.monotonic() > deadline:
+                    _fail("net (c): the long job never reached mid-run with a spool snapshot")
+                time.sleep(0.05)
+            killed_at = cli.status(long_id)["iterations_done"]
+            children[-1].proc.send_signal(signal.SIGKILL)
+            children[-1].proc.wait(timeout=60)
+            restart = _Child(script, jdir, port, {**env, "SR_FAULT_SPEC": NET_FAULTS})
+            children.append(restart)
+            boot2 = restart.expect("READY ", 300)
+            ready2_s = time.perf_counter() - restart.t0
+            deadline = time.monotonic() + 600
+            while (terminal := cli.terminal_summary(long_id)) is None:
+                if time.monotonic() > deadline:
+                    _fail(f"net (c): no terminal push for the recovered long job (reconnects "
+                          f"{cli.reconnects}, boots {st.boots})")
+                time.sleep(0.05)
+            long_wall_s = time.perf_counter() - t_long
+            for jid in shorts:
+                summary = None
+                for _ in range(3):  # a fault may cut a request in flight
+                    try:
+                        summary = cli.status(jid)
+                        break
+                    except (ConnectionLost, KeyError):
+                        time.sleep(0.5)
+                if summary is None or summary["state"] != DONE:
+                    _fail(f"net (c): short job {jid} lost across the restart: {summary}")
+            stats = cli.stats()
+            stored = cli.frames(long_id, 0)
+            reconnects = cli.reconnects
+            cli.close()
+            restart.proc.send_signal(signal.SIGTERM)
+            stopped = restart.expect("STOPPED ", 60)
+        finally:
+            for child in children:
+                child.stop()
+    if terminal["state"] != DONE or not terminal.get("resumed_from_iteration"):
+        _fail(f"net (c): the recovered long job: {terminal}")
+    if stats["server"]["jobs"] != {"done": 3}:
+        _fail(f"net (c): the recovered server's jobs {stats['server']['jobs']}")
+    if st.boots != 1 or st.dup_dropped != 0 or st.next_index != len(stored) or (
+            st.frames[-len(stored):] != stored):
+        _fail(f"net (c): boots {st.boots}, duplicates {st.dup_dropped}, cursor {st.next_index} "
+              f"for {len(stored)} stored frames (replay exact: "
+              f"{st.frames[-len(stored):] == stored})")
+    if reconnects < 3 or stats["net"]["net_faults"] != 2:
+        _fail(f"net (c): {reconnects} reconnects, wire faults {stats['net']['net_faults']}")
+    _check_child_builds(stopped, parent_builds)
+    if sorted((p.name, p.stat().st_mtime_ns)
+              for p in interp_cuda.BUILD_DIR.glob("*.so")) != built:
+        _fail("net (c): a kernel library was built or rewritten")
+    times = dict(ready1_s=ready1_s, ready2_s=ready2_s, replay_s=boot2["replay_s"],
+                 adopt_s=boot2["adopt_s"], long_wall_s=long_wall_s)
+    print(f"net (c): server child READY in {ready1_s:.3f} s (imports {boot1['import_s']:.3f} s, "
+          f"server {boot1['server_s'] * 1e3:.3f} ms); SIGKILLed with the long job at iteration "
+          f"{killed_at}; restarted with {NET_FAULTS}: READY in {ready2_s:.3f} s (imports "
+          f"{boot2['import_s']:.3f} s, server {boot2['server_s'] * 1e3:.3f} ms, journal replay "
+          f"{boot2['replay_s'] * 1e3:.3f} ms, spool adoption {boot2['adopt_s'] * 1e3:.3f} ms, "
+          f"recovered {boot2['recovered']})", flush=True)
+    print(f"net (c): 3 of 3 jobs DONE; the long job (config3 width, {NET_LONG_ITERATIONS} "
+          f"iterations) resumed from iteration {terminal['resumed_from_iteration']}, submit to "
+          f"its terminal push {long_wall_s:.3f} s; the stream: {len(st.frames)} frames over two "
+          f"boots, {len(stored)} stored after the restart, replay exact, boots {st.boots}, "
+          f"duplicates {st.dup_dropped}, reconnects {reconnects}, wire faults "
+          f"{stats['net']['net_faults']}; the restarted child loaded "
+          f"{sorted(stopped['libraries'])} and built none; the children's launches are their "
+          "own processes' and are not counted", flush=True)
+    jr = stats["server"]["journal"]
+    print(f"net (c) the restarted server's stats: jobs {stats['server']['jobs']}, journal "
+          f"appended {jr['appended']}, records {jr['records']}, rotations {jr['rotations']}, "
+          f"torn bytes truncated {jr['torn_bytes_truncated']}, recovered {jr['recovered']}; "
+          f"net {json.dumps(stats['net'])}", flush=True)
+    return times
+
+
+def net_path(device, ref, smi):
+    """Phase 12: the network front door. ``ref``: phase 9 (b)'s seed-0 lane.
+    (a), (b) and (d) on one ``SearchServer(max_concurrency=2)`` behind a
+    ``NetServer`` with a token, in this process, between ``zero_launches``
+    and ``read_launches``; (c) in server children. Returns its (B1, B2, B3,
+    B4) launches, the path "net"."""
+    from symbolicregression_jl_tpu_torch.serve import NetServer, SearchServer
+
+    t0 = time.perf_counter()
+    zero_launches()
+    with engine_block_env(True), SearchServer(max_concurrency=2) as srv, NetServer(
+            srv, port=0, tokens=NET_TOKENS) as nsrv:
+        b3 = net_config3(device, srv, nsrv, ref)
+        b3 += net_wire_faults(device, srv, nsrv)
+        b3 += net_subscription(device, srv, nsrv)
+        stats, net_stats = srv.stats(), nsrv.net_stats()
+    counts = read_launches()
+    if counts[2] != b3 or not (counts[0] and counts[1]) or counts[3]:
+        _fail(f"net: launches B1, B2, B3, B4 {counts} (B3 counted per part: {b3})")
+    net_kill_recover(device)
+    print(f"net stats (a)/(b)/(d): server jobs {stats['jobs']}; net {json.dumps(net_stats)}",
+          flush=True)
+    print(f"net phase: {time.perf_counter() - t0:.3f} s on {smi}; launches B1 {counts[0]}, "
+          f"B2 {counts[1]}, B3 {counts[2]}, B4 {counts[3]}", flush=True)
+    return counts
+
+
 def build_from_two_threads():
     """Phase 1's build, asked for by two threads at once (a server's workers
     reaching the kernels first together): ``build_all`` serializes them, so
@@ -3146,6 +3704,7 @@ def main() -> int:
         rec["max_abs_err"] = max(rec["max_abs_err"], stream_errs[rec["name"]])
     paths["serve"], serve_b3_err = serve_path(device, multitarget)
     b3["max_abs_err"] = max(b3["max_abs_err"], serve_b3_err)
+    paths["net"] = net_path(device, multitarget[0], smi)
     for i, rec in enumerate((b1, b2, b3, b4)):
         rec["launches_by_path"] = {path: counts[i] for path, counts in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())

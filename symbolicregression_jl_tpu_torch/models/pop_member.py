@@ -124,3 +124,9 @@ class PopMember:
             f"PopMember(loss={self.loss:.4g}, score={self.score:.4g}, "
             f"complexity={self.complexity}, birth={self.birth})"
         )
+
+
+def scored_member(tree: Node, score, loss, options, parent: int = -1) -> PopMember:
+    m = PopMember(tree, score, loss, parent=parent)
+    m.get_complexity(options)
+    return m

@@ -1,5 +1,5 @@
 """SR-as-a-service on one card: multi-tenant search serving (the JAX
-package's ``serve/``, without ``pod`` and ``net``, which come later).
+package's ``serve/``, without ``pod``, which comes with slice 4).
 
 - ``program_cache`` — the unified, thread-safe, capacity-bounded LRU of what
   the port keeps on the card across searches (dataset uploads, operator
@@ -13,9 +13,22 @@ package's ``serve/``, without ``pod`` and ``net``, which come later).
 - ``journal`` — ``JobJournal``: the opt-in write-ahead log behind
   ``SearchServer(journal_dir=...)`` crash recovery, retries, and the
   QUARANTINED poison-job state.
+- ``net`` — the network front door: ``NetServer`` (CRC-framed wire
+  protocol over asyncio, auth-token→tenant, retryable overload shed)
+  and the ``SRClient``/``AsyncSRClient`` SDK with reconnect +
+  resume-from-frame-index streaming.
 """
 
 from .journal import JobJournal
+from .net import (
+    AsyncSRClient,
+    ConnectionLost,
+    NetError,
+    NetServer,
+    RetryableWireError,
+    SRClient,
+    WireError,
+)
 from .program_cache import (
     ProgramCache,
     enable_persistent_compilation_cache,
@@ -52,6 +65,13 @@ __all__ = [
     "JobJournal",
     "SearchServer",
     "ServerOverloaded",
+    "NetServer",
+    "SRClient",
+    "AsyncSRClient",
+    "NetError",
+    "WireError",
+    "RetryableWireError",
+    "ConnectionLost",
     "shape_bucket",
     "options_digest",
     "bucket_digest",

@@ -11,7 +11,7 @@ tensors (see ops/flat.py) before any math happens.
 
 from __future__ import annotations
 
-from typing import Iterator
+from typing import Callable, Iterator
 
 import numpy as np
 
@@ -158,6 +158,44 @@ class Node:
     def has_constants(self) -> bool:
         return any(n.degree == 0 and n.is_const for n in self)
 
+    def has_operators(self) -> bool:
+        return self.degree > 0
+
+    # -- structural equality & hashing --------------------------------------
+
+    def same_structure(self, other: "Node") -> bool:
+        """Exact equality including constant values (``!=`` on the values,
+        so a NaN constant equals nothing and ``-0.0`` equals ``0.0``)."""
+        a, b = self.postorder(), other.postorder()
+        if len(a) != len(b):
+            return False
+        for x, y in zip(a, b):
+            if x.degree != y.degree:
+                return False
+            if x.degree == 0:
+                if x.is_const != y.is_const:
+                    return False
+                if x.is_const:
+                    if x.val != y.val:
+                        return False
+                elif x.feat != y.feat:
+                    return False
+            elif x.op != y.op:
+                return False
+        return True
+
+    def structure_key(self) -> tuple:
+        """Hashable identity of the tree, constant values included: one
+        tuple per node in postorder (the JAX package's key, element for
+        element)."""
+        out = []
+        for n in self.postorder():
+            if n.degree == 0:
+                out.append((0, n.is_const, n.val if n.is_const else n.feat))
+            else:
+                out.append((n.degree, n.op))
+        return tuple(out)
+
     # -- evaluation on host (golden path; tests + tiny utilities) ------------
 
     def eval_np(self, X: np.ndarray, opset: OperatorSet) -> np.ndarray:
@@ -252,3 +290,23 @@ def unary(op: int, child: Node) -> Node:
 
 def binary(op: int, left: Node, right: Node) -> Node:
     return Node(2, op=int(op), l=left, r=right)
+
+
+def map_tree(node: Node, fn: Callable[[Node], Node | None]) -> Node:
+    """Apply fn to every node of a copy; fn may return a replacement node.
+
+    The node list is snapshotted before mutation, so replacements that embed
+    the visited node in a new subtree are not themselves re-visited.
+    """
+    new = node.copy()
+    for n in list(new):
+        repl = fn(n)
+        if repl is not None and repl is not n:
+            n.degree = repl.degree
+            n.is_const = repl.is_const
+            n.val = repl.val
+            n.feat = repl.feat
+            n.op = repl.op
+            n.l = repl.l
+            n.r = repl.r
+    return new

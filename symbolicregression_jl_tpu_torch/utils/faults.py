@@ -2,13 +2,20 @@
 
 Copy of ``symbolicregression_jl_tpu/utils/faults.py``: the grammar, the 18
 sites and the injector are the same, so a spec parses to the same rules in
-both packages. The port consults four of the sites so far: ``peer_death``
-and ``nan_flood`` in the lockstep scheduler (``search.py``) and in the
-device engine (``models/device_search.py``), ``ckpt_crash`` and
-``disk_full`` in the checkpoint writer (``utils/checkpoint.py``). The other
-14 come with the modules that consult them (ROADMAP.md, A: slice 4 for the
-exchange and membership sites, slice 5 for the serve, net and fleet
-sites); until then a rule naming one of them parses and never fires.
+both packages. The port consults 13 of the sites: ``peer_death`` and
+``nan_flood`` in the lockstep scheduler (``search.py``) and in the device
+engine (``models/device_search.py``); ``ckpt_crash`` and ``disk_full`` in
+the checkpoint writer (``utils/checkpoint.py``), ``disk_full`` and
+``journal_torn_write`` in the serve journal (``serve/journal.py``);
+``worker_crash``, ``job_exception``, ``stall`` and ``clock_skew`` (through
+:func:`skewed_time`, the heartbeat and the stall watchdog) in the server
+(``serve/server.py``); ``oom_compile`` in the program cache
+(``serve/program_cache.py``); ``torn_frame`` and ``net_drop`` in the
+network server's writer (``serve/net/server.py``) and ``slow_client`` in
+the SDK's reader (``serve/net/client.py``). The other five,
+``exchange_timeout``, ``peer_join``, ``kv_flap``, ``slow_peer`` and
+``kv_partition``, come with the exchange and membership modules (ROADMAP.md,
+A: slice 4); until then a rule naming one of them parses and never fires.
 
 Production-scale searches on preemptible pods die in specific, reproducible
 ways: a peer stops posting to the per-iteration exchange, a host is killed

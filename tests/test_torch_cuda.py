@@ -1026,3 +1026,35 @@ def test_server_coalesced_fleet_on_the_card(cuda, monkeypatch, block):
     for job, w in zip(jobs, want):
         assert job.result.engine_stats["fleet"]["lanes"] == 2
         assert _frontier(job.result) == _frontier(w) and job.result.num_evals == w.num_evals
+
+
+@pytest.mark.parametrize("block", [True, False], ids=["block", "event"])
+def test_wire_job_on_the_card(cuda, monkeypatch, block):
+    """A job submitted and streamed through ``NetServer`` and ``SRClient``
+    runs on the card: its last pushed frame holds the frontier and num_evals
+    of its direct run bit for bit, the pushed frames equal the pulled ones,
+    and on the block B3 runs once per iteration."""
+    from symbolicregression_jl_tpu_torch import equation_search
+    from symbolicregression_jl_tpu_torch.complexity import compute_complexity
+    from symbolicregression_jl_tpu_torch.ops.evolve_block_cuda import evolve_block
+    from symbolicregression_jl_tpu_torch.serve import JobSpec, NetServer, SearchServer, SRClient
+
+    if block:
+        monkeypatch.delenv("SR_ENGINE_BLOCK", raising=False)
+    else:
+        monkeypatch.setenv("SR_ENGINE_BLOCK", "0")
+    X, y, opts = _quick_engine()
+    want = equation_search(X, y, options=opts, niterations=2, verbosity=0)
+    b3 = evolve_block.launches
+    with SearchServer(max_concurrency=1) as srv, NetServer(srv, port=0) as net, \
+            SRClient("127.0.0.1", net.port) as cli:
+        jid = cli.submit(JobSpec(X, y, options=opts, niterations=2))
+        frames = list(cli.iter_frames(jid, timeout=300))
+        assert cli.wait(jid, timeout=300)["state"] == "done"
+        assert cli.frames(jid) == frames and len(frames) == 3
+        assert srv.job(jid).result.engine_stats["block"] == ("kernel" if block else None)
+    assert evolve_block.launches - b3 == (2 if block else 0)
+    last = cli.decode_frame(frames[-1])
+    got = [(compute_complexity(m.tree, opts), m.loss,
+            m.tree.string_tree(opts.operators, precision=17)) for m in last.members]
+    assert got == _frontier(want) and last.num_evals == want.num_evals

@@ -61,13 +61,6 @@ TIMEOUT = 300
 _UNPORTED = {
     "PodNode": "slice 4: serve/pod.py",
     "PodClient": "slice 4: serve/pod.py",
-    "NetServer": "slice 5: serve/net/",
-    "SRClient": "slice 5: serve/net/",
-    "AsyncSRClient": "slice 5: serve/net/",
-    "NetError": "slice 5: serve/net/",
-    "WireError": "slice 5: serve/net/",
-    "RetryableWireError": "slice 5: serve/net/",
-    "ConnectionLost": "slice 5: serve/net/",
 }
 
 
