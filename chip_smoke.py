@@ -159,12 +159,32 @@ JAX or of the JAX package. Phases, each of which raises on failure:
    on config3's rows 0-7,999, rows 8,000-9,999 pushed and a cancel, all over
    the wire: DONE, cancelled, B3 once per block iteration, no kernel built.
    The launches of (a), (b) and (d) are the path ``net``; the children's
-   are not counted.
+   are not counted;
+13. ``features``, the slice-2 features at config3 width: (a) 4,200 random
+   config3 programs on 10,000 rows: a weighted-MSE full objective through
+   B4 (``objective_losses``) against B1, and B2's seeded mode (B2v,
+   ``preds_vjp``, the objective's gradient) against its plain version on a
+   random seed (also at 1024 x 50 rows and with unsound rows), then both
+   timed; (b) config3 under the objective 1 - corr(preds, y)^2 on the
+   device engine for ENGINE_ITERATIONS x ENGINE_CYCLES (the event leg, the
+   first evolve leg with host syncs made errors, the last const-opt leg
+   traced for its idle share) and on lockstep for 1 x
+   FEATURES_LOCKSTEP_CYCLES: B4 launches equal the scoring calls (plus, on
+   the engine, one forward per gradient call), B2v the engine's gradient
+   calls, no B1, B2 or B3, and every frontier member's
+   loss is the objective of its decoded tree; (c) config3 on lockstep with
+   ``graph_nodes=True``: the rows that carried sharing, 0 unsound rows
+   after re-pointing, and B1 on the re-pointed programs against the plain
+   version on the raw ones; (d) the planted complex64 equation at 10,000
+   rows on lockstep on the card to JAX's 1e-2 bar, every complex operator
+   on the card against the CPU, ``SRRegressor.predict`` on a complex X.
+   Its launches are the paths ``objective device``, ``objective
+   lockstep``, ``graph nodes`` and ``complex``.
 
 Every launch count in the kernels line is measured: each path sets the
-counts of B1-B4 to 0 just before it runs and reads all four just after
-(``zero_launches``, ``read_launches``); launches that hold a kernel against
-its plain version are not counted.
+counts of B1-B4 and B2v to 0 just before it runs and reads all five just
+after (``zero_launches``, ``read_launches``); launches that hold a kernel
+against its plain version are not counted.
 
 The last lines are the kernels JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}`` (``count`` is the number of cards the
@@ -212,6 +232,13 @@ DEVICE_QUICKSTART_ITERATIONS = 3
 RESUME_ITERATIONS, RESUME_CYCLES = 3, 10
 # the fleet phase's kernel check: lanes of one lane-axis launch
 FLEET_CHECK_LANES = 3
+# phase 13 (features), cut in depth only, to keep the phase under 90 s: the
+# lockstep runs of (b) and (c) at config3 width take 1 iteration of
+# FEATURES_LOCKSTEP_CYCLES cycles (of the 550; at phase 4's 100 the phase
+# took 96 s on one host); (d)'s complex search stops at JAX's 1e-2 bar or
+# after COMPLEX_ITERATIONS iterations (seed COMPLEX_SEED)
+FEATURES_LOCKSTEP_CYCLES = 50
+COMPLEX_ITERATIONS, COMPLEX_SEED = 8, 0
 
 # H100 SXM peaks (NVIDIA data sheet; at the 700 W power limit)
 PEAK_F32_FLOPS = 67e12
@@ -1307,7 +1334,7 @@ def engine_path(device, lockstep=None, block=True, iterations=ENGINE_ITERATIONS,
             counts = read_launches()
     finally:
         ds._DISPATCH_HOOK, ds._LEG_WRAP = saved
-    b1, b2, b3, _ = counts
+    b1, b2, b3 = counts[:3]
     st = res.engine_stats
     leg_name = "block" if block else "event leg"
     if not res.use_kernel:
@@ -1563,7 +1590,7 @@ def resume_engine(device, tmp, iterations=4, cycles=ENGINE_CYCLES, rows=CONFIG3_
         finally:
             ds._decode_state_populations = decode
         counts = read_launches()
-    b1, b2, b3, _ = counts
+    b1, b2, b3 = counts[:3]
     st = res.engine_stats
     ck_best = min(m.loss for m in ck.pareto_frontier)
     best = min(m.loss for m in res.pareto_frontier)
@@ -1634,30 +1661,31 @@ OPTIONS_ITERATIONS, OPTIONS_CYCLES = 3, 100
 
 def _kernel_wrappers():
     """The wrappers that count their kernel's launches (``.launches``), in
-    the kernels line's order: B1, B2, B3, B4."""
+    the kernels line's order: B1, B2, B3, B4 and B2's seeded mode (B2v,
+    ``preds_vjp``)."""
     from symbolicregression_jl_tpu_torch.ops.evolve_block_cuda import evolve_block
     from symbolicregression_jl_tpu_torch.ops.interp_cuda import (
-        eval_trees_kernel, fused_loss, fused_loss_grad,
+        eval_trees_kernel, fused_loss, fused_loss_grad, preds_vjp,
     )
 
-    return fused_loss, fused_loss_grad, evolve_block, eval_trees_kernel
+    return fused_loss, fused_loss_grad, evolve_block, eval_trees_kernel, preds_vjp
 
 
 def zero_launches():
-    """Set the launch counts of B1-B4 to 0, just before a path runs."""
+    """Set the launch counts of B1-B4 and B2v to 0, just before a path runs."""
     for w in _kernel_wrappers():
         w.launches = 0
 
 
 def read_launches():
-    """(B1, B2, B3, B4) launches since ``zero_launches``, just after a path
-    ran: every count in the kernels line is one of these."""
+    """(B1, B2, B3, B4, B2v) launches since ``zero_launches``, just after a
+    path ran: every count in the kernels line is one of these."""
     return tuple(w.launches for w in _kernel_wrappers())
 
 
 def _counted(run):
-    """Run ``run()`` with the launch counts of B1-B4 set to 0 just before;
-    returns (its result, B1, B2, B3, B4 launches)."""
+    """Run ``run()`` with the launch counts of B1-B4 and B2v set to 0 just
+    before; returns (its result, B1, B2, B3, B4, B2v launches)."""
     zero_launches()
     out = run()
     return (out, *read_launches())
@@ -1696,7 +1724,7 @@ def options_profile(device, block_run_s, iterations=ENGINE_ITERATIONS, cycles=EN
         return equation_search(X, y, options=options, niterations=iterations, verbosity=0)
 
     with engine_block_env(True):
-        res, b1, b2, b3, b4 = _counted(lambda: run(profile=True))
+        res, b1, b2, b3, b4, b2v = _counted(lambda: run(profile=True))
         plain = run(async_readback=False)
     _check_engine_launches("profile", res, b1, b2, b3, block=True)
     prof = res.engine_profile
@@ -1724,7 +1752,7 @@ def options_profile(device, block_run_s, iterations=ENGINE_ITERATIONS, cycles=EN
           + f"; overhead {walls['profiled'] / walls['unprofiled, synchronous readback'] - 1:.2%}"
           f" against the synchronous run; frontiers of the profiled and unprofiled runs equal "
           f"({len(res.pareto_frontier)} members); B1 {b1}, B2 {b2}, B3 {b3}", flush=True)
-    return b1, b2, b3, b4
+    return b1, b2, b3, b4, b2v
 
 
 def options_units(device, iterations=OPTIONS_ITERATIONS, cycles=OPTIONS_CYCLES):
@@ -1756,7 +1784,7 @@ def options_units(device, iterations=OPTIONS_ITERATIONS, cycles=OPTIONS_CYCLES):
                           ncycles_per_iteration=cycles, seed=0, save_to_file=False,
                           progress=False, device=device.type, scheduler=scheduler)
         t0 = time.perf_counter()
-        res, b1, b2, b3, b4 = _counted(lambda: equation_search(
+        res, b1, b2, b3, b4, b2v = _counted(lambda: equation_search(
             X, y, options=options, niterations=iterations, verbosity=0, X_units=UNITS_X,
             y_units=UNITS_Y))
         wall = time.perf_counter() - t0
@@ -1795,7 +1823,7 @@ def options_units(device, iterations=OPTIONS_ITERATIONS, cycles=OPTIONS_CYCLES):
                      f"{st['device_seconds'].get('const_opt', 0.0) / iterations * 1e3:.3f} ms "
                      f"per iteration")
         print(line, flush=True)
-        out[scheduler] = (b1, b2, b3, b4)
+        out[scheduler] = (b1, b2, b3, b4, b2v)
     return out
 
 
@@ -1859,7 +1887,7 @@ def options_recorder(device, tmp, iterations=3, cycles=None):
     ds._LEG_WRAP = sync_free
     t0 = time.perf_counter()
     try:
-        res, b1, b2, b3, b4 = _counted(lambda: equation_search(
+        res, b1, b2, b3, b4, b2v = _counted(lambda: equation_search(
             X.T, y, options=options, niterations=iterations, verbosity=0))
     finally:
         device_recorder.EngineLineageReplay.snapshot_populations, ds._LEG_WRAP = saved
@@ -1884,7 +1912,7 @@ def options_recorder(device, tmp, iterations=3, cycles=None):
           f"{sum(e['type'] == 'death' for e in events)} deaths, "
           f"{sum(e['type'] == 'tuning' for e in events)} tunings; B1 {b1}, B2 {b2}, B3 {b3}",
           flush=True)
-    return b1, b2, b3, b4
+    return b1, b2, b3, b4, b2v
 
 
 def options_neldermead(device, iterations=3, cycles=None):
@@ -1904,7 +1932,7 @@ def options_neldermead(device, iterations=3, cycles=None):
                       scheduler="device", optimizer_algorithm="NelderMead", **readme)
     t0 = time.perf_counter()
     with engine_block_env(True):
-        res, b1, b2, b3, b4 = _counted(lambda: equation_search(
+        res, b1, b2, b3, b4, b2v = _counted(lambda: equation_search(
             X.T, y, options=options, niterations=iterations, verbosity=0))
     wall = time.perf_counter() - t0
     _check_engine_launches("neldermead", res, b1, b2, b3, block=True)
@@ -1920,13 +1948,13 @@ def options_neldermead(device, iterations=3, cycles=None):
           f"iteration on the device; best loss {best.loss:.6g}: "
           f"{best.tree.string_tree(options.operators)}; B1 {b1} = {st['score_calls']} scoring "
           f"calls, B2 {b2}, B3 {b3}", flush=True)
-    return b1, b2, b3, b4
+    return b1, b2, b3, b4, b2v
 
 
 def engine_options(device, block_run_s):
     """Phase 8: the device engine's single-card options: (a) the stage
     profile, (b) units on both schedulers, (c) the recorder, (d) NelderMead.
-    Returns {path: (B1, B2, B3, B4 launches)} for the kernels line."""
+    Returns {path: (B1, B2, B3, B4, B2v launches)} for the kernels line."""
     import tempfile
 
     t0 = time.perf_counter()
@@ -2189,7 +2217,7 @@ def _leg_timer(last_iteration, trace=("const_opt",)):
 
 def _timed_run(run, last_iteration):
     """``run()`` with its legs timed (``_leg_timer``) and B1-B4 counted from 0;
-    returns (its result, (B1, B2, B3, B4), walls, idle)."""
+    returns (its result, (B1, B2, B3, B4, B2v), walls, idle)."""
     import symbolicregression_jl_tpu_torch.models.device_search as ds
 
     wrap, walls, idle = _leg_timer(last_iteration)
@@ -2232,7 +2260,7 @@ def fleet_multitarget(device, iterations=ENGINE_ITERATIONS, cycles=ENGINE_CYCLES
             lambda: multitarget_search(Xn, Y, opts(seed), niterations=iterations), iterations)
         fleet_wall = time.perf_counter() - t0
         solos, swalls, sidle = [], [], []
-        sl = [0, 0, 0, 0]
+        sl = [0] * len(_kernel_wrappers())
         solo_wall = 0.0
         for t in range(T):
             t0 = time.perf_counter()
@@ -2757,7 +2785,7 @@ def stream_noop(device, seed=0):
 
 
 def stream_path(device):
-    """Phase 10: the stream session. Returns its (B1, B2, B3, B4) launches,
+    """Phase 10: the stream session. Returns its (B1, B2, B3, B4, B2v) launches,
     the path "stream", and {kernel: max abs err} of its kernel checks."""
     t0 = time.perf_counter()
     zero_launches()
@@ -3046,7 +3074,7 @@ def serve_subscription(device, rows=(8000, 10_000), bucket=10_240, seed=0):
 
 def serve_path(device, fleet_ref):
     """Phase 11: the server. ``fleet_ref``: phase 9 (b)'s results. Returns
-    its (B1, B2, B3, B4) launches, the path "serve", and B3's max abs err."""
+    its (B1, B2, B3, B4, B2v) launches, the path "serve", and B3's max abs err."""
     from symbolicregression_jl_tpu_torch import equation_search
 
     t0 = time.perf_counter()
@@ -3610,6 +3638,505 @@ def net_path(device, ref, smi):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the slice-2 features (full objectives, graph nodes, complex)
+# ---------------------------------------------------------------------------
+
+
+def wmse_objective(preds, y, w):
+    """The weighted mean squared error as a full objective: B1's L2 loss,
+    through B4's predictions instead."""
+    err = (preds - y[None, :]) ** 2
+    if w is None:
+        return err.mean(-1)
+    return (err * w[None, :]).sum(-1) / w.sum()
+
+
+def corr_objective(preds, y, w):
+    """1 - corr(preds, y)^2 per tree, weighted by w when given: a full
+    objective that no elementwise loss expresses. Torch operations on the
+    preds' device and no host sync; a constant prediction scores 1."""
+    import torch
+
+    w = torch.ones_like(y) if w is None else w
+    ws = w.sum()
+    pm = (preds * w).sum(-1, keepdim=True) / ws
+    dp, dy = preds - pm, y - (y * w).sum() / ws
+    cov = (w * dp * dy).sum(-1)
+    return 1.0 - cov * cov / ((w * dp * dp).sum(-1) * (w * dy * dy).sum() + 1e-30)
+
+
+def _frontier_objective_check(tag, res, X, y, objective, options):
+    """Every frontier member's loss against the objective of its decoded
+    tree's predictions from the plain interpreter on the card (rtol 2e-4,
+    atol 1e-6: the loss is 1 - c^2 near 0 for a good fit). Returns the
+    largest relative error."""
+    import numpy as np
+    import torch
+
+    from symbolicregression_jl_tpu_torch.ops.flat import flatten_trees
+    from symbolicregression_jl_tpu_torch.ops.interp import eval_trees
+
+    front = res.pareto_frontier
+    if not front:
+        _fail(f"{tag}: empty frontier")
+    flat = flatten_trees([m.tree for m in front], options.max_nodes)
+    preds = eval_trees(flat, X, options.operators)
+    want = torch.where(torch.isfinite(preds).all(-1), objective(preds, y, None),
+                       torch.inf).double().cpu().numpy()
+    got = np.array([m.loss for m in front])
+    if not np.all(np.isfinite(got)) or not np.allclose(got, want, rtol=2e-4, atol=1e-6):
+        k = int(np.argmax(np.abs(got - want)))
+        _fail(f"{tag}: frontier loss {got[k]!r} against the objective's {want[k]!r}")
+    return float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-12)))
+
+
+def objective_kernel_check(device, P=4200):
+    """Phase 13 (a): at config3 width (P programs, N as phase 3, 10,000 rows
+    x 5 features), a weighted-MSE objective through B4 (``objective_losses``)
+    against B1 (phase 2's tolerance), unweighted and weighted; B2's seeded
+    mode (``preds_vjp``) against its plain version on a random seed (B2's
+    gradient tolerance, NaN only where the plain version has it, two
+    launches bit for bit, unsound rows zero),
+    also on a 50-row minibatch; timings of B4 + the objective and of the
+    seeded sweep. Returns the B2v record (without launches)."""
+    import numpy as np
+    import torch
+
+    from symbolicregression_jl_tpu_torch import Options
+    from symbolicregression_jl_tpu_torch.ops import losses as L
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import (
+        eval_preds, fused_loss, objective_losses, optab_tensor, preds_vjp,
+        preds_vjp_reference, preds_vjp_work_counts, preds_work_counts,
+    )
+
+    opts = Options(maxsize=20, device=device.type, **CONFIG3_OPS)
+    opset, N = opts.operators, opts.max_nodes
+    Xn, yn = config3_data()
+    X, y = torch.from_numpy(Xn).to(device), torch.from_numpy(yn).to(device)
+    w = torch.from_numpy(
+        np.random.default_rng(1).uniform(0.1, 2.0, CONFIG3_ROWS).astype(np.float32)).to(device)
+    prog_np, vals_np = random_programs(opset, P, N, CONFIG3_FEATURES, seed=P)
+    prog, vals = torch.from_numpy(prog_np).to(device), torch.from_numpy(vals_np).to(device)
+    tab = optab_tensor(opset, device)
+    obj_err = 0.0
+    for tag, wt in (("unweighted", None), ("weighted", w)):
+        got = objective_losses(prog, vals, X, y, wt, opset, wmse_objective, tab)
+        ref = fused_loss(prog, vals, X, y, wt, opset, L.L2DistLoss, tab)
+        torch.cuda.synchronize()
+        obj_err = max(obj_err, compare(f"objective through B4, {tag}", got, ref))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(13)
+    seed = torch.randn((P, CONFIG3_ROWS), generator=gen, device=device)
+    got = preds_vjp(prog, vals, X, seed, opset, tab)
+    again = preds_vjp(prog, vals, X, seed, opset, tab)
+    ref = preds_vjp_reference(prog, vals, X, seed, opset)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        _fail("preds_vjp: two launches differ")
+    # NaN only where the plain version has it (an inf - inf in a tree's
+    # sum), held by compare_grads with every other non-finite position
+    vjp_err = compare_grads(f"preds_vjp P={P}", got, ref)
+    n_nan = int(torch.isnan(got).sum())
+    if device.type == "cuda":  # the plain version follows the pointers instead
+        bad_np, bad_rows = unsound_rows(prog_np, opset)
+        g_bad = preds_vjp(torch.from_numpy(bad_np).to(device), vals, X, seed, opset, tab)
+        torch.cuda.synchronize()
+        if bool((g_bad[bad_rows] != 0).any()):
+            _fail("preds_vjp: an unsound row got a nonzero gradient")
+        keep = torch.ones(P, dtype=torch.bool)
+        keep[bad_rows] = False
+        vjp_err = max(vjp_err, compare_grads("preds_vjp, unsound rows beside",
+                                             g_bad.cpu()[keep], ref.cpu()[keep]))
+    idx = torch.from_numpy(np.random.default_rng(50).integers(0, CONFIG3_ROWS, 50)).to(device)
+    Xb, sb = X[:, idx].contiguous(), seed[:1024, :50].contiguous()
+    vjp_err = max(vjp_err, compare_grads(
+        "preds_vjp 1024 x 50", preds_vjp(prog[:1024], vals[:1024], Xb, sb, opset, tab),
+        preds_vjp_reference(prog[:1024], vals[:1024], Xb, sb, opset)))
+    # timings (not counted: each path sets the counts to 0 before it runs)
+    b4_ms = time_ms(lambda: eval_preds(prog, vals, X, opset, tab))
+    obj_ms = time_ms(lambda: objective_losses(prog, vals, X, y, w, opset, corr_objective, tab))
+    obj_dev = device_time_ms(
+        lambda: objective_losses(prog, vals, X, y, w, opset, corr_objective, tab))
+    ms = time_ms(lambda: preds_vjp(prog, vals, X, seed, opset, tab))
+    dev_ms = device_time_ms(lambda: preds_vjp(prog, vals, X, seed, opset, tab))
+    plain_ms = time_ms(lambda: preds_vjp_reference(prog, vals, X, seed, opset), warmup=1,
+                       reps=5)
+    pw = preds_work_counts(prog_np, CONFIG3_ROWS, CONFIG3_FEATURES)
+    b4_bound = max(pw["operations"] / PEAK_F32_FLOPS, pw["bytes"] / PEAK_BYTES) * 1e3
+    work = preds_vjp_work_counts(prog_np, CONFIG3_ROWS, CONFIG3_FEATURES)
+    bound_ops = work["operations"] / PEAK_F32_FLOPS * 1e3
+    bound_bytes = work["bytes"] / PEAK_BYTES * 1e3
+    print(f"features (a) objective kernels (P={P}, R={CONFIG3_ROWS}, N={N}): weighted-MSE "
+          f"objective through B4 equals B1 (max abs err {obj_err:.3e}, rtol {RTOL}); "
+          f"preds_vjp equals its plain version (max abs err {vjp_err:.3e}; NaN in {n_nan} "
+          f"gradients, where the plain version has them), two launches bit for bit, unsound "
+          f"rows zero; B4 {b4_ms:.4f} ms, B4 + corr objective "
+          f"{obj_ms:.4f} ms (device alone {obj_dev:.4f} ms; B4's bound "
+          f"{b4_bound:.5f} ms, bytes); preds_vjp {ms:.4f} ms (device alone {dev_ms:.4f} "
+          f"ms), plain {plain_ms:.4f} ms, bound {max(bound_ops, bound_bytes):.5f} ms "
+          f"({'operations' if bound_ops >= bound_bytes else 'bytes'}), "
+          f"{work['slot_evals'] / (ms * 1e-3):.4g} slot-evals/s", flush=True)
+    return {
+        "name": "preds_vjp",
+        "route": "cuda",
+        "source": "symbolicregression_jl_tpu_torch/csrc/fused_loss_grad.cu",
+        "replaces": "symbolicregression_jl_tpu/ops/interp_pallas.py:725",
+        "max_abs_err": vjp_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bound_ops, bound_bytes),
+        "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+        "library_ms": None,
+        "device_ms": dev_ms,
+        "objective_ms": obj_ms,
+    }
+
+
+def _first_evolve_no_sync(inner):
+    """Wrap a ``_LEG_WRAP`` so that the first evolve leg runs with host syncs
+    made errors. Returns (wrap, the legs it checked)."""
+    import torch
+
+    checked = []
+
+    def wrap(name):
+        cm = inner(name)
+        if name != "evolve" or checked:
+            return cm
+        checked.append(name)
+
+        @contextlib.contextmanager
+        def guarded():
+            with cm:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    yield
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+        return guarded()
+
+    return wrap, checked
+
+
+def _host_timed_cycles():
+    """Time the lockstep evolution cycles (``search.s_r_cycle_lockstep``) on
+    the host clock. Returns (context manager, the seconds spent)."""
+    import symbolicregression_jl_tpu_torch.search as search_mod
+
+    spent = [0.0]
+
+    @contextlib.contextmanager
+    def timed():
+        saved = search_mod.s_r_cycle_lockstep
+
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return saved(*args, **kwargs)
+            finally:
+                spent[0] += time.perf_counter() - t0
+
+        search_mod.s_r_cycle_lockstep = run
+        try:
+            yield
+        finally:
+            search_mod.s_r_cycle_lockstep = saved
+
+    return timed(), spent
+
+
+def objective_search(device, lockstep_stats, iterations=ENGINE_ITERATIONS,
+                     cycles=ENGINE_CYCLES, lockstep_cycles=None):
+    """Phase 13 (b): config3 (100 x 100, 10,000 rows, maxsize 20) under the
+    full objective 1 - corr(preds, y)^2: the device engine for ``iterations``
+    x ``cycles`` (the event leg: the block is off under an objective; the
+    first evolve leg with host syncs made errors; the last const-opt leg
+    traced), then lockstep for 1 x ``lockstep_cycles``. B4 launches must
+    equal the scoring calls plus the gradient calls (``DiffPreds``' forward),
+    B2v the gradient calls, B1-B3 none; every frontier member's loss the
+    objective of its decoded tree.
+    Returns {path: launches}."""
+    import torch
+
+    import symbolicregression_jl_tpu_torch.models.device_search as ds
+    from symbolicregression_jl_tpu_torch import Options, equation_search
+
+    lockstep_cycles = lockstep_cycles or FEATURES_LOCKSTEP_CYCLES
+    Xn, yn = config3_data()
+    X, y = torch.from_numpy(Xn).to(device), torch.from_numpy(yn).to(device)
+    kw = dict(populations=100, population_size=100, maxsize=20, seed=0, save_to_file=False,
+              progress=False, device=device.type, loss_function_jit=corr_objective,
+              **CONFIG3_OPS)
+    options = Options(ncycles_per_iteration=cycles, scheduler="device", **kw)
+    wrap, walls, idle = _leg_timer(iterations)
+    wrap, checked = _first_evolve_no_sync(wrap)
+    saved = ds._LEG_WRAP
+    ds._LEG_WRAP = wrap
+    try:
+        with engine_block_env(True):
+            res, *counts = _counted(
+                lambda: equation_search(Xn, yn, options=options, niterations=iterations,
+                                        verbosity=0))
+    finally:
+        ds._LEG_WRAP = saved
+    b1, b2, b3, b4, b2v = counts
+    st = res.engine_stats
+    if st["block"] is not None or (b1, b2, b3) != (0, 0, 0):
+        _fail(f"features (b) engine: evolve leg {st['block']!r}, B1 {b1}, B2 {b2}, B3 {b3}")
+    # a gradient call is DiffPreds: one B4 launch forward, one B2v backward
+    if (b4 != st["score_calls"] + st["grad_calls"] or st["score_calls"] == 0
+            or b2v != st["grad_calls"] or b2v == 0):
+        _fail(f"features (b) engine: B4 {b4} for {st['score_calls']} scoring and "
+              f"{st['grad_calls']} gradient calls, B2v {b2v} for the gradient calls")
+    if device.type == "cuda" and not checked:
+        _fail("features (b) engine: the evolve leg ran without the host-sync check")
+    err = _frontier_objective_check("features (b) engine", res, X, y, corr_objective, options)
+    evolve = walls["evolve"]
+    copt = walls["const_opt"]
+    n_cycles = iterations * cycles
+    print(f"features (b) objective 1 - corr^2, config3 device engine (event leg), "
+          f"{iterations} x {cycles} cycles: {sum(evolve) / n_cycles * 1e3:.4f} ms/cycle "
+          f"(phase 5's event leg beside it in this log), "
+          f"{res.num_evals / res.iteration_seconds:.4g} evals/s, const-opt leg ms per "
+          f"iteration {', '.join(f'{c * 1e3:.3f}' for c in copt)} (idle "
+          f"{_idle_text(idle['const_opt'])}); B4 {b4} = {st['score_calls']} scoring calls "
+          f"+ {st['grad_calls']} gradient calls' forwards, B2v {b2v} = gradient calls, B1 B2 "
+          f"B3 0; first evolve leg made no host sync; frontier "
+          f"{len(res.pareto_frontier)} members equal the objective of their trees (max rel "
+          f"err {err:.3e}), best {min(m.loss for m in res.pareto_frontier):.6g}", flush=True)
+    options = Options(ncycles_per_iteration=lockstep_cycles, **kw)
+    timer, spent = _host_timed_cycles()
+    with timer:
+        res_l, *counts_l = _counted(
+            lambda: equation_search(Xn, yn, options=options, niterations=1, verbosity=0))
+    lb1, lb2, lb3, lb4, lb2v = counts_l
+    if (lb1, lb2, lb3, lb2v) != (0, 0, 0, 0) or lb4 != res_l.scoring_dispatches or lb4 == 0:
+        _fail(f"features (b) lockstep: launches {counts_l} for {res_l.scoring_dispatches} "
+              f"scoring dispatches")
+    err_l = _frontier_objective_check("features (b) lockstep", res_l, X, y, corr_objective,
+                                      options)
+    print(f"features (b) objective, config3 lockstep, 1 x {lockstep_cycles} cycles: "
+          f"{spent[0] / lockstep_cycles * 1e3:.2f} ms/cycle (phase 4: "
+          f"{lockstep_stats['ms_per_cycle']:.2f}), main loop {res_l.iteration_seconds:.3f} s, "
+          f"{res_l.num_evals / res_l.iteration_seconds:.4g} evals/s; B4 {lb4} = scoring "
+          f"dispatches, B1 B2 B3 B2v 0; frontier equal to the objective (max rel err "
+          f"{err_l:.3e}), best {min(m.loss for m in res_l.pareto_frontier):.6g}", flush=True)
+    return {"objective device": tuple(counts), "objective lockstep": tuple(counts_l)}
+
+
+def unsound_count(flat):
+    """Rows of a flat batch (numpy) that the kernels' decode would refuse
+    (``decode_code``): an operator whose children are not the postfix
+    stack's top entries, or a stack that does not end with one entry."""
+    import numpy as np
+
+    from symbolicregression_jl_tpu_torch.ops.flat import (
+        KIND_BINARY, KIND_CONST, KIND_UNARY, KIND_VAR,
+    )
+
+    kind, lhs, rhs, length = (np.asarray(a) for a in (flat.kind, flat.lhs, flat.rhs,
+                                                      flat.length))
+    P, N = kind.shape
+    stack = np.zeros((P, N + 2), np.int64)
+    h = np.zeros(P, np.int64)
+    bad = np.zeros(P, bool)
+    rows = np.arange(P)
+    for i in range(N):
+        k = kind[:, i]
+        r = rows[k == KIND_UNARY]
+        top = np.maximum(h[r] - 1, 0)
+        bad[r] |= (h[r] < 1) | (lhs[r, i] != stack[r, top])
+        stack[r, top] = i
+        r = rows[k == KIND_BINARY]
+        left, top = np.maximum(h[r] - 2, 0), np.maximum(h[r] - 1, 0)
+        bad[r] |= (h[r] < 2) | (lhs[r, i] != stack[r, left]) | (rhs[r, i] != stack[r, top])
+        stack[r, left] = i
+        h[r] = np.maximum(h[r] - 1, 0)
+        r = rows[(k == KIND_CONST) | (k == KIND_VAR)]
+        stack[r, np.minimum(h[r], N + 1)] = i
+        h[r] += 1
+    bad |= (length > 0) & (h != 1)
+    return int(bad.sum())
+
+
+def graph_lockstep(device, lockstep_stats, cycles=None):
+    """Phase 13 (c): config3 (100 x 100, 10,000 rows) on lockstep with
+    ``graph_nodes=True`` for 1 x ``cycles``: every scoring batch is
+    re-pointed (``stack_sound_pointers``) before B1; the rows whose pointers
+    changed (the ones that carried sharing) are counted and must be some,
+    every re-pointed row must be stack-sound (``unsound_count``), and on the
+    batch with the most such rows B1 on the re-pointed programs must equal
+    the plain version on the raw ones (phase 2's tolerance; the number of
+    trees equal bit for bit is reported), while the plain version gives the
+    same bits on both. Returns the launches."""
+    import numpy as np
+    import torch
+
+    import symbolicregression_jl_tpu_torch.models.scorer as scorer_mod
+    from symbolicregression_jl_tpu_torch import Options, equation_search
+    from symbolicregression_jl_tpu_torch.ops import losses as L
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import (
+        fused_loss, fused_loss_reference, pack_programs_fused,
+    )
+
+    cycles = cycles or FEATURES_LOCKSTEP_CYCLES
+    Xn, yn = config3_data()
+    options = Options(populations=100, population_size=100, maxsize=20,
+                      ncycles_per_iteration=cycles, seed=0, save_to_file=False, progress=False,
+                      device=device.type, graph_nodes=True, **CONFIG3_OPS)
+    real = scorer_mod.stack_sound_pointers
+    seen = {"batches": 0, "rows": 0, "shared": 0, "unsound": 0, "host_s": 0.0, "kept": None}
+
+    def recording(flat):
+        t0 = time.perf_counter()
+        out = real(flat)
+        seen["host_s"] += time.perf_counter() - t0
+        changed = ((np.asarray(out.lhs) != np.asarray(flat.lhs)).any(1)
+                   | (np.asarray(out.rhs) != np.asarray(flat.rhs)).any(1))
+        seen["batches"] += 1
+        seen["rows"] += len(changed)
+        seen["shared"] += int(changed.sum())
+        seen["unsound"] += unsound_count(out)
+        if seen["kept"] is None or changed.sum() > seen["kept"][2]:
+            seen["kept"] = (flat, out, int(changed.sum()))
+        return out
+
+    timer, spent = _host_timed_cycles()
+    scorer_mod.stack_sound_pointers = recording
+    try:
+        with timer:
+            res, *counts = _counted(
+                lambda: equation_search(Xn, yn, options=options, niterations=1, verbosity=0))
+    finally:
+        scorer_mod.stack_sound_pointers = real
+    b1 = counts[0]
+    if b1 != res.scoring_dispatches or b1 == 0 or any(counts[1:]):
+        _fail(f"features (c) graph nodes: launches {counts} for {res.scoring_dispatches} "
+              f"scoring dispatches")
+    if seen["shared"] == 0 or seen["unsound"]:
+        _fail(f"features (c) graph nodes: {seen['shared']} rows carried sharing, "
+              f"{seen['unsound']} re-pointed rows unsound")
+    front = res.pareto_frontier
+    if not front or not all(np.isfinite(m.loss) for m in front):
+        _fail("features (c) graph nodes: frontier empty or not finite")
+    raw, rep, n_shared = seen["kept"]
+    X, y = torch.from_numpy(Xn).to(device), torch.from_numpy(yn).to(device)
+    opset, l2 = options.operators, L.L2DistLoss
+    p_raw, v = (torch.from_numpy(a).to(device) for a in pack_programs_fused(raw, opset))
+    p_rep, _ = (torch.from_numpy(a).to(device) for a in pack_programs_fused(rep, opset))
+    got = fused_loss(p_rep, v, X, y, None, opset, l2)
+    lost = fused_loss(p_raw, v, X, y, None, opset, l2)
+    ref = fused_loss_reference(p_raw, v, X, y, None, opset, l2)
+    ref_rep = fused_loss_reference(p_rep, v, X, y, None, opset, l2)
+    torch.cuda.synchronize()
+    if not torch.equal(ref, ref_rep):
+        _fail("features (c): the plain version differs on the re-pointed programs")
+    err = compare("features (c) B1 on re-pointed programs vs plain on raw", got, ref)
+    fin = torch.isfinite(ref)
+    bits = int((got.view(torch.int32) == ref.view(torch.int32))[fin].sum())
+    n_lost = int((torch.isinf(lost) & fin).sum())
+    print(f"features (c) graph nodes, config3 lockstep, 1 x {cycles} cycles: "
+          f"{spent[0] / cycles * 1e3:.2f} ms/cycle (phase 4: "
+          f"{lockstep_stats['ms_per_cycle']:.2f}), main loop {res.iteration_seconds:.3f} s; "
+          f"B1 {b1} = scoring dispatches; {seen['shared']} of {seen['rows']} rows in "
+          f"{seen['batches']} batches carried sharing, 0 unsound after re-pointing "
+          f"({seen['host_s'] * 1e3:.3f} ms of host in all); on the batch with the most "
+          f"({n_shared} of {len(ref)}): B1 re-pointed equals plain raw (max abs err "
+          f"{err:.3e}), {bits} of {int(fin.sum())} finite losses equal bit for bit, B1 on the "
+          f"raw pointers would have scored {n_lost} of them inf; best "
+          f"{min(m.loss for m in front):.6g}", flush=True)
+    return tuple(counts)
+
+
+def complex_path(device, iterations=None):
+    """Phase 13 (d): the planted (2 - 0.5i) cos((1 + 1i) x0) at 10,000 rows x
+    5 features complex64 (JAX ``tests/test_complex.py``), ``+ - *`` and
+    ``cos exp``, 15 x 33, lockstep on the card (the plain interpreter, no
+    kernel) with early stop at JAX's 1e-2 bar, which the best loss must
+    reach; then every operator of the complex table on the card against the
+    CPU (rtol 1e-4), and ``SRRegressor.predict`` on a complex X against the
+    plain interpreter on the card. Returns the launches (all 0)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from symbolicregression_jl_tpu_torch import Options, SRRegressor, equation_search
+    from symbolicregression_jl_tpu_torch.ops.flat import flatten_trees
+    from symbolicregression_jl_tpu_torch.ops.interp import eval_trees
+    from symbolicregression_jl_tpu_torch.ops.operators import COMPLEX_IMPLS
+
+    iterations = iterations or COMPLEX_ITERATIONS
+    rng = np.random.default_rng(0)
+    X = (rng.normal(size=(5, CONFIG3_ROWS)) + 1j * rng.normal(size=(5, CONFIG3_ROWS))).astype(
+        np.complex64)
+    y = ((2 - 0.5j) * np.cos((1 + 1j) * X[0])).astype(np.complex64)
+    kw = dict(binary_operators=["+", "-", "*"], unary_operators=["cos", "exp"],
+              dtype=np.complex64, maxsize=15)
+    done = []
+    options = Options(populations=15, population_size=33, ncycles_per_iteration=100,
+                      seed=COMPLEX_SEED, early_stop_condition=1e-2, save_to_file=False,
+                      progress=False, device=device.type,
+                      iteration_callback=lambda report: done.append(report.iteration),
+                      **kw)
+    t0 = time.perf_counter()
+    res, *counts = _counted(
+        lambda: equation_search(X, y, options=options, niterations=iterations, verbosity=0))
+    wall = time.perf_counter() - t0
+    best = min(res.pareto_frontier, key=lambda m: m.loss)
+    if any(counts) or not isinstance(best.loss, float) or not best.loss <= 1e-2:
+        _fail(f"features (d) complex: best loss {best.loss!r} (bar 1e-2), launches {counts}")
+    worst = 0.0
+    a = (rng.normal(size=4096) + 1j * rng.normal(size=4096)).astype(np.complex64)
+    b = (rng.normal(size=4096) + 1j * rng.normal(size=4096)).astype(np.complex64)
+    for name, fn in COMPLEX_IMPLS.items():
+        args = (a, b) if name in ("add", "sub", "mult", "div", "pow") else (a,)
+        got = fn(*(torch.from_numpy(v).to(device) for v in args))
+        torch.cuda.synchronize()
+        want = fn(*(torch.from_numpy(v) for v in args)).numpy()
+        got = got.cpu().numpy()
+        if got.dtype != np.complex64 or not np.allclose(got, want, rtol=1e-4, atol=1e-5):
+            _fail(f"features (d) complex: operator {name} on the card differs from the CPU")
+        fin = np.isfinite(want)
+        worst = max(worst, float(np.max(np.abs(got[fin] - want[fin])
+                                        / np.maximum(np.abs(want[fin]), 1e-6))))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "hof.csv")
+        with open(path, "w") as f:
+            f.write("Complexity,Loss,Equation\n")
+            f.write(f"{best.get_complexity(options)},{best.loss!r},"
+                    f"{best.tree.string_tree(options.operators, precision=17)}\n")
+        model = SRRegressor.from_file(path, device=device.type, **kw)
+        pred = model.predict(X.T[:1000])
+    want = eval_trees(flatten_trees([best.tree], options.max_nodes, dtype=np.complex64),
+                      torch.from_numpy(np.ascontiguousarray(X[:, :1000])).to(device),
+                      options.operators)[0].cpu().numpy()
+    if pred.dtype.kind != "c" or not np.allclose(pred, want, rtol=2e-4, atol=1e-5):
+        _fail("features (d) complex: SRRegressor.predict differs from the card's interpreter")
+    print(f"features (d) complex64: planted (2-0.5i) cos((1+1i) x0), {CONFIG3_ROWS} rows x 5, "
+          f"15 x 33 lockstep on the card, {len(done)} iterations (cap {iterations}, early "
+          f"stop 1e-2; stop: {res.stop_reason}) in {wall:.3f} s: best loss "
+          f"{best.loss:.6g}, {best.tree.string_tree(options.operators)}; no kernel launched "
+          f"(the plain interpreter in complex64); {len(COMPLEX_IMPLS)} complex operators on "
+          f"the card equal the CPU (max rel err {worst:.3e}); SRRegressor.predict on a complex "
+          f"X equals the card's interpreter", flush=True)
+    return tuple(counts)
+
+
+def features_path(device, lockstep_stats):
+    """Phase 13: (a) the objective's kernels, (b) an objective end to end,
+    (c) graph nodes, (d) complex. Returns (B2v's record, {path: launches})."""
+    t0 = time.perf_counter()
+    b2v = objective_kernel_check(device)
+    paths = objective_search(device, lockstep_stats)
+    paths["graph nodes"] = graph_lockstep(device, lockstep_stats)
+    paths["complex"] = complex_path(device)
+    print(f"features phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    return b2v, paths
+
+
 def build_from_two_threads():
     """Phase 1's build, asked for by two threads at once (a server's workers
     reaching the kernels first together): ``build_all`` serializes them, so
@@ -3683,9 +4210,9 @@ def main() -> int:
     operator_isolation(device)
     b3 = block_kernel_check(device)
     b4 = preds_kernel_check(device)
-    # {path: (B1, B2, B3, B4) launches}, each read just after the path ran
-    # with the counts set to 0 just before it (B4 is on no main path: as in
-    # the JAX package, only tests call it, so its counts read 0)
+    # {path: (B1, B2, B3, B4, B2v) launches}, each read just after the path
+    # ran with the counts set to 0 just before it (B4 and B2v run on the
+    # full-objective paths of phase 13 only)
     paths = {}
     paths["lockstep"], lockstep_stats = main_path(device)
     event, _ = engine_path(device, lockstep_stats, block=False)
@@ -3705,14 +4232,16 @@ def main() -> int:
     paths["serve"], serve_b3_err = serve_path(device, multitarget)
     b3["max_abs_err"] = max(b3["max_abs_err"], serve_b3_err)
     paths["net"] = net_path(device, multitarget[0], smi)
-    for i, rec in enumerate((b1, b2, b3, b4)):
+    b2v, feature_paths = features_path(device, lockstep_stats)
+    paths.update(feature_paths)
+    for i, rec in enumerate((b1, b2, b3, b4, b2v)):
         rec["launches_by_path"] = {path: counts[i] for path, counts in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path", "lane_axis"]
     print(json.dumps({"kernels": [{k: r[k] for k in order if k in r}
-                                  for r in (b1, b2, b3, b4)]}), flush=True)
+                                  for r in (b1, b2, b3, b4, b2v)]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({
         "ok": True,

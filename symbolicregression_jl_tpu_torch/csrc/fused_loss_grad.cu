@@ -17,6 +17,17 @@
 // Outputs: losses f32 [P], grads f32 [P, N].
 // Scratch: partials f64 [P, n_chunks, 3 + N] (unused when n_chunks is 1).
 //
+// A second entry point, sr_preds_vjp, is the same kernel in its seeded mode
+// (SEED): the vector-Jacobian product of B4's prediction matrix with respect
+// to the constants, for a full objective's gradient (Options.
+// loss_function_jit), where the TPU's const-opt ran jax.vjp of the scan
+// interpreter (symbolicregression_jl_tpu/ops/constant_opt.py:269-300). The
+// root adjoint of row r of tree p is seed[p, r] (f32 [P, R], row stride R, in
+// y's place; no w, no loss, no division by w_sum); grads[p] is the f64 sum
+// over the real rows, or 0 where any prediction of tree p is not finite (an
+// unsound tree too). One lane only. The loss path's code is unchanged: the
+// flag is a template argument, and its seeded branches are `if constexpr`.
+//
 // What bounds it on this card: operations, and in practice the latency of
 // each slot's dependent steps, forward and backward (instruction load,
 // branch, operand load, libm; a derivative re-evaluates its operator's libm
@@ -74,7 +85,7 @@ struct WarpSink {
   }
 };
 
-template <int RPT>
+template <int RPT, bool SEED>
 __global__ void __launch_bounds__(kMaxThreads) sr_grad_partials_kernel(
     const int* __restrict__ prog, int prog_ld, const float* __restrict__ vals,
     const int* __restrict__ optab, int n_ops, const float* __restrict__ X, long long ldx,
@@ -126,10 +137,18 @@ __global__ void __launch_bounds__(kMaxThreads) sr_grad_partials_kernel(
     const int r1 = min(R, r0 + rows_per_chunk);
     WarpSink sink{gsw, nw, warp, lane};
     const sr::LaneData d = sr::lane_data(X, y, w, fl, lsx, lsy);
-    for (int base = r0; base < r1; base += gs * RPT)
-      sr::tile_loss_grad<RPT, sr::kTree>(ins, length, col, stride, d.X, ldx, d.y, d.w,
-                                         base + gt, gs, r1, R, loss_id, q0, q1, q2, q3, acc,
-                                         sink);
+    for (int base = r0; base < r1; base += gs * RPT) {
+      if constexpr (SEED) {
+        // y is the seed [P, R]: tree p's row of it
+        sr::tile_seed_grad<RPT, sr::kTree>(ins, length, col, stride, d.X, ldx,
+                                           y + (long long)p * R, base + gt, gs, r1, R, acc,
+                                           sink);
+      } else {
+        sr::tile_loss_grad<RPT, sr::kTree>(ins, length, col, stride, d.X, ldx, d.y, d.w,
+                                           base + gt, gs, r1, R, loss_id, q0, q1, q2, q3, acc,
+                                           sink);
+      }
+    }
   }
 
   // fixed-order reductions: warp trees, then the group's warps in index order
@@ -152,20 +171,20 @@ __global__ void __launch_bounds__(kMaxThreads) sr_grad_partials_kernel(
     W += red[3 * k + 1];
     Cn += red[3 * k + 2];
   }
-  const bool ok = Cn == 0.0 && W > 0.0;
+  const bool ok = SEED ? Cn == 0.0 : Cn == 0.0 && W > 0.0;
   double* dst = partials + ((long long)p * n_chunks + chunk) * (3 + N);
   for (int i = gt; i < N; i += gs) {
     double G = 0.0;
     for (int k = w0; k < w0 + gs / 32; ++k) G += gsw[i * nw + k];
     if (n_chunks == 1) {
-      grads[(long long)p * N + i] = ok ? (float)(G / W) : 0.0f;
+      grads[(long long)p * N + i] = ok ? (float)(SEED ? G : G / W) : 0.0f;
     } else {
       dst[3 + i] = G;
     }
   }
   if (gt == 0) {
     if (n_chunks == 1) {
-      out[p] = sr::finish(L, W, Cn);
+      if constexpr (!SEED) out[p] = sr::finish(L, W, Cn);
     } else {
       dst[0] = L;
       dst[1] = W;
@@ -174,6 +193,7 @@ __global__ void __launch_bounds__(kMaxThreads) sr_grad_partials_kernel(
   }
 }
 
+template <bool SEED>
 __global__ void sr_grad_finalize_kernel(const double* __restrict__ partials, int P,
                                         int N, int n_chunks, float* __restrict__ out,
                                         float* __restrict__ grads) {
@@ -187,22 +207,22 @@ __global__ void sr_grad_finalize_kernel(const double* __restrict__ partials, int
     W += src[1];
     C += src[2];
   }
-  const bool ok = C == 0.0 && W > 0.0;
-  out[p] = ok ? (float)(L / W) : INFINITY;
+  const bool ok = SEED ? C == 0.0 : C == 0.0 && W > 0.0;
+  if constexpr (!SEED) out[p] = ok ? (float)(L / W) : INFINITY;
   for (int i = 0; i < N; ++i) {
     double G = 0.0;
     for (int c = 0; c < n_chunks; ++c) G += base[(long long)c * (3 + N) + 3 + i];
-    grads[(long long)p * N + i] = ok ? (float)(G / W) : 0.0f;
+    grads[(long long)p * N + i] = ok ? (float)(SEED ? G : G / W) : 0.0f;
   }
 }
 
-template <int RPT>
+template <int RPT, bool SEED = false>
 int launch(const int* prog, int prog_ld, const float* vals, const int* optab, int n_ops,
            const float* X, long long ldx, long long lsx, const float* y, const float* w,
            long long lsy, int P, int P_lane, int N, int R, int threads, int tpb,
            int rows_per_chunk, int n_chunks, int loss_id, float q0, float q1, float q2, float q3,
            double* partials, float* out, float* grads, size_t smem, cudaStream_t s) {
-  auto kernel = sr_grad_partials_kernel<RPT>;
+  auto kernel = sr_grad_partials_kernel<RPT, SEED>;
   if (smem > 48 * 1024) {
     cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -214,7 +234,8 @@ int launch(const int* prog, int prog_ld, const float* vals, const int* optab, in
                                      q1, q2, q3, partials, out, grads);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || n_chunks == 1) return (int)e;
-  sr_grad_finalize_kernel<<<(P + 127) / 128, 128, 0, s>>>(partials, P, N, n_chunks, out, grads);
+  sr_grad_finalize_kernel<SEED>
+      <<<(P + 127) / 128, 128, 0, s>>>(partials, P, N, n_chunks, out, grads);
   return (int)cudaGetLastError();
 }
 
@@ -241,6 +262,26 @@ int sr_fused_loss_grad(const int* prog, int prog_ld, const float* vals, const in
     case 1: return launch<1>(SR_ARGS);
     case 2: return launch<2>(SR_ARGS);
     case 4: return launch<4>(SR_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SR_ARGS
+}
+
+// Launches the seeded mode on `stream` (see the header): seed f32 [P, R]
+// (row stride R) in y's place, one lane, no loss, no w; grads f32 [P, N];
+// partials as sr_fused_loss_grad's. Returns the CUDA error code.
+int sr_preds_vjp(const int* prog, int prog_ld, const float* vals, const int* optab, int n_ops,
+                 const float* X, long long ldx, const float* seed, int P, int N, int R,
+                 int threads, int rpt, int tpb, int rows_per_chunk, int n_chunks, size_t smem,
+                 double* partials, float* grads, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+#define SR_ARGS                                                                            \
+  prog, prog_ld, vals, optab, n_ops, X, ldx, 0, seed, nullptr, 0, P, P, N, R, threads, tpb, \
+      rows_per_chunk, n_chunks, 0, 0.0f, 0.0f, 0.0f, 0.0f, partials, nullptr, grads, smem, s
+  switch (rpt) {
+    case 1: return launch<1, true>(SR_ARGS);
+    case 2: return launch<2, true>(SR_ARGS);
+    case 4: return launch<4, true>(SR_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SR_ARGS

@@ -32,8 +32,10 @@
 //   * The loss is applied once per RPT rows: the switch on the loss id sits
 //     outside the loop over the RPT rows, and the loss's parameters come as
 //     scalars (no array in local memory).
-//   * B2's gradient runs on a tape: decoded in tape mode, every slot's values
-//     are stored at the slot's own place ([slot][thread][RPT] f32), and a
+//   * B2's gradient runs on a tape (so does its seeded mode, whose root
+//     adjoints are a cotangent on the predictions): decoded in tape mode,
+//     every slot's values are stored at the slot's own place
+//     ([slot][thread][RPT] f32), and a
 //     binary operator's instruction records where its left child's values
 //     are. The reverse sweep then walks the slots backwards with the current
 //     slot's adjoint in registers: a unary operator's operand, and a binary
@@ -468,6 +470,30 @@ SR_HD void tile_loss_grad(const Instr* ins, int len, float* col, int stride, con
   const Vals<RPT> pred = eval_rows<RPT, DISPATCH, true>(ins, len, col, X, ldx, row, nan_());
   const Vals<RPT> g =
       accumulate<RPT, true>(loss_id, pred, y, w, row, valid, q0, q1, q2, q3, acc);
+  reverse_rows<RPT, DISPATCH>(ins, len, col, stride, g, valid, sink);
+}
+
+// B2's seeded share of one tile (its preds_vjp mode): the forward on the
+// tape, then the reverse sweep from root adjoints read from `seed` (the
+// tree's row of a cotangent on its predictions; 0 on rows that are not
+// valid), handing each constant slot's adjoint sum to sink. No loss: each
+// non-finite prediction adds 1 to acc.n, and the caller gives a tree with any
+// a zero gradient, as B2 does for a loss that is not ok.
+template <int RPT, Dispatch DISPATCH, class Sink>
+SR_HD void tile_seed_grad(const Instr* ins, int len, float* col, int stride, const float* X,
+                          long long ldx, const float* seed, int r, int step, int r_end, int R,
+                          Acc& acc, Sink& sink) {
+  int row[RPT];
+  bool valid[RPT];
+  tile_rows<RPT>(r, step, r_end, R, row, valid);
+  const Vals<RPT> pred = eval_rows<RPT, DISPATCH, true>(ins, len, col, X, ldx, row, nan_());
+  Vals<RPT> g;
+  for (int k = 0; k < RPT; ++k) {
+    g.v[k] = 0.0f;
+    if (!valid[k]) continue;
+    if (!isfinite_(pred.v[k])) acc.n += 1.0;
+    g.v[k] = seed[row[k]];
+  }
   reverse_rows<RPT, DISPATCH>(ins, len, col, stride, g, valid, sink);
 }
 

@@ -40,11 +40,6 @@ class Dataset:
         self.X = np.asarray(self.X)
         if self.X.ndim != 2:
             raise ValueError(f"X must be (n_features, n); got shape {self.X.shape}")
-        if self.X.dtype.kind == "c":
-            raise NotImplementedError(
-                "complex datasets are not ported yet "
-                "(ROADMAP.md, A, slice 2: complex dtypes)"
-            )
         self.n_features, self.n = self.X.shape
         if self.y is not None:
             self.y = np.asarray(self.y).reshape(-1)
@@ -58,12 +53,15 @@ class Dataset:
                 raise ValueError("weights length must match number of rows")
         if self.variable_names is None:
             self.variable_names = [f"x{i + 1}" for i in range(self.n_features)]
+        # avg_y keeps y's domain: complex datasets get a complex constant
+        # predictor (its loss is still real, reference src/Dataset.jl:165)
+        _scalar = complex if self.y is not None and self.y.dtype.kind == "c" else float
         if self.y is None:
             self.avg_y = None
         elif self.weights is not None:
-            self.avg_y = float(np.sum(self.y * self.weights) / np.sum(self.weights))
+            self.avg_y = _scalar(np.sum(self.y * self.weights) / np.sum(self.weights))
         else:
-            self.avg_y = float(np.mean(self.y))
+            self.avg_y = _scalar(np.mean(self.y))
         self._device_cache: dict = {}
         # parse units into rational-exponent SI quantities (reference:
         # SymbolicRegression.jl src/InterfaceDynamicQuantities.jl:24-66)
@@ -79,15 +77,20 @@ class Dataset:
 
     def device_arrays(self, dtype=np.float32, device="cuda"):
         """(X, y, weights) as contiguous tensors of ``dtype`` on ``device``,
-        cached per (dtype, device)."""
+        cached per (dtype, device). A complex dtype stays on ``device`` (the
+        card has complex arithmetic; the JAX package commits complex data to
+        its CPU backend because XLA:TPU has none); the weights multiply a
+        REAL elementwise loss, so they stay real (the reference's loss-type
+        promotion, src/Dataset.jl:165)."""
         device = torch.device(device)
         key = (np.dtype(dtype), str(device))
         if key not in self._device_cache:
-            def put(a):
-                return torch.from_numpy(np.ascontiguousarray(a.astype(dtype))).to(device)
+            def put(a, dt=dtype):
+                return torch.from_numpy(np.ascontiguousarray(a.astype(dt))).to(device)
 
             X = put(self.X)
             y = None if self.y is None else put(self.y)
-            w = None if self.weights is None else put(self.weights)
+            w_dtype = np.empty(0, dtype).real.dtype
+            w = None if self.weights is None else put(self.weights, w_dtype)
             self._device_cache[key] = (X, y, w)
         return self._device_cache[key]

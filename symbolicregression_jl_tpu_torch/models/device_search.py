@@ -22,9 +22,15 @@ Kernels: on f32 with built-in operators and a built-in real loss
 (``loss_kernel_eligible``), every scoring call goes through B1
 (``fused_loss``) and every gradient of constant optimization through B2
 (``fused_loss_grad``, via ``DiffLoss``); otherwise (f64, user callables)
-both are their plain versions (``plain_losses``). Packing happens on the
-device from the state tensors. The TPU's bucket ladders are gone: the
-kernels loop to each tree's own length.
+both are their plain versions (``plain_losses``). Under a full objective
+(``Options.loss_function_jit``, the JAX package's ``device_search.py:
+684-741, 836-845``) every scoring call is B4 then the objective
+(``objective_losses``) and every gradient B4, autograd of the objective and
+one seeded B2 sweep (``DiffPreds``), on f32 with built-in operators
+(``preds_kernel_eligible``); the block is off, as in the JAX package, so
+the evolve leg is the event leg. Packing happens on the device from the
+state tensors. The TPU's bucket ladders are gone: the kernels loop to each
+tree's own length.
 
 The evolve block (``SR_ENGINE_BLOCK``, the JAX package's gate at its
 ``device_search.py:2010-2046``): where ``block_eligible`` holds on at most
@@ -129,10 +135,12 @@ from ..ops.flat import (
     KIND_BINARY, KIND_CONST, KIND_UNARY, KIND_VAR, FlatTrees, flatten_trees,
     unflatten_tree,
 )
+from ..ops.interp import eval_plan, make_plan
 from ..ops.interp_cuda import (
-    DiffLoss, build, fused_loss, loss_kernel_eligible, over_lanes, plain_losses,
-    unpack_programs_fused,
+    DiffLoss, DiffPreds, build, fused_loss, loss_kernel_eligible, objective_losses,
+    over_lanes, plain_losses, preds_kernel_eligible, unpack_programs_fused,
 )
+from ..ops.scoring import objective_loss, objective_loss_plain
 from ..ops.treeops import Tree
 from ..options import Options
 from ..serve.program_cache import global_program_cache, oom_site
@@ -151,20 +159,41 @@ __all__ = [
 
 def device_mode_supported(options: Options) -> str | None:
     """None if the device engine can honor this configuration; else a reason
-    (the JAX package's ``device_mode_supported``; its graph-node case raises
-    in Options here)."""
+    (the JAX package's ``device_mode_supported``, reason for reason; its
+    row-sharding case stays unreachable while Options refuses
+    ``data_sharding``). Complex dtypes and graph-node DAGs run on the
+    lockstep scheduler, on the card."""
     if options.loss_function is not None:
         return (
             "custom full-objective loss_function (host-callable per-tree "
-            "objectives cannot run inside the engine)"
+            "objectives cannot run inside the engine; batched objectives over "
+            "the prediction matrix run in-engine via Options.loss_function_jit)"
+        )
+    if options.loss_function_jit is not None and options.data_sharding == "rows":
+        return (
+            "loss_function_jit with data_sharding='rows' (cross-shard "
+            "combination of an arbitrary objective is undefined; the "
+            "engine's combine is specific to weighted-mean losses)"
         )
     if options.use_recorder and options.device_mutation_attempts > 1:
         # the event log records ONE (kind, candidate) per lane; multi-attempt
         # lanes would mis-attribute the surviving candidate's kind
         return "recorder with device_mutation_attempts > 1"
+    if options.graph_nodes:
+        return "GraphNode shared-subtree DAGs"
     if np.dtype(options.dtype) not in (np.dtype(np.float32), np.dtype(np.float64)):
         return f"unsupported engine dtype {np.dtype(options.dtype).name}"
     return None
+
+
+def engine_kernel_eligible(options: Options, eng_dt) -> bool:
+    """Whether the engine's losses and gradients run on the kernels: B1 and
+    B2 (``loss_kernel_eligible``), or under a full objective B4 and the
+    seeded sweep (``preds_kernel_eligible``: the elementwise loss plays no
+    part). Decided from names only."""
+    if options.loss_function_jit is not None:
+        return preds_kernel_eligible(options.operators, eng_dt)
+    return loss_kernel_eligible(options.operators, options.loss, eng_dt)
 
 
 def build_evo_config(
@@ -381,11 +410,21 @@ class EngineScorer:
     ``options.device``; ``cached_optab``). Otherwise the plain versions
     (``plain_losses``), on the engine dtype. ``score_calls`` counts loss
     calls (one B1 launch each on the card), ``grad_calls`` gradient calls
-    (one B2 launch each on the card)."""
+    (one B2 launch each on the card).
+
+    Under a full objective (``options.loss_function_jit``; ``use_kernel``
+    then means ``preds_kernel_eligible``) a loss call is B4 and the
+    objective (``objective_losses``) and a gradient call is ``DiffPreds``
+    (B4, autograd of the objective, one seeded sweep), once per lane of a
+    lane axis (``over_lanes``: B4 and the seeded sweep take no lane axis);
+    otherwise their plain versions, the interpreter and its autograd. A
+    tree whose predictions are not all finite scores inf with zero
+    gradients on both."""
 
     def __init__(self, options: Options, use_kernel: bool, device=None):
         self.opset = options.operators
         self.loss_elem = options.loss
+        self.objective = options.loss_function_jit
         self.use_kernel = use_kernel
         device = options.device if device is None else device
         self.table = cached_optab(self.opset, device) if use_kernel else None
@@ -399,6 +438,8 @@ class EngineScorer:
         """Losses of a packed batch with constants ``vals``; X may carry a
         lane axis (``fused_loss``'s)."""
         self.score_calls += 1
+        if self.objective is not None:
+            return over_lanes(self._objective_losses, prog, vals, X, y, w)
         if self.use_kernel:
             return fused_loss(prog, vals, X, y, w, self.opset, self.loss_elem, self.table)
         return over_lanes(
@@ -411,6 +452,8 @@ class EngineScorer:
         """(losses, d losses / d vals) of a packed batch; X may carry a lane
         axis."""
         self.grad_calls += 1
+        if self.objective is not None:
+            return over_lanes(self._objective_loss_grad, prog, vals, X, y, w)
         if self.use_kernel:
             with torch.enable_grad():
                 v = vals.detach().requires_grad_(True)
@@ -422,6 +465,26 @@ class EngineScorer:
                                                   self.loss_elem, with_grad=True),
             prog, vals, X, y, w,
         )
+
+    def _objective_losses(self, prog, vals, X, y, w) -> torch.Tensor:
+        if self.use_kernel:
+            return objective_losses(prog, vals, X, y, w, self.opset, self.objective, self.table)
+        flat = self._unpacked(prog)._replace(val=vals)
+        return objective_loss_plain(flat, X, y, w, self.opset, self.objective)
+
+    def _objective_loss_grad(self, prog, vals, X, y, w):
+        with torch.enable_grad():
+            v = vals.detach().requires_grad_(True)
+            if self.use_kernel:
+                preds = DiffPreds.apply(v, prog, X, self.opset, self.table)
+            else:
+                preds = eval_plan(make_plan(self._unpacked(prog), self.opset, X.device), v, X)
+            f = objective_loss(preds, y, w, self.objective)
+            (g,) = torch.autograd.grad(f.sum(), v)
+        # DiffPreds already zeroes these; the plain sweep would carry the
+        # objective's NaN adjoints of a non-finite prediction
+        ok = torch.isfinite(preds.detach()).all(dim=-1, keepdim=True)
+        return f.detach(), torch.where(ok, g, 0.0)
 
     def _unpacked(self, prog) -> FlatTrees:
         p = np.asarray(prog.cpu())
@@ -993,16 +1056,19 @@ def _reject_out_of_slice(options: Options) -> None:
         )
 
 
-def _block_mode(ecfg: EvoConfig, device, use_kernel: bool, n_rows: int) -> str | None:
+def _block_mode(ecfg: EvoConfig, device, use_kernel: bool, n_rows: int,
+                objective: bool = False) -> str | None:
     """Which evolve leg an iteration runs: "kernel" (B3), "plain" (B3's plain
     version) or None (the event leg). The JAX package's gate
     (``device_search.py:2010-2046``): ``SR_ENGINE_BLOCK=0`` turns the block
     off; unset, it runs where the accelerator's kernel would (a CUDA device,
     kernel-eligible names); ``1`` forces it; either way only where
-    ``block_eligible`` holds on at most BLOCK_MAX_ROWS rows. Decided from
-    names and shapes, never by probing."""
+    ``block_eligible`` holds on at most BLOCK_MAX_ROWS rows, and never under
+    a full objective (``objective``: the block reduces an elementwise loss
+    in its pass). Decided from names and shapes, never by probing."""
     env = os.environ.get("SR_ENGINE_BLOCK", "")
-    if env == "0" or n_rows > BLOCK_MAX_ROWS or not block_eligible(ecfg)[0]:
+    if (env == "0" or objective or n_rows > BLOCK_MAX_ROWS
+            or not block_eligible(ecfg)[0]):
         return None
     on_card = torch.device(device).type == "cuda" and use_kernel
     if on_card:
@@ -1085,7 +1151,7 @@ class _EngineLane:
         # engine config: the score normalization travels as data.norm
         self.ecfg = ecfg = dataclasses.replace(cfg, baseline_loss=1.0, use_baseline=True)
         self.data = _cached_score_data(dataset, eng_dt, device, norm_val)
-        self.use_kernel = loss_kernel_eligible(options.operators, options.loss, eng_dt)
+        self.use_kernel = engine_kernel_eligible(options, eng_dt)
         self.scorer = EngineScorer(options, self.use_kernel, device)
 
         # --- initial populations (host trees -> device state) ---------------
@@ -1170,7 +1236,8 @@ def device_search_one_output(
         make_const_opt_fn(options, ecfg, scorer, ctx)
         if options.should_optimize_constants else None
     )
-    block_mode = _block_mode(ecfg, device, use_kernel, dataset.n)
+    block_mode = _block_mode(ecfg, device, use_kernel, dataset.n,
+                             objective=options.loss_function_jit is not None)
     block_fn = _make_block_fn(block_mode, options, ecfg, data, ctx)
 
     replay = None
@@ -1482,7 +1549,8 @@ class _FleetLane(_EngineLane):
                 )
         super().__init__(Dataset(X, y, weights=w), options, self.nit, rng, init_trees,
                          fleet=True)
-        self.block_mode = _block_mode(self.ecfg, self.device, self.use_kernel, self.dataset.n)
+        self.block_mode = _block_mode(self.ecfg, self.device, self.use_kernel, self.dataset.n,
+                                      objective=options.loss_function_jit is not None)
         self.async_rb = options.async_readback is not False and not options.profile
         self.early_stop = options.early_stop_fn()
         self.hof = spec.init_hof if spec.init_hof is not None else HallOfFame(options.maxsize)
@@ -1497,7 +1565,7 @@ class _FleetLane(_EngineLane):
         return (str(self.device), self.async_rb, self.use_kernel, self.block_mode,
                 o.should_optimize_constants, o.optimizer_algorithm, o.optimizer_probability,
                 o.optimizer_nrestarts, o.optimizer_iterations, o.optimizer_g_tol,
-                o.operators, o.loss, self.data.w is not None)
+                o.operators, o.loss, o.loss_function_jit, self.data.w is not None)
 
     def rebuild_score_data(self, X, y, weights) -> tuple[ScoreData, Dataset]:
         """A ScoreData for a live row swap (the stream session's update

@@ -8,9 +8,18 @@ loss vectors out.
 On f32 with built-in operators and a built-in real loss (``use_kernel``),
 every scoring call — full data or a minibatch of any size — goes through the
 fused loss kernel (ops/interp_cuda.fused_loss), which on a CPU tensor runs
-its plain version. Anything else (user operators or losses, f64, a custom
-objective) takes the plain interpreter, as the JAX scorer does when its
-Pallas probe fails.
+its plain version. Under a full objective (``Options.loss_function_jit``)
+the losses are the objective of the prediction matrix, which comes from B4
+(``interp_cuda.objective_losses``) on f32 with built-in operators
+(``use_kernel`` then means B4), whatever the elementwise loss. Anything else
+(user operators or losses, f64, complex, a host ``loss_function``) takes the
+plain interpreter, as the JAX scorer does when its Pallas probe fails.
+
+Under ``graph_nodes`` a batch's flattening is re-pointed onto the postfix
+stack (``interp_cuda.stack_sound_pointers``) before a kernel sees it: the
+kernels decode on the stack, and a DAG's flattening points a shared
+operand at its latest copy. The plain interpreter reads slots by pointer
+and takes the flattening as it is.
 """
 
 from __future__ import annotations
@@ -22,9 +31,14 @@ import torch
 
 from ..dataset import Dataset
 from ..ops.flat import flatten_trees
-from ..ops.interp_cuda import fused_loss, loss_kernel_eligible, optab_tensor, pack_programs_fused
+from ..ops.interp_cuda import (
+    fused_loss, loss_kernel_eligible, objective_losses, optab_tensor, pack_programs_fused,
+    preds_kernel_eligible, stack_sound_pointers,
+)
 from ..ops.operators import kernel_op_table
-from ..ops.scoring import batched_loss_bucketed, baseline_loss, loss_to_score
+from ..ops.scoring import (
+    batched_loss_bucketed, baseline_loss, loss_to_score, objective_loss_plain,
+)
 from ..serve.program_cache import global_program_cache
 from ..tree import Node
 
@@ -56,14 +70,21 @@ class BatchScorer:
         self.device = torch.device(options.device)
         X, y, w = dataset.device_arrays(self.dtype, self.device)
         self.X, self.y, self.w = X, y, w
-        self.use_kernel = loss_kernel_eligible(self.opset, self.loss_elem, self.dtype)
+        self.objective = options.loss_function_jit
+        if self.objective is None:
+            self.use_kernel = loss_kernel_eligible(self.opset, self.loss_elem, self.dtype)
+        else:
+            self.use_kernel = preds_kernel_eligible(self.opset, self.dtype)
         self.table = cached_optab(self.opset, self.device) if self.use_kernel else None
+        # decided from Options, never probed: every other search keeps its
+        # bits and host time
+        self.repoint = bool(options.graph_nodes)
         bl, use = baseline_loss(dataset, self.opset, self.loss_elem, self.dtype, self.device)
         dataset.baseline_loss = bl
         dataset.use_baseline = use
         self.num_evals = 0.0
-        #: scoring dispatches made (each one a fused-kernel call when
-        #: use_kernel holds)
+        #: scoring dispatches made (each one a B1 launch when use_kernel
+        #: holds; under a full objective, a B4 launch)
         self.num_dispatches = 0
         self._evals_lock = threading.Lock()
         # debug-checks gate resolved ONCE here: the hot path below branches on
@@ -126,13 +147,20 @@ class BatchScorer:
             self.num_dispatches += 1
         X, y, w = self.rows(idx)
         if self.use_kernel:
+            if self.repoint:
+                flat = stack_sound_pointers(flat)
             prog, vals = pack_programs_fused(flat, self.opset)
-            dev_losses = fused_loss(
-                torch.from_numpy(prog).to(self.device),
-                torch.from_numpy(vals).to(self.device),
-                X, y, w, self.opset, self.loss_elem, self.table,
-            )
+            prog = torch.from_numpy(prog).to(self.device)
+            vals = torch.from_numpy(vals).to(self.device)
+            if self.objective is not None:
+                dev_losses = objective_losses(prog, vals, X, y, w, self.opset, self.objective,
+                                              self.table)
+            else:
+                dev_losses = fused_loss(prog, vals, X, y, w, self.opset, self.loss_elem,
+                                        self.table)
             fetch = _readback(dev_losses)
+        elif self.objective is not None:
+            fetch = _readback(objective_loss_plain(flat, X, y, w, self.opset, self.objective))
         else:
             fetch = batched_loss_bucketed(flat, X, y, w, self.opset, self.loss_elem)
 

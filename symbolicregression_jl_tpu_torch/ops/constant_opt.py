@@ -15,6 +15,17 @@ reference's special case (src/ConstantOptimization.jl:22-41); its curvature
 is a Hessian-vector product through the autograd-recorded interpreter.
 Constants are kept only if the loss improved (src/ConstantOptimization.jl:
 70-78).
+
+Complex constants are optimized through the real 2N view v = [re; im] (the
+JAX package's ``complex_n``; the reference drives Optim's BFGS for complex
+T the equivalent way, src/ConstantOptimization.jl:27): torch's gradient of a
+real loss with respect to a complex tensor is d/d re + i d/d im, which
+``torch.complex(v[:, :N], v[:, N:])`` hands back to the two halves. A full
+objective (``Options.loss_function_jit``) replaces the elementwise loss in
+the optimizer as in the scorer. Under ``graph_nodes`` the trees that share
+a subtree pass through unchanged and rescored (the JAX package's rule: a
+shared constant would expand into independent parameters and the writeback
+would unshare the DAG).
 """
 
 from __future__ import annotations
@@ -53,13 +64,18 @@ def _clamped_chunk(
 
 
 class _Objective:
-    """Loss of a batch of (tree, constants) rows: f(v [B, N]) -> [B]."""
+    """Loss of a batch of (tree, constants) rows: f(v [B, N]) -> [B]; under
+    ``complex_n`` v is the real view [B, 2N] of complex constants, and under
+    ``objective`` the loss is the full objective of the predictions."""
 
-    def __init__(self, flat: FlatTrees, X, y, w, opset: OperatorSet, loss_elem):
+    def __init__(self, flat: FlatTrees, X, y, w, opset: OperatorSet, loss_elem,
+                 complex_n: int | None = None, objective=None):
         self.flat = flat
         self.X, self.y, self.w = X, y, w
         self.opset = opset
         self.loss_elem = loss_elem
+        self.complex_n = complex_n
+        self.objective = objective
         self._plans: dict[int, object] = {}
 
     def plan(self, repeat: int = 1):
@@ -72,19 +88,29 @@ class _Objective:
         return self._plans[repeat]
 
     def _loss(self, pred):
+        if self.objective is not None:
+            return self.objective(pred, self.y, self.w)
         elem = self.loss_elem(pred, self.y[None, :])
         if self.w is not None:
             return (elem * self.w[None, :]).sum(-1) / self.w.sum()
         return elem.mean(-1)
 
+    def _vals(self, v):
+        """The constants the interpreter takes: v itself, or the complex
+        values of its real 2N view."""
+        if self.complex_n is None:
+            return v
+        n = self.complex_n
+        return torch.complex(v[:, :n], v[:, n:])
+
     def value(self, v, repeat: int = 1):
         with torch.no_grad():
-            return self._loss(eval_plan(self.plan(repeat), v, self.X))
+            return self._loss(eval_plan(self.plan(repeat), self._vals(v), self.X))
 
     def value_and_grad(self, v):
         v = v.detach().requires_grad_(True)
         with torch.enable_grad():
-            f = self._loss(eval_plan(self.plan(), v, self.X))
+            f = self._loss(eval_plan(self.plan(), self._vals(v), self.X))
             (g,) = torch.autograd.grad(f.sum(), v)
         return f.detach(), g
 
@@ -256,20 +282,24 @@ def _neldermead(obj: _Objective, v0, mask, iters: int, g_tol: float):
 
 
 def _optimize_batch(flat, X, y, w, starts, opset, loss_elem, iters, algorithm="BFGS",
-                    g_tol=0.0):
+                    g_tol=0.0, objective=None):
     """starts: numpy [P, S, N] initial constant vectors (S = 1 + nrestarts).
     Returns the best (val [P, N], loss [P]) over restarts per tree, numpy.
 
     Trees with exactly one constant use Newton; the others the configured
     algorithm. The batch runs in chunks of trees sized by ``_clamped_chunk``
-    (``SR_CONSTOPT_CHUNK`` caps the request; default: the whole batch)."""
+    (``SR_CONSTOPT_CHUNK`` caps the request; default: the whole batch).
+    Complex constants (a complex X) run through the real 2N view, where
+    the mask doubles, so a tree with one complex constant has two free
+    parameters and takes the configured algorithm, as in the JAX package."""
     P, S, N = starts.shape
     R = X.shape[1]
+    complex_vals = X.is_complex()
     chunk = int(os.environ.get("SR_CONSTOPT_CHUNK", P))
     s_r = S * (N + 1) if algorithm == "NelderMead" else S
-    chunk = max(1, min(_clamped_chunk(chunk, s_r, N, R, np.float32, False), P))
+    chunk = max(1, min(_clamped_chunk(chunk, s_r, N, R, np.float32, complex_vals), P))
     main = _bfgs if algorithm == "BFGS" else _neldermead
-    kind = np.asarray(flat.kind)
+    real_dt = X.real.dtype if complex_vals else X.dtype
     vals_out = np.empty((P, N), dtype=np.asarray(flat.val).dtype)
     fs_out = np.empty((P,), dtype=np.float64)
     for c0 in range(0, P, chunk):
@@ -278,19 +308,25 @@ def _optimize_batch(flat, X, y, w, starts, opset, loss_elem, iters, algorithm="B
         inst = FlatTrees(*(np.repeat(np.asarray(a)[c0:c1], S, axis=0) for a in flat))
         v0 = starts[c0:c1].reshape(n * S, N)
         mask_np = np.asarray(inst.kind) == KIND_CONST
+        if complex_vals:  # the real 2N view [re; im]
+            v0 = np.concatenate([v0.real, v0.imag], axis=-1)
+            mask_np = np.concatenate([mask_np, mask_np], axis=-1)
         one_const = mask_np.sum(-1) == 1
-        v_best = np.empty((n * S, N), dtype=v0.dtype)
+        v_best = np.empty(v0.shape, dtype=v0.dtype)
         f_best = np.empty((n * S,), dtype=np.float64)
         for sel, fn in ((np.nonzero(~one_const)[0], main), (np.nonzero(one_const)[0], _newton)):
             if sel.size == 0:
                 continue
             sub = FlatTrees(*(np.asarray(a)[sel] for a in inst))
-            obj = _Objective(sub, X, y, w, opset, loss_elem)
-            v_sel = torch.from_numpy(np.ascontiguousarray(v0[sel])).to(X.device, X.dtype)
+            obj = _Objective(sub, X, y, w, opset, loss_elem,
+                             complex_n=N if complex_vals else None, objective=objective)
+            v_sel = torch.from_numpy(np.ascontiguousarray(v0[sel])).to(X.device, real_dt)
             m_sel = torch.from_numpy(mask_np[sel]).to(X.device)
             v, f = fn(obj, v_sel, m_sel, iters, g_tol)
             v_best[sel] = v.detach().cpu().numpy()
             f_best[sel] = f.detach().double().cpu().numpy()
+        if complex_vals:
+            v_best = v_best[:, :N] + 1j * v_best[:, N:]
         f_best = np.where(np.isfinite(f_best), f_best, np.inf).reshape(n, S)
         k = np.argmin(f_best, axis=1)
         vals_out[c0:c1] = v_best.reshape(n, S, N)[np.arange(n), k]
@@ -339,6 +375,35 @@ def _optimize_constants_custom_objective(trees, scorer, options, rng):
             losses.append(f0)
             improved.append(False)
     return new_trees, np.asarray(losses), np.asarray(improved)
+
+
+def _pass_shared_through(trees, shared, scorer, options, rng, idx):
+    """Graph-node batches (the JAX package's rule): optimize only the trees
+    without shared subtrees; the others keep their constants and are
+    rescored. Returns the results in the input order."""
+    plain = [t for t, s in zip(trees, shared) if not s]
+    if plain:
+        p_trees, p_losses, p_improved = optimize_constants_batched(
+            plain, scorer, options, rng, idx=idx
+        )
+    else:
+        p_trees, p_losses, p_improved = [], np.zeros(0), np.zeros(0, bool)
+    shared_trees = [t for t, s in zip(trees, shared) if s]
+    shared_losses = scorer.loss_many(shared_trees, idx=idx)
+    out_t, out_l, out_i = [], [], []
+    pi = si = 0
+    for s in shared:
+        if s:
+            out_t.append(shared_trees[si])
+            out_l.append(float(shared_losses[si]))
+            out_i.append(False)
+            si += 1
+        else:
+            out_t.append(p_trees[pi])
+            out_l.append(float(p_losses[pi]))
+            out_i.append(bool(p_improved[pi]))
+            pi += 1
+    return out_t, np.asarray(out_l), np.asarray(out_i)
 
 
 def _host_neldermead(obj, x0: np.ndarray, iters: int):
@@ -393,6 +458,10 @@ def optimize_constants_batched(
         return [], np.zeros((0,)), np.zeros((0,), dtype=bool)
     if options.loss_function is not None:
         return _optimize_constants_custom_objective(trees, scorer, options, rng)
+    if options.graph_nodes:
+        shared = [t.count_unique_nodes() != t.count_nodes() for t in trees]
+        if any(shared):
+            return _pass_shared_through(trees, shared, scorer, options, rng, idx)
 
     n_real = len(trees)
     dtype = scorer.dtype
@@ -407,7 +476,17 @@ def optimize_constants_batched(
     # restart jitter x(1 + sigma/2 * randn), sigma=1 like the reference's
     # perturbed re-starts (src/ConstantOptimization.jl:53-68)
     base = flat.val[:, None, :].repeat(S, axis=1).astype(dtype)  # [n_real,S,N]
-    jitter = 1.0 + 0.5 * rng.standard_normal(size=(P, S - 1, N)).astype(dtype)
+    if np.dtype(dtype).kind == "c":
+        # complex noise: restarts must perturb PHASE as well as magnitude
+        # (the reference's T-typed perturbation draws complex noise; a
+        # real-only jitter can never escape a wrong-phase basin)
+        noise = (
+            rng.standard_normal(size=(P, S - 1, N))
+            + 1j * rng.standard_normal(size=(P, S - 1, N))
+        ) / np.sqrt(2.0)
+        jitter = 1.0 + 0.5 * noise.astype(dtype)
+    else:
+        jitter = 1.0 + 0.5 * rng.standard_normal(size=(P, S - 1, N)).astype(dtype)
     base[:, 1:, :] *= jitter[:n_real]
 
     X, y, w = scorer.rows(idx)
@@ -423,6 +502,7 @@ def optimize_constants_batched(
         return _optimize_batch(
             flat_b, X, y, w, starts_b, scorer.opset, scorer.loss_elem, iters,
             algorithm=options.optimizer_algorithm, g_tol=g_tol,
+            objective=options.loss_function_jit,
         )
 
     # length-bucketed dispatch: each bucket runs at its own node count

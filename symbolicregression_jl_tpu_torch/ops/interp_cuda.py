@@ -22,13 +22,24 @@ searches, such as a server's workers, it sums over all of them):
   ``interp_pallas.py:73`` (``_make_kernel`` via ``_eval_pallas``): B1's
   forward pass writing the prediction matrix [P, R] instead of a loss. Its
   plain version is ``ops/interp.eval_trees``; ``eval_preds`` launches it on
-  packed programs already on the card. As in the JAX package, only tests
-  (and ``chip_smoke.py``) call it.
+  packed programs already on the card. A full objective
+  (``Options.loss_function_jit``) scores through it: ``objective_losses``
+  is B4, then the objective on the predictions.
+- B2's seeded mode, ``preds_vjp`` (``csrc/fused_loss_grad.cu``'s second
+  entry point, on the same tape and reverse sweep): the vector-Jacobian
+  product of B4's predictions with respect to the constants, for a given
+  cotangent ``seed`` [P, R]. ``DiffPreds`` is B4 differentiable in the
+  constants: its forward is B4, its backward one seeded launch, so a full
+  objective's gradient costs B4, torch autograd of the objective, and one
+  launch. It counts on ``preds_vjp.launches``, apart from B2's.
 
 All four kernels of the repo, these three and the evolve block, evaluate on
 one multi-row interpreter core, ``csrc/sr_interp.cuh``; they take
 stack-sound programs, as every postorder flattening of a tree is, and score
-any other program inf (B2: with zero gradients; B4 predicts NaN). The source
+any other program inf (B2: with zero gradients; B4 predicts NaN). The
+flattening of a graph-node DAG is not stack-sound as it stands (a shared
+operand's pointer names its latest copy); ``stack_sound_pointers`` re-points
+it onto the stack without changing a value. The source
 files' headers say what bounds each kernel on the H100 and what its design
 does about that. A tensor on the CPU takes the plain version (the
 interpreter of ops/interp.py plus the same loss and reduction, and for B2
@@ -71,6 +82,7 @@ from .flat import KIND_BINARY, KIND_CONST, KIND_UNARY, KIND_VAR, FlatTrees
 from .interp import _forward, _reverse_sweep, eval_trees, make_plan
 from .losses import kernel_loss_spec
 from .operators import OperatorSet, kernel_op_table
+from .scoring import objective_loss
 
 __all__ = [
     "fused_loss",
@@ -80,7 +92,13 @@ __all__ = [
     "plain_losses",
     "eval_trees_kernel",
     "eval_preds",
+    "objective_losses",
+    "preds_vjp",
+    "preds_vjp_reference",
     "DiffLoss",
+    "DiffPreds",
+    "stack_sound_pointers",
+    "preds_kernel_eligible",
     "optab_tensor",
     "pack_programs_fused",
     "unpack_programs_fused",
@@ -92,6 +110,7 @@ __all__ = [
     "work_counts",
     "grad_work_counts",
     "preds_work_counts",
+    "preds_vjp_work_counts",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -130,15 +149,58 @@ B4_THREADS, B4_RPT = 128, 4
 TARGET_BLOCKS = 132 * 32
 
 
+def preds_kernel_eligible(opset: OperatorSet, dtype) -> bool:
+    """B4 and the seeded sweep run f32 with built-in operators; a full
+    objective scores their predictions, so the elementwise loss plays no
+    part. Anything else (user callables, f64, complex) takes the plain
+    interpreter. Decided from names and identities only: nothing is
+    probed."""
+    return np.dtype(dtype) == np.float32 and kernel_op_table(opset) is not None
+
+
 def loss_kernel_eligible(opset: OperatorSet, loss_elem, dtype) -> bool:
-    """The kernel runs f32 with built-in operators and a built-in real loss;
-    anything else (user callables, f64) takes the plain interpreter. Decided
-    from names and identities only — nothing is probed."""
-    return (
-        np.dtype(dtype) == np.float32
-        and kernel_op_table(opset) is not None
-        and kernel_loss_spec(loss_elem) is not None
-    )
+    """B1 and B2 run f32 with built-in operators and a built-in real loss;
+    anything else (user callables, f64, complex) takes the plain
+    interpreter. Decided from names and identities only: nothing is
+    probed."""
+    return preds_kernel_eligible(opset, dtype) and kernel_loss_spec(loss_elem) is not None
+
+
+def stack_sound_pointers(flat: FlatTrees) -> FlatTrees:
+    """``flat`` with every operator's ``lhs`` / ``rhs`` re-pointed at its
+    operands' positions on the postfix stack (numpy, on the host).
+
+    The kernels decode on the stack and take a program only when each
+    operator's children are the stack's top entries (``csrc/sr_interp.cuh``,
+    ``decode_code``). A tree's postorder flattening is such a program, and
+    this returns it unchanged. A graph-node DAG's is not: ``flatten_trees``
+    (the JAX package's, integer for integer) expands each shared subtree at
+    every use but points a parent at the shared node's latest copy, which
+    may lie after the occurrence on the stack. Walking the kinds in
+    postorder with a stack of slots re-points the parent at that occurrence:
+    another expansion of the same subtree, so every slot's value, and the
+    root's, is unchanged. O(N) vectorized steps over the batch."""
+    kind = np.asarray(flat.kind)
+    P, N = kind.shape
+    lhs = np.array(flat.lhs, dtype=np.int32)
+    rhs = np.array(flat.rhs, dtype=np.int32)
+    stack = np.zeros((P, N + 1), np.int32)
+    h = np.zeros(P, np.int64)
+    rows = np.arange(P)
+    for i in range(N):
+        k = kind[:, i]
+        r = rows[k == KIND_UNARY]
+        lhs[r, i] = stack[r, h[r] - 1]
+        stack[r, h[r] - 1] = i
+        r = rows[k == KIND_BINARY]
+        lhs[r, i] = stack[r, h[r] - 2]
+        rhs[r, i] = stack[r, h[r] - 1]
+        stack[r, h[r] - 2] = i
+        h[r] -= 1
+        r = rows[(k == KIND_CONST) | (k == KIND_VAR)]
+        stack[r, h[r]] = i
+        h[r] += 1
+    return flat._replace(lhs=lhs, rhs=rhs)
 
 
 # -- packing -----------------------------------------------------------------
@@ -318,6 +380,12 @@ _SIGNATURES = {
                         + [_cs, _ci] + [_cf] * 4 + [_vp, _vp, _vp, _vp]),
     "eval_preds": [_vp, _ci, _vp, _vp, _ci, _vp, _cl] + [_ci] * 8 + [_cs, _vp, _vp],
 }
+#: B2's second entry point, its seeded mode ``sr_preds_vjp``: prog,
+#: prog_ld, vals, optab, n_ops, X, ldx, seed, P, N, R, threads, rpt, tpb,
+#: rows_per_chunk, n_chunks, smem bytes (``grad_smem``), partials, grads,
+#: stream
+_PREDS_VJP_ARGTYPES = ([_vp, _ci, _vp, _vp, _ci, _vp, _cl, _vp] + [_ci] * 8
+                       + [_cs, _vp, _vp, _vp])
 
 
 def _lib_path(name: str) -> Path:
@@ -549,6 +617,28 @@ def _launch(kernel: str, prog, vals, X, y, w, optab, table, spec, P, P_lane, N, 
     # same stream (PyTorch's caching allocator), so no keep-alive is needed
 
 
+def _checked_single_args(kernel: str, prog, vals, X, opset, table):
+    """Validate a launch of B4 or the seeded sweep on one dataset (X [F, R],
+    no lane axis): (optab, P, N, R, prog_ld, the table on the device).
+    Raises on whatever the kernel does not take."""
+    if X.device.type != "cuda":
+        raise ValueError(f"{kernel}: unsupported device {X.device}")
+    optab = kernel_op_table(opset)
+    if optab is None:
+        raise ValueError(f"{kernel}: the operator set has no kernel implementation")
+    if X.dtype != torch.float32 or not X.is_contiguous() or X.dim() != 2:
+        raise ValueError(f"{kernel}: X must be contiguous float32 [F, R]")
+    dev = X.device
+    P, prog_ld = prog.shape
+    N = vals.shape[1]
+    for name, t, dt in (("prog", prog, torch.int32), ("vals", vals, torch.float32)):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous {dt} on {dev}")
+    if prog_ld != 4 * N + 1 or vals.shape[0] != P:
+        raise ValueError(f"{kernel}: inconsistent shapes")
+    return optab, P, N, X.shape[1], prog_ld, _device_table(kernel, optab, table, dev)
+
+
 def eval_trees_kernel(flat: FlatTrees, X, opset: OperatorSet) -> torch.Tensor:
     """B4's entry point: predictions [P, R] f32 of a flat batch (numpy) on
     X [F, R].
@@ -573,23 +663,9 @@ def eval_preds(prog, vals, X, opset: OperatorSet, table=None) -> torch.Tensor:
     if X.device.type == "cpu":
         flat = unpack_programs_fused(prog.numpy(), vals.numpy(), opset)
         return eval_trees(flat, X, opset)
-    if X.device.type != "cuda":
-        raise ValueError(f"eval_trees_kernel: unsupported device {X.device}")
-    optab = kernel_op_table(opset)
-    if optab is None:
-        raise ValueError("eval_trees_kernel: the operator set has no kernel implementation")
-    if X.dtype != torch.float32 or not X.is_contiguous() or X.dim() != 2:
-        raise ValueError("eval_trees_kernel: X must be contiguous float32 [F, R]")
+    optab, P, N, R, prog_ld, table = _checked_single_args("eval_trees_kernel", prog, vals, X,
+                                                          opset, table)
     dev = X.device
-    P, prog_ld = prog.shape
-    N = vals.shape[1]
-    R = X.shape[1]
-    for name, t, dt in (("prog", prog, torch.int32), ("vals", vals, torch.float32)):
-        if t.device != dev or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"eval_trees_kernel: {name} must be contiguous {dt} on {dev}")
-    if prog_ld != 4 * N + 1 or vals.shape[0] != P:
-        raise ValueError("eval_trees_kernel: inconsistent shapes")
-    table = _device_table("eval_trees_kernel", optab, table, dev)
     preds = torch.empty((P, R), dtype=torch.float32, device=dev)
     if P == 0 or R == 0:
         return preds
@@ -609,6 +685,107 @@ def eval_preds(prog, vals, X, opset: OperatorSet, table=None) -> torch.Tensor:
 
 
 eval_trees_kernel.launches = 0
+
+
+def objective_losses(prog, vals, X, y, w, opset: OperatorSet, objective, table=None):
+    """Losses [P] of packed programs under a full objective
+    (``Options.loss_function_jit``): B4's predictions (``eval_preds``; its
+    plain version on a CPU tensor), then ``ops/scoring.objective_loss``:
+    ``objective(preds, y, w)``, inf where a tree's predictions are not all
+    finite (B4 predicts NaN on an unsound program). One B4 launch on the
+    card; the objective runs on the card too, with no host sync."""
+    return objective_loss(eval_preds(prog, vals, X, opset, table), y, w, objective)
+
+
+def preds_vjp(prog, vals, X, seed, opset: OperatorSet, table=None) -> torch.Tensor:
+    """B2's seeded mode: grads [P, N] f32, ``sum_r seed[p, r] * d preds[p,
+    r] / d vals[p, i]`` for packed programs on X [F, R] (one dataset, no
+    lane axis), 0 on slots that are not constants and on every slot of a
+    tree with a non-finite prediction (an unsound program's too). ``seed``
+    is a cotangent on B4's predictions, contiguous f32 [P, R].
+
+    A CPU tensor takes ``preds_vjp_reference``. A CUDA tensor launches the
+    kernel on the current stream (no synchronisation) or raises. ``table``
+    as ``fused_loss``'s. Launches count on ``preds_vjp.launches``."""
+    if X.device.type == "cpu":
+        return preds_vjp_reference(prog, vals, X, seed, opset)
+    optab, P, N, R, prog_ld, table = _checked_single_args("preds_vjp", prog, vals, X, opset,
+                                                          table)
+    dev = X.device
+    if (seed.device != dev or seed.dtype != torch.float32 or not seed.is_contiguous()
+            or seed.shape != (P, R)):
+        raise ValueError(f"preds_vjp: seed must be contiguous float32 [P, R] on {dev}")
+    grads = torch.empty((P, N), dtype=torch.float32, device=dev)
+    if P == 0:
+        return grads
+    if R == 0:
+        return grads.zero_()
+    lib = build("fused_loss_grad", _SIGNATURES["fused_loss_grad"])
+    entry = lib.sr_preds_vjp
+    if entry.argtypes is None:  # bound at first use; the same values every time
+        entry.restype = ctypes.c_int
+        entry.argtypes = _PREDS_VJP_ARGTYPES
+    threads, rpt, tpb, rows_per_chunk, n_chunks = grad_geometry(P, N, R, len(optab))
+    partials = torch.empty((P, n_chunks, 3 + N) if n_chunks > 1 else (1,),
+                           dtype=torch.float64, device=dev)
+    err = entry(
+        prog.data_ptr(), prog_ld, vals.data_ptr(), table.data_ptr(), len(optab),
+        X.data_ptr(), X.stride(0), seed.data_ptr(), P, N, R, threads, rpt, tpb,
+        rows_per_chunk, n_chunks, grad_smem(N, threads, tpb, rpt, len(optab)),
+        partials.data_ptr(), grads.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"preds_vjp kernel launch failed: "
+                           f"{lib.sr_cuda_error_string(err).decode()}")
+    preds_vjp.launches += 1
+    return grads
+
+
+preds_vjp.launches = 0
+
+
+def preds_vjp_reference(prog, vals, X, seed, opset: OperatorSet) -> torch.Tensor:
+    """The plain PyTorch version of the seeded sweep: the VJP of
+    ``ops/interp.eval_trees`` with respect to ``vals`` for the cotangent
+    ``seed`` (the interpreter's reverse sweep, ``_EvalTrees``' backward,
+    kept per row and summed over the rows in f64, as the kernel sums), 0
+    for every slot of a tree with a non-finite prediction."""
+    flat = unpack_programs_fused(prog.cpu().numpy(), vals.cpu().numpy(), opset)
+    plan = make_plan(flat, opset, X.device)
+    with torch.no_grad():
+        pred, buf = _forward(plan, vals.to(X.dtype), X)
+        gval, _ = _reverse_sweep(plan, buf, seed.to(X.dtype), X.shape[0], True, False)
+        ok = torch.isfinite(pred).all(dim=-1)
+        return torch.where(ok[:, None], gval.double().sum(-1).to(X.dtype), 0.0)
+
+
+class DiffPreds(torch.autograd.Function):
+    """preds [P, R] = eval_preds(prog, vals, X) (B4), differentiable in
+    ``vals``: the backward is one ``preds_vjp`` launch seeded by the
+    incoming cotangent, so the device engine's BFGS under a full objective
+    gets ``d objective / d vals`` from B4, torch autograd of the objective
+    and one seeded sweep. Where a tree's predictions are not all finite its
+    loss is inf and its cotangent is set to 0 before the sweep (a NaN
+    prediction must not send a NaN seed through it), as B2 gives a loss that
+    is not ok zero gradients. On a CPU tensor both halves take their plain
+    versions.
+
+    ``DiffPreds.apply(vals, prog, X, opset[, table])``."""
+
+    @staticmethod
+    def forward(ctx, vals, prog, X, opset, table=None):
+        preds = eval_preds(prog, vals, X, opset, table)
+        if ctx.needs_input_grad[0]:
+            ctx.save_for_backward(vals, prog, X, torch.isfinite(preds).all(dim=-1))
+            ctx.opset, ctx.table = opset, table
+        return preds
+
+    @staticmethod
+    def backward(ctx, g):
+        vals, prog, X, ok = ctx.saved_tensors
+        seed = torch.where(ok[:, None], g, 0.0).to(torch.float32).contiguous()
+        grads = preds_vjp(prog, vals, X, seed, ctx.opset, ctx.table)
+        return grads, None, None, None, None
 
 
 def fused_loss(prog, vals, X, y, w, opset: OperatorSet, loss_elem, table=None) -> torch.Tensor:
@@ -744,6 +921,22 @@ def grad_work_counts(prog: np.ndarray, R: int, F: int, weighted: bool, lanes: in
     ops = 2 * slot_evals + 4 * P * R + n_const * R
     data = lanes * (F * R * 4 + R * 4 * (2 if weighted else 1))
     bytes_ = prog.nbytes + P * N * 4 + data + P * 4 + P * N * 4
+    return {"slot_evals": 2 * slot_evals, "operations": ops, "bytes": bytes_}
+
+
+def preds_vjp_work_counts(prog: np.ndarray, R: int, F: int) -> dict:
+    """The same for one seeded sweep (``preds_vjp``): B2's slot evaluations,
+    forward and reverse, and one gradient sum per constant slot per row, no
+    loss; the inputs read once (the seed's P x R x 4 bytes among them) and
+    the [P, N] gradients written once."""
+    prog = np.asarray(prog)
+    P, L = prog.shape
+    N = (L - 1) // 4
+    live = np.arange(N)[None, :] < prog[:, 4 * N][:, None]
+    n_const = int(((prog[:, :N] == 0) & live).sum())
+    slot_evals = int(prog[:, 4 * N].astype(np.int64).sum()) * R
+    ops = 2 * slot_evals + n_const * R
+    bytes_ = prog.nbytes + P * N * 4 + F * R * 4 + P * R * 4 + P * N * 4
     return {"slot_evals": 2 * slot_evals, "operations": ops, "bytes": bytes_}
 
 

@@ -97,6 +97,14 @@ _LOG4 = math.log(4.0)
 _LOG2 = math.log(2.0)
 
 
+def L2ComplexDistLoss(pred, target):
+    """|pred - target|^2 with a REAL result: the default elementwise loss of
+    complex searches (the loss type is the real base type, SymbolicRegression.jl
+    src/Dataset.jl:165; the reference's complex test uses abs2)."""
+    d = pred - target
+    return (d * torch.conj(d)).real
+
+
 def LogitDistLoss(pred, target):
     d = pred - target
     return -_LOG4 - d + 2.0 * torch.log1p(torch.exp(d))
@@ -188,6 +196,9 @@ for _fn in (
     SigmoidLoss, L2MarginLoss, ModifiedHuberLoss, LogitMarginLoss,
 ):
     _spec(_fn, _fn.__name__)
+# on real data |d|^2 is d * d bit for bit, so the kernels' L2 computes it
+# (a complex search never reaches a kernel: its dtype is not f32)
+L2ComplexDistLoss.kernel_spec = L2DistLoss.kernel_spec
 
 
 LOSSES: dict[str, Callable] = {
@@ -196,6 +207,7 @@ LOSSES: dict[str, Callable] = {
     "LogisticLoss": LogisticLoss,
     "LogitDistLoss": LogitDistLoss,
     "LogCoshLoss": LogCoshLoss,
+    "L2ComplexDistLoss": L2ComplexDistLoss,
     "ZeroOneLoss": ZeroOneLoss,
     "PerceptronLoss": PerceptronLoss,
     "L1HingeLoss": L1HingeLoss,

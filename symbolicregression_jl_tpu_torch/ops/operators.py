@@ -38,6 +38,7 @@ __all__ = [
     "is_builtin",
     "kernel_op_table",
     "scalar_impl",
+    "complexify_operator_set",
 ]
 
 
@@ -573,9 +574,48 @@ SCALAR_IMPLS: dict[str, Callable] = {
     "min": lambda x, y: _NAN if (_math.isnan(x) or _math.isnan(y)) else min(x, y),
 }
 
-#: scalar complex counterparts, used only by simplify's constant folding of
-#: complex constants (complex searches are outside this package's scope, but
-#: the copied folding code keeps its complex branch)
+# ---------------------------------------------------------------------------
+# Complex-plane variants (the JAX package's ``_COMPLEX_IMPLS``). The reference
+# evaluates complex datasets with the RAW functions: the real-line NaN guards
+# are unnecessary (log/sqrt/pow are total on the complex plane up to poles)
+# and their ``<`` comparisons are undefined for complex inputs; its preflight
+# rejects operators that are not complex-total or not type-stable (abs:
+# complex -> real is rejected here too). The torch functions run on the card
+# as well as on the CPU: unlike XLA:TPU, the card has complex arithmetic.
+# ---------------------------------------------------------------------------
+
+COMPLEX_IMPLS: dict[str, Callable] = {
+    "add": lambda x, y: x + y,
+    "sub": lambda x, y: x - y,
+    "mult": lambda x, y: x * y,
+    "div": lambda x, y: x / y,
+    "pow": lambda x, y: x**y,
+    "square": lambda x: x * x,
+    "cube": lambda x: x * x * x,
+    "neg": lambda x: -x,
+    "inv": lambda x: 1.0 / x,
+    "cos": torch.cos,
+    "sin": torch.sin,
+    "tan": torch.tan,
+    "exp": torch.exp,
+    "log": torch.log,
+    "log2": lambda x: torch.log(x) / np.log(2.0),
+    "log10": lambda x: torch.log(x) / np.log(10.0),
+    "log1p": torch.log1p,
+    "sqrt": torch.sqrt,
+    "cosh": torch.cosh,
+    "sinh": torch.sinh,
+    "tanh": torch.tanh,
+    "asin": torch.asin,
+    "acos": torch.acos,
+    "atan": torch.atan,
+    "asinh": torch.asinh,
+    "acosh": torch.acosh,
+    "atanh": torch.atanh,
+}
+
+#: scalar (host) counterparts of COMPLEX_IMPLS, for simplify's constant
+#: folding of complex constants: one scalar never pays a device dispatch
 COMPLEX_SCALAR_IMPLS: dict[str, Callable] = {
     "add": lambda x, y: x + y,
     "sub": lambda x, y: x - y,
@@ -585,12 +625,46 @@ COMPLEX_SCALAR_IMPLS: dict[str, Callable] = {
     "square": lambda x: x * x,
     "cube": lambda x: x * x * x,
     "neg": lambda x: -x,
+    "inv": lambda x: 1.0 / x if x != 0 else complex("nan"),
     "cos": _cmath.cos,
     "sin": _cmath.sin,
+    "tan": _cmath.tan,
     "exp": _cmath.exp,
     "log": _cmath.log,
+    "log2": lambda x: _cmath.log(x) / _math.log(2.0),
+    "log10": lambda x: _cmath.log(x) / _math.log(10.0),
+    "log1p": lambda x: _cmath.log(1.0 + x),
     "sqrt": _cmath.sqrt,
+    "cosh": _cmath.cosh,
+    "sinh": _cmath.sinh,
+    "tanh": _cmath.tanh,
+    "asin": _cmath.asin,
+    "acos": _cmath.acos,
+    "atan": _cmath.atan,
+    "asinh": _cmath.asinh,
+    "acosh": _cmath.acosh,
+    "atanh": _cmath.atanh,
 }
+
+
+def complexify_operator_set(opset: OperatorSet) -> OperatorSet:
+    """Swap every operator for its complex-plane implementation; raises for
+    operators with no complex-total, type-stable variant (mirrors the
+    reference preflight's rejection)."""
+
+    def conv(op: Operator) -> Operator:
+        fn = COMPLEX_IMPLS.get(op.name)
+        if fn is None:
+            raise ValueError(
+                f"operator {op.name!r} has no complex implementation "
+                f"(complex-capable: {sorted(COMPLEX_IMPLS)})"
+            )
+        return Operator(name=op.name, arity=op.arity, fn=fn, display=op.display)
+
+    return OperatorSet(
+        binary=[conv(op) for op in opset.binary],
+        unary=[conv(op) for op in opset.unary],
+    )
 
 
 def apply_np(fn: Callable, *args: np.ndarray) -> np.ndarray:

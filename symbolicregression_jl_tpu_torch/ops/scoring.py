@@ -7,7 +7,10 @@ trees against the dataset at once. Incomplete evaluations (NaN/Inf at the
 root) get ``inf`` loss (src/LossFunctions.jl:55-57).
 
 This is the path for what the fused CUDA loss kernel does not take (user
-operators or losses, f64); ``ops/interp_cuda.py`` holds the kernel path.
+operators or losses, f64, complex); ``ops/interp_cuda.py`` holds the kernel
+path. ``objective_loss`` scores a full objective
+(``Options.loss_function_jit``) on a prediction matrix, from whichever path
+made it.
 
 ``loss_to_score`` is host-side numpy:
 score = loss / max(baseline, 0.01) + complexity * parsimony
@@ -29,6 +32,8 @@ from .operators import OperatorSet
 __all__ = [
     "batched_loss",
     "batched_loss_bucketed",
+    "objective_loss",
+    "objective_loss_plain",
     "loss_to_score",
     "baseline_loss",
     "pad_rows_np",
@@ -89,6 +94,25 @@ def batched_loss_bucketed(
         return out
 
     return materialize
+
+
+def objective_loss(preds: torch.Tensor, y, weights, objective: Callable) -> torch.Tensor:
+    """Losses [P] under a full objective ``objective(preds [P, R], y [R],
+    weights [R] | None) -> [P]`` (``Options.loss_function_jit``): inf where
+    a tree's predictions are not all finite, whatever the objective returns
+    (the JAX package's ``ok = isfinite(preds).all(-1)``). Stays on preds'
+    device: no host sync."""
+    losses = objective(preds, y, weights)
+    ok = torch.isfinite(preds).all(dim=-1)
+    return torch.where(ok, losses, torch.inf)
+
+
+def objective_loss_plain(flat: FlatTrees, X, y, weights, opset: OperatorSet,
+                         objective: Callable) -> torch.Tensor:
+    """The JAX package's ``objective_loss_jit`` on the plain interpreter:
+    ``objective_loss`` of ``eval_trees`` (f64, complex and user operators;
+    ``interp_cuda.objective_losses`` takes B4 where the kernels run)."""
+    return objective_loss(eval_trees(flat, X, opset), y, weights, objective)
 
 
 def loss_to_score(

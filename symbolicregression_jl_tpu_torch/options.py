@@ -9,8 +9,9 @@ mirror the reference so search dynamics are comparable out of the box.
 
 ``Options`` resolves operators and losses to torch callables. One field is
 the port's own: ``device`` ("cuda" by default; tests pass "cpu"). Options
-that select a feature outside the port's first slice raise
-``NotImplementedError`` naming the ROADMAP.md item that will bring it.
+that select a feature not ported yet (slice 4: the async scheduler, row
+sharding, multi-host exchange policies) raise ``NotImplementedError``
+naming the ROADMAP.md item that will bring it.
 """
 
 from __future__ import annotations
@@ -81,16 +82,21 @@ class Options:
     """All search hyperparameters. Field names and defaults track the
     reference's Options constructor (SymbolicRegression.jl/src/Options.jl:379-453);
     the JAX package's own knobs are grouped at the bottom, with the port's
-    ``device``. Fields of features outside the port's first slice keep
-    their defaults and raise when set (``_reject_out_of_slice``)."""
+    ``device``. Fields of features not ported yet keep their defaults and
+    raise when set (``_reject_out_of_slice``)."""
 
     # -- operators & losses --------------------------------------------------
     binary_operators: Sequence[Any] = ("+", "-", "/", "*")
     unary_operators: Sequence[Any] = ()
     elementwise_loss: Any = None  # name | callable(pred, target [,weight]); default L2
     loss_function: Callable | None = None  # full-objective override (host-side)
-    # batched full objective over the prediction matrix (preds [B, R], y,
-    # weights) -> losses [B]; not ported yet (raises)
+    # batched full objective on torch tensors: objective(preds [P, R], y [R],
+    # weights [R] | None) -> losses [P], on the search's device. Trees whose
+    # predictions are not all finite score inf whatever it returns; constant
+    # optimization differentiates it with torch autograd, so it must be
+    # differentiable in preds, and the device engine runs it inside the
+    # evolve leg, so it must not sync with the host (no .item(), no Python
+    # branch on a tensor)
     loss_function_jit: Callable | None = None
 
     # -- complexity / constraints -------------------------------------------
@@ -247,6 +253,17 @@ class Options:
         _reject_out_of_slice(self)
         self.operators = resolve_operators(self.binary_operators, self.unary_operators)
         self.loss = resolve_loss(self.elementwise_loss)
+        if np.dtype(self.dtype).kind == "c":
+            # complex search (reference: test_abstract_numbers.jl): operators
+            # swap to their complex-plane variants and the default loss
+            # becomes |d|^2 — the loss type is the REAL base type, like the
+            # reference's Dataset loss-type promotion (src/Dataset.jl:165)
+            from .ops.losses import L2ComplexDistLoss
+            from .ops.operators import complexify_operator_set
+
+            self.operators = complexify_operator_set(self.operators)
+            if self.elementwise_loss is None:
+                self.loss = L2ComplexDistLoss
         if self.maxdepth is None:
             self.maxdepth = self.maxsize
         if self.loss_function is not None and self.loss_function_jit is not None:
@@ -438,20 +455,13 @@ def _not_ported(what: str, item: str):
 
 
 def _reject_out_of_slice(o: Options) -> None:
-    """Features outside the port's first slice raise instead of falling
-    back silently."""
+    """Features not ported yet raise instead of falling back silently."""
     if o.scheduler == "async":
         raise _not_ported("scheduler='async'", "A, slice 4: parallel/islands.py")
     if o.data_sharding is not None:
         raise _not_ported(f"data_sharding={o.data_sharding!r}", "A, slice 4: parallel/sharding.py")
     if o.on_peer_loss != "raise" or o.exchange_topology != "flat":
         raise _not_ported("multi-host exchange policies", "A, slice 4: parallel/")
-    if np.dtype(o.dtype).kind == "c":
-        raise _not_ported("complex dtypes", "A, slice 2: complex dtypes")
-    if o.loss_function_jit is not None:
-        raise _not_ported("loss_function_jit", "A, slice 2: loss_function_jit")
-    if o.graph_nodes:
-        raise _not_ported("graph_nodes", "A, slice 2: graph nodes")
 
 
 def _normalize_constraints(constraints, opset: OperatorSet):

@@ -253,13 +253,38 @@ class SRRegressor:
         import warnings
 
         X = np.asarray(X)
-        if X.dtype.kind == "c":
-            raise NotImplementedError(
-                "complex evaluation is not ported to the PyTorch package yet "
-                "(ROADMAP.md, A, slice 2: complex dtypes)"
-            )
+        # the FIT dtype decides the evaluation domain: a complex-fit model
+        # holds complex constants, and evaluating them on a real X would
+        # silently discard the imaginary parts
+        fit_options = getattr(self, "options_", None)
+        fit_complex = fit_options is not None and np.dtype(fit_options.dtype).kind == "c"
+        eval_complex = fit_complex or X.dtype.kind == "c"
         selected = list(zip(self._selected_rows(idx), self._results()))
-        X = X.astype(np.float64)
+        if X.dtype.kind == "c" and not fit_complex:
+            # complex X on a real fit is analytic continuation of the
+            # SELECTED equation(s): allowed when every operator actually in
+            # those trees has a complex implementation; otherwise eval_np
+            # would KeyError deep inside, so fail here with the ops named
+            from .ops.operators import COMPLEX_IMPLS
+
+            missing = set()
+            for (row, _rows), res in selected:
+                ops = res.options.operators
+                for n in row["member"].tree.postorder():
+                    if n.degree == 0:
+                        continue
+                    name = (ops.unary if n.degree == 1 else ops.binary)[n.op].name
+                    if name not in COMPLEX_IMPLS:
+                        missing.add(name)
+            if missing:
+                raise ValueError(
+                    "complex-valued X passed to predict, but this model was "
+                    f"fit with a real dtype and the selected equation uses "
+                    f"operators {sorted(missing)} that have no complex "
+                    "implementation; refit with Options(dtype='complex64' or "
+                    "'complex128') and a complex-capable operator set"
+                )
+        X = X.astype(np.complex128 if eval_complex else np.float64)
         preds = []
         for (row, _rows), res in selected:
             tree = row["member"].tree

@@ -449,7 +449,10 @@ class SearchServer:
     # -- drain (graceful handoff) ---------------------------------------------
     def pause_admission(self) -> None:
         """Stop workers from picking up queued jobs; running jobs are
-        unaffected. Reversible with :meth:`resume_admission`."""
+        unaffected. Reversible with :meth:`resume_admission`. Once this
+        returns, no job submitted after it starts until admission resumes:
+        a worker already waiting in the queue's ``acquire`` hands back what
+        it takes (``_worker_loop``)."""
         self._admission_paused.set()
 
     def resume_admission(self) -> None:
@@ -736,6 +739,13 @@ class SearchServer:
                     warm_buckets=self._warm_snapshot(), timeout=self.poll_seconds
                 )
                 if job is None:
+                    continue
+                if self._admission_paused.is_set():
+                    # paused while this worker waited in acquire: hand the
+                    # job back with its seq, so a bucket queued while paused
+                    # is still gathered whole when admission resumes
+                    self._queue.release(job)
+                    self._queue.resubmit(job)
                     continue
                 if self._stopping:
                     self._queue.release(job)

@@ -203,14 +203,17 @@ class Node:
         matching the reference's FEATURE_DIM=1/BATCH_DIM=2 layout
         (SymbolicRegression.jl src/ProgramConstants.jl:3-5). Each operator's
         torch fn runs on CPU tensors in X's dtype. Used as the golden oracle
-        for the batched interpreter and by ``SRRegressor.predict``."""
-        from .ops.operators import apply_np
+        for the batched interpreter and by ``SRRegressor.predict``. A complex
+        X evaluates each operator's complex-plane version by name
+        (``COMPLEX_IMPLS``), on the CPU too."""
+        from .ops.operators import COMPLEX_IMPLS, apply_np
 
         if X.dtype.kind == "c":
-            raise NotImplementedError(
-                "complex evaluation is outside the port's first slice "
-                "(ROADMAP.md, A, slice 2: complex dtypes)"
-            )
+            def fn_of(op):
+                return COMPLEX_IMPLS[op.name]
+        else:
+            def fn_of(op):
+                return op.fn
         post = self.postorder()
         vals: dict[int, np.ndarray] = {}
         with np.errstate(all="ignore"):
@@ -222,10 +225,10 @@ class Node:
                         else X[n.feat].astype(X.dtype)
                     )
                 elif n.degree == 1:
-                    v = apply_np(opset.unary[n.op].fn, vals[id(n.l)]).astype(X.dtype)
+                    v = apply_np(fn_of(opset.unary[n.op]), vals[id(n.l)]).astype(X.dtype)
                 else:
                     v = apply_np(
-                        opset.binary[n.op].fn, vals[id(n.l)], vals[id(n.r)]
+                        fn_of(opset.binary[n.op]), vals[id(n.l)], vals[id(n.r)]
                     ).astype(X.dtype)
                 vals[id(n)] = v
         return vals[id(post[-1])]

@@ -18,7 +18,10 @@ version: every integer output equal, float outputs to the same rtol. B4
 each operator alone equal to the plain version on every row. B2 and B4
 evaluate on the postfix stack: a row that is not stack-sound scores inf
 with zero gradients (B2) or predicts NaN (B4); two B2 launches on the same
-inputs give identical bits.
+inputs give identical bits. B2's seeded mode (``preds_vjp``) against its
+plain version: B2's gradient tolerance, and two launches give identical
+bits; a full objective on B4's predictions against B1: rtol 1e-5; complex
+operators on the card against the CPU: rtol 1e-4 (two libms).
 """
 
 import numpy as np
@@ -1058,3 +1061,164 @@ def test_wire_job_on_the_card(cuda, monkeypatch, block):
     got = [(compute_complexity(m.tree, opts), m.loss,
             m.tree.string_tree(opts.operators, precision=17)) for m in last.members]
     assert got == _frontier(want) and last.num_evals == want.num_evals
+
+
+# -- slice 2 on the card: objectives (B4, the seeded sweep), DAGs, complex ----------
+
+
+def _mse_objective(preds, y, w):
+    err = (preds - y[None, :]) ** 2
+    if w is None:
+        return err.mean(-1)
+    return (err * w[None, :]).sum(-1) / w.sum()
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["plain", "weighted"])
+def test_objective_through_b4_matches_b1(cuda, weighted):
+    """A weighted-MSE objective on B4's predictions gives B1's losses (the
+    same elementwise values; the sums' order differs: rtol 1e-5), with inf
+    on the same trees; one B4 launch, no B1 launch."""
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import objective_losses
+
+    opts = Options(binary_operators=list(BINARY_OPS), unary_operators=list(UNARY_OPS),
+                   maxsize=20, device="cuda")
+    prog, vals, X, y, w = _inputs(opts, 300, 1000, seed=21, device=cuda)
+    w = w if weighted else None
+    b1, b4 = fused_loss.launches, eval_trees_kernel.launches
+    got = objective_losses(prog, vals, X, y, w, opts.operators, _mse_objective)
+    assert fused_loss.launches == b1 and eval_trees_kernel.launches == b4 + 1
+    want = fused_loss(prog, vals, X, y, w, opts.operators, opts.loss)
+    torch.cuda.synchronize()
+    got, want = got.cpu().double().numpy(), want.cpu().double().numpy()
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    m = np.isfinite(want) & (np.abs(want) < 1e30)
+    assert m.sum() > 30
+    np.testing.assert_allclose(got[m], want[m], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n_rows", [1, 50, 1000, 10_000])
+def test_seeded_sweep_matches_plain_version(cuda, n_rows):
+    """``preds_vjp`` (B2's seeded mode) against ``preds_vjp_reference`` on a
+    random seed (B2's gradient tolerance; equal non-finite positions), one
+    launch counted on ``preds_vjp.launches`` and none on B2's;
+    two launches give identical bits; ``DiffPreds`` is one B4 launch forward
+    and one seeded launch backward."""
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import (
+        DiffPreds, preds_vjp, preds_vjp_reference,
+    )
+
+    opts = Options(binary_operators=list(BINARY_OPS), unary_operators=list(UNARY_OPS),
+                   maxsize=20, device="cuda")
+    prog, vals, X, y, w = _inputs(opts, 256, n_rows, seed=n_rows + 3, device=cuda)
+    seed = torch.randn((256, n_rows), generator=torch.Generator().manual_seed(n_rows)).to(cuda)
+    b2, v0 = fused_loss_grad.launches, preds_vjp.launches
+    got = preds_vjp(prog, vals, X, seed, opts.operators)
+    again = preds_vjp(prog, vals, X, seed, opts.operators)
+    assert preds_vjp.launches == v0 + 2 and fused_loss_grad.launches == b2
+    want = preds_vjp_reference(prog, vals, X, seed, opts.operators)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    # NaN only where the plain version has it (an inf - inf in a tree's sum)
+    assert_grads_close(got, want)
+    v = vals.clone().requires_grad_(True)
+    b4 = eval_trees_kernel.launches
+    preds = DiffPreds.apply(v, prog, X, opts.operators)
+    (gd,) = torch.autograd.grad(preds, v, seed)
+    assert eval_trees_kernel.launches == b4 + 1 and preds_vjp.launches == v0 + 3
+    ok = torch.isfinite(preds.detach()).all(-1)
+    assert torch.equal(gd[ok].view(torch.int32), got[ok].view(torch.int32))
+    assert bool((gd[~ok] == 0).all())
+
+
+def test_repointed_dag_batches_in_b1(cuda):
+    """Graph-node DAGs: B1 on the raw flattening scores the trees that are
+    not stack-sound inf; on ``stack_sound_pointers``' programs every tree
+    equals the plain version on the raw programs (rtol 1e-5)."""
+    from symbolicregression_jl_tpu_torch.models.mutation_functions import form_random_connection
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import stack_sound_pointers
+
+    opts = Options(binary_operators=["+", "-", "*", "/"], unary_operators=["cos", "exp"],
+                   maxsize=20, graph_nodes=True, device="cuda")
+    rng = np.random.default_rng(4)
+    trees = []
+    while len(trees) < 256:
+        t = gen_random_tree(int(rng.integers(2, 8)), opts.operators, 3, rng)
+        for _ in range(int(rng.integers(1, 4))):
+            t = form_random_connection(t, rng)
+        if t.count_nodes() <= opts.max_nodes:
+            trees.append(t)
+    flat = flatten_trees(trees, opts.max_nodes)
+    X = torch.from_numpy(rng.normal(size=(3, 1000)).astype(np.float32)).to(cuda)
+    y = torch.cos(X[0]).contiguous()
+    raw = [torch.from_numpy(a).to(cuda) for a in pack_programs_fused(flat, opts.operators)]
+    rep = [torch.from_numpy(a).to(cuda) for a in
+           pack_programs_fused(stack_sound_pointers(flat), opts.operators)]
+    got_raw = fused_loss(*raw, X, y, None, opts.operators, opts.loss)
+    got = fused_loss(*rep, X, y, None, opts.operators, opts.loss)
+    want = fused_loss_reference(*raw, X, y, None, opts.operators, opts.loss)
+    torch.cuda.synchronize()
+    lost = torch.isinf(got_raw) & torch.isfinite(want)
+    assert int(lost.sum()) >= 10
+    g, r = got.cpu().double().numpy(), want.cpu().double().numpy()
+    np.testing.assert_array_equal(np.isfinite(g), np.isfinite(r))
+    m = np.isfinite(r)
+    np.testing.assert_allclose(g[m], r[m], rtol=1e-5, atol=1e-6)
+
+
+def test_complex_operators_and_search_on_the_card(cuda):
+    """Every operator of the complex table runs on the card in complex64 and
+    agrees with the CPU (rtol 1e-4: the two libms); a complex lockstep
+    search runs on the card to a finite real loss."""
+    from symbolicregression_jl_tpu_torch import equation_search
+    from symbolicregression_jl_tpu_torch.ops.operators import COMPLEX_IMPLS
+
+    rng = np.random.default_rng(0)
+    a = (rng.normal(size=4096) + 1j * rng.normal(size=4096)).astype(np.complex64)
+    b = (rng.normal(size=4096) + 1j * rng.normal(size=4096)).astype(np.complex64)
+    for name, fn in COMPLEX_IMPLS.items():
+        args = (a, b) if name in ("add", "sub", "mult", "div", "pow") else (a,)
+        got = fn(*(torch.from_numpy(x).to(cuda) for x in args)).cpu().numpy()
+        want = fn(*(torch.from_numpy(x) for x in args)).numpy()
+        assert got.dtype == np.complex64
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5, err_msg=name)
+    X = a[None, :200]
+    y = ((2 - 0.5j) * np.cos((1 + 1j) * X[0])).astype(np.complex64)
+    opts = Options(binary_operators=["+", "*"], unary_operators=["cos"], dtype=np.complex64,
+                   populations=3, population_size=16, ncycles_per_iteration=20, maxsize=10,
+                   seed=0, save_to_file=False)
+    res = equation_search(X, y, options=opts, niterations=2, verbosity=0)
+    best = min(m.loss for m in res.pareto_frontier)
+    assert isinstance(best, float) and np.isfinite(best)
+
+
+def test_device_engine_under_an_objective_on_the_card(cuda, monkeypatch):
+    """The engine under an objective on the card: the event leg (the block
+    off), B4 launches equal to its scoring calls plus its gradient calls
+    (each gradient's forward), seeded sweeps equal to its gradient calls,
+    no B1, B2 or B3 launch; every frontier loss is the MSE of its tree
+    (rtol 2e-4, atol 1e-6: a planted fit's loss is near 0)."""
+    from symbolicregression_jl_tpu_torch import equation_search
+    from symbolicregression_jl_tpu_torch.ops.evolve_block_cuda import evolve_block
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import preds_vjp
+
+    monkeypatch.delenv("SR_ENGINE_BLOCK", raising=False)
+    rng = np.random.default_rng(1)
+    X = rng.normal(size=(2, 500)).astype(np.float32)
+    y = (2 * np.cos(X[1]) + X[0] ** 2 - 2).astype(np.float32)
+    opts = Options(binary_operators=["+", "-", "*"], unary_operators=["cos"],
+                   loss_function_jit=_mse_objective, populations=4, population_size=20,
+                   ncycles_per_iteration=10, maxsize=12, seed=0, scheduler="device",
+                   save_to_file=False)
+    counts = [w.launches for w in (fused_loss, fused_loss_grad, evolve_block,
+                                   eval_trees_kernel, preds_vjp)]
+    res = equation_search(X, y, options=opts, niterations=2, verbosity=0)
+    torch.cuda.synchronize()
+    d = [w.launches - c for w, c in zip((fused_loss, fused_loss_grad, evolve_block,
+                                        eval_trees_kernel, preds_vjp), counts)]
+    st = res.engine_stats
+    assert st["block"] is None and d[:3] == [0, 0, 0]
+    assert st["score_calls"] > 0 and d[4] == st["grad_calls"] > 0
+    assert d[3] == st["score_calls"] + st["grad_calls"]
+    for m in res.pareto_frontier:
+        want = float(np.mean((m.tree.eval_np(X, opts.operators) - y) ** 2))
+        np.testing.assert_allclose(m.loss, want, rtol=2e-4, atol=1e-6)

@@ -217,6 +217,47 @@ void b2(const int* prog, int P, int N, const float* vals, const int* optab, cons
   free(tape);
 }
 
+// B2's seeded mode on the core: the tape-mode decode, then each thread's
+// tiles through tile_seed_grad (forward on the tape, root adjoints from the
+// tree's row of seed [P, R], reverse sweep), each thread summing its
+// constants' adjoints per slot in f64; the threads' sums are added in thread
+// order. grads [P, N]: the sum where every prediction of the tree is
+// finite, else 0.
+template <int RPT>
+void b2v(const int* prog, int P, int N, const float* vals, const int* optab, const float* X,
+         long long ldx, const float* seed, int R, int gs, float* grads) {
+  struct Sink {
+    double* g;
+    void operator()(int i, double s) { g[i] += s; }
+  };
+  const int stride = gs * RPT;
+  std::vector<sr::Instr> ins(N > 0 ? N : 1);
+  std::vector<int> st(sr::stack_slots(N));
+  const size_t n_tape = (size_t)N * stride + 4;
+  float* tape = static_cast<float*>(aligned_alloc(16, sizeof(float) * ((n_tape + 3) / 4 * 4)));
+  for (int p = 0; p < P; ++p) {
+    const int len = sr::decode_code(prog + (long long)p * (4 * N + 1), N, optab,
+                                    vals + (long long)p * N, stride, st.data(), ins.data(), true);
+    std::vector<sr::Acc> acc(gs, sr::Acc{0.0, 0.0, 0.0});
+    std::vector<double> gsum((size_t)gs * N, 0.0);
+    for (int base = 0; base < R; base += stride)
+      for (int gt = 0; gt < gs; ++gt) {
+        Sink sink{gsum.data() + (size_t)gt * N};
+        sr::tile_seed_grad<RPT, sr::kTree>(ins.data(), len, tape + gt * RPT, stride, X, ldx,
+                                           seed + (long long)p * R, base + gt, gs, R, R,
+                                           acc[gt], sink);
+      }
+    double C = 0.0;
+    for (int gt = 0; gt < gs; ++gt) C += acc[gt].n;
+    for (int i = 0; i < N; ++i) {
+      double G = 0.0;
+      for (int gt = 0; gt < gs; ++gt) G += gsum[(size_t)gt * N + i];
+      grads[(long long)p * N + i] = C == 0.0 ? (float)G : 0.0f;
+    }
+  }
+  free(tape);
+}
+
 template <int RPT>
 void b3(const int* words, const float* consts, const int* length, int P, int N, int F,
         int n_unary, int n_binary, const int* optab, const float* X, long long ldx,
@@ -254,6 +295,13 @@ void h_b2(int rpt, int tree, const int* prog, int P, int N, const float* vals,
     b2<r, sr::kSwitch>(prog, P, N, vals, optab, X, ldx, y, w, R, loss_id, q, gs, out, grads);
   SR_B2(1) SR_B2(2) SR_B2(4)
 #undef SR_B2
+}
+
+void h_b2v(int rpt, const int* prog, int P, int N, const float* vals, const int* optab,
+           const float* X, long long ldx, const float* seed, int R, int gs, float* grads) {
+  if (rpt == 1) b2v<1>(prog, P, N, vals, optab, X, ldx, seed, R, gs, grads);
+  if (rpt == 2) b2v<2>(prog, P, N, vals, optab, X, ldx, seed, R, gs, grads);
+  if (rpt == 4) b2v<4>(prog, P, N, vals, optab, X, ldx, seed, R, gs, grads);
 }
 
 // The instructions decode_code gives one packed row, on the stack or on a
@@ -590,6 +638,76 @@ def test_core_grads_match_jax_and_plain(core, rpt, n_rows, weighted, ops):
     _assert_grads_close(np.where(const, gk, 0.0), gj, keep, 1e-5)
 
 
+def _core_b2v(core, rpt, topts, prog, vals, X, seed, gs=32):
+    """B2's seeded walk on the core: grads [P, N]."""
+    optab = kernel_op_table(topts.operators).astype(np.int32)
+    P, L = prog.shape
+    N, R = (L - 1) // 4, X.shape[1]
+    grads = np.full((P, N), np.nan, np.float32)
+    core.h_b2v(ctypes.c_int(rpt), _p(np.ascontiguousarray(prog)), ctypes.c_int(P),
+               ctypes.c_int(N), _p(vals), _p(optab), _p(np.ascontiguousarray(X)),
+               ctypes.c_longlong(R), _p(np.ascontiguousarray(seed)), ctypes.c_int(R),
+               ctypes.c_int(gs), _p(grads))
+    return grads
+
+
+@pytest.mark.parametrize("ops", ["config3", "every"])
+@pytest.mark.parametrize("n_rows", [1, 33, 1000])
+@pytest.mark.parametrize("rpt", [1, 2, 4])
+def test_core_seeded_sweep_matches_autograd(core, rpt, n_rows, ops):
+    """B2's seeded mode (``preds_vjp``): the tape forward and the reverse
+    sweep from a random cotangent on the predictions, against
+    ``preds_vjp_reference`` and against torch autograd of the plain
+    interpreter (``eval_plan``, the differentiable ``eval_trees``) with that
+    cotangent as ``grad_outputs``, over every built-in operator; gradients
+    only on constant slots, zero on every slot of a tree with a non-finite
+    prediction. Tolerance: the B2 gradient rule above (rtol 1e-4 plus 1e-6
+    times the tree's largest finite gradient), every tree of the config3
+    corpus, the well-conditioned trees of the every-operator one."""
+    from symbolicregression_jl_tpu_torch.ops.interp import eval_plan, make_plan
+
+    jopts, topts, jflat, prog, vals, X, y, w = _case(ops, n_rows)
+    seed = np.random.default_rng(n_rows + rpt).normal(size=(len(prog), n_rows)).astype(
+        np.float32)
+    gk = _core_b2v(core, rpt, topts, prog, vals, X, seed)
+    tp, tv, tX, ts = (torch.from_numpy(a) for a in (prog, vals, X, seed))
+    gr = ic.preds_vjp_reference(tp, tv, tX, ts, topts.operators).numpy()
+    flat = convert.flat_trees(jflat)
+    v = tv.clone().requires_grad_(True)
+    pred = eval_plan(make_plan(flat, topts.operators, "cpu"), v, tX)
+    (ga,) = torch.autograd.grad(pred, v, ts)
+    ok = torch.isfinite(pred.detach()).all(-1, keepdim=True)
+    ga = torch.where(ok, ga, 0.0).numpy()
+    const = np.asarray(jflat.kind) == 1
+    np.testing.assert_array_equal(gk[~const], 0.0)
+    np.testing.assert_array_equal(gk[~ok.numpy()[:, 0]], 0.0)
+    keep = np.ones(len(prog), bool) if ops == "config3" else _well_conditioned(
+        jopts, topts, jflat, X)
+    assert keep.sum() >= 20 and (gk[keep][const[keep]] != 0).sum() >= 10
+    _assert_grads_close(gk, gr, keep, GRAD_SCALE_ATOL)
+    _assert_grads_close(gk, ga, keep, GRAD_SCALE_ATOL)
+
+
+def test_core_seeded_sweep_unsound_rows(core):
+    """A row that is not stack-sound gets zero gradients from the seeded
+    sweep; the batch's other rows keep the plain version's."""
+    jopts, topts, jflat, prog, vals, X, y, w = _case("config3", 33)
+    N = (prog.shape[1] - 1) // 4
+    length = prog[:, 4 * N]
+    root = prog[np.arange(len(prog)), length - 1]
+    swapped = np.nonzero((length > 1) & (root >= 2 + topts.operators.n_unary))[0][0]
+    bad = prog.copy()
+    i = length[swapped] - 1
+    bad[swapped, N + i], bad[swapped, 2 * N + i] = prog[swapped, 2 * N + i], prog[swapped, N + i]
+    seed = np.random.default_rng(3).normal(size=(len(prog), 33)).astype(np.float32)
+    gk = _core_b2v(core, 4, topts, bad, vals, X, seed)
+    gr = ic.preds_vjp_reference(*(torch.from_numpy(a) for a in (prog, vals, X, seed)),
+                                topts.operators).numpy()
+    assert (gk[swapped] == 0).all() and (gr[swapped] != 0).any()
+    rest = np.arange(len(prog)) != swapped
+    _assert_grads_close(gk, gr, rest, GRAD_SCALE_ATOL)
+
+
 def test_core_grads_dispatch_tree_equals_switch(core):
     """The reverse sweep's two dispatches run the same derivatives: the tree
     and the switch give identical bits."""
@@ -675,7 +793,8 @@ def _sound(core, topts, prog, vals):
     return sound.astype(bool)
 
 
-@pytest.mark.parametrize("path", ["lockstep", "device-events", "device-block"])
+@pytest.mark.parametrize("path", ["lockstep", "device-events", "device-block",
+                                  "lockstep-graph"])
 def test_main_path_batches_decode_sound(core, monkeypatch, path):
     """B1 and B2 evaluate on the postfix stack, so they score a program whose
     children are not the stack's top entries as inf (B2 with zero
@@ -685,7 +804,8 @@ def test_main_path_batches_decode_sound(core, monkeypatch, path):
     ``flatten_trees``), and the device engine's ``pack_batch`` of its state
     (initial scoring, event-leg candidates, constant optimization's line
     searches and its gradients through ``DiffLoss``, simplify rescoring), on
-    the event leg and on the block (its plain version here)."""
+    the event leg and on the block (its plain version here), and lockstep
+    scoring of graph-node DAGs after ``stack_sound_pointers``."""
     import symbolicregression_jl_tpu_torch.models.device_search as ds
     import symbolicregression_jl_tpu_torch.models.scorer as scorer_mod
 
@@ -706,11 +826,12 @@ def test_main_path_batches_decode_sound(core, monkeypatch, path):
     opts = T.Options(binary_operators=["+", "-", "*", "/"], unary_operators=["cos", "exp"],
                      populations=2, population_size=16, ncycles_per_iteration=10, maxsize=14,
                      seed=1, save_to_file=False, progress=False, device="cpu",
-                     scheduler="lockstep" if path == "lockstep" else "device")
+                     graph_nodes=path == "lockstep-graph",
+                     scheduler="device" if path.startswith("device") else "lockstep")
     T.equation_search(X, y, options=opts, niterations=2, verbosity=0)
     assert len(seen) >= 3
     # constant optimization's gradients: B2 on the device engine only
-    assert (len(seen_grad) >= 2) == (path != "lockstep")
+    assert (len(seen_grad) >= 2) == path.startswith("device")
     rows = 0
     for prog, vals in seen + seen_grad:
         sound = _sound(core, opts, prog, vals)

@@ -154,9 +154,6 @@ def test_port_and_smoke_import_no_jax():
         dict(scheduler="async"),
         dict(data_sharding="rows"),
         dict(exchange_topology="ring"),
-        dict(dtype=np.complex64),
-        dict(loss_function_jit=lambda p, y, w: p.mean(-1)),
-        dict(graph_nodes=True),
         dict(on_peer_loss="continue"),
     ],
     ids=lambda kw: next(iter(kw)),
@@ -166,12 +163,35 @@ def test_out_of_slice_options_raise(kwargs):
         T.Options(device="cpu", **kwargs)
 
 
-def test_out_of_slice_entry_points_raise():
-    X = np.zeros((1, 4), np.complex64)
-    y = np.zeros(4, np.float32)
-    opts = T.Options(device="cpu", save_to_file=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, A, slice 2: complex dtypes"):
-        T.equation_search(X, y, options=opts)
+@pytest.mark.parametrize(
+    "kwargs",
+    [
+        dict(dtype=np.complex64),
+        dict(loss_function_jit=lambda p, y, w: p.mean(-1)),
+        dict(graph_nodes=True),
+    ],
+    ids=lambda kw: next(iter(kw)),
+)
+def test_slice2_options_construct(kwargs):
+    """The slice-2 features build, as the JAX package's Options do."""
+    opts = T.Options(device="cpu", **kwargs)
+    jopts = J.Options(**kwargs)
+    for k, v in kwargs.items():
+        assert getattr(opts, k) is v or getattr(opts, k) == v
+    assert [op.name for op in opts.operators.binary] == [
+        op.name for op in jopts.operators.binary]
+    assert opts.should_simplify == jopts.should_simplify
+
+
+def test_complex_equation_search_runs_on_cpu():
+    rng = np.random.default_rng(0)
+    X = (rng.normal(size=(1, 32)) + 1j * rng.normal(size=(1, 32))).astype(np.complex64)
+    y = ((1 + 2j) * X[0]).astype(np.complex64)
+    opts = T.Options(binary_operators=["+", "*"], dtype=np.complex64, populations=2,
+                     population_size=10, ncycles_per_iteration=5, maxsize=6, seed=0,
+                     save_to_file=False, device="cpu")
+    res = T.equation_search(X, y, options=opts, niterations=1, verbosity=0)
+    assert np.isfinite(min(m.loss for m in res.pareto_frontier))
 
 
 @pytest.mark.parametrize(

@@ -601,6 +601,29 @@ def test_served_job_equals_direct_run(block, tmp_path):
             m.loss for m in want.pareto_frontier)
 
 
+def test_pause_admission_holds_jobs_submitted_after_it():
+    """Once ``pause_admission`` returns, no worker takes a job submitted
+    after it, even a worker that was already waiting in the queue's
+    acquire (a coalesced fleet's lead once started alone that way, its
+    mates submitted after it); the job starts when admission resumes."""
+    X, y = _problem(n=40)
+    with SearchServer(max_concurrency=2, fleet=True, fleet_window_s=0.0,
+                      default_quota=8) as srv:
+        for k in range(4):
+            time.sleep(0.05)  # both workers idle, one of them inside acquire
+            srv.pause_admission()
+            jid = srv.submit(_spec(X, y, options=_opts(scheduler="lockstep", seed=k)))
+            time.sleep(3 * srv.poll_seconds)
+            # a worker that took it while waiting in acquire hands it back
+            # at once: it is queued again and never started
+            deadline = time.monotonic() + 5.0
+            while srv.job(jid).state != serve.QUEUED and time.monotonic() < deadline:
+                time.sleep(0.01)
+            assert srv.job(jid).state == serve.QUEUED and srv.job(jid).started_at is None
+            srv.resume_admission()
+            assert srv.wait(jid, timeout=TIMEOUT).state == DONE
+
+
 @LEGS
 def test_server_coalesces_same_bucket_jobs(block, tmp_path):
     """Same-bucket jobs with distinct seeds, queued together, run as ONE
