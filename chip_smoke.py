@@ -179,7 +179,35 @@ JAX or of the JAX package. Phases, each of which raises on failure:
    rows on lockstep on the card to JAX's 1e-2 bar, every complex operator
    on the card against the CPU, ``SRRegressor.predict`` on a complex X.
    Its launches are the paths ``objective device``, ``objective
-   lockstep``, ``graph nodes`` and ``complex``.
+   lockstep``, ``graph nodes`` and ``complex``;
+14. ``scale_out``, slice 4's multi-process search (``parallel/``): (a) a
+   world of 2 over ``initialize()`` (a TCPStore on 127.0.0.1 hosted by
+   rank 0, gloo), both children on the one card, each the device engine on
+   50 of config3's 100 islands, ENGINE_ITERATIONS x ENGINE_CYCLES on the
+   block: identical halls of fame, B3 once per iteration in each, B1 and
+   B2 counted against each engine's calls, B3 on rank 0's last launch and
+   B1 and B2 on its frontier against their plain versions; per process the
+   leg ms per iteration, the payload bytes, evals/s and the card's busy
+   share under torch.profiler, phase 5's solo run beside them; (b) the
+   elastic drill (``SR_COORD_DIR``, ``on_peer_loss="rejoin"``) at config3
+   width, ELASTIC_ITERATIONS x ELASTIC_CYCLES: a no-fault run, then rank 1
+   killed by ``peer_death`` (exit 43) while rank 0 is paced by
+   ``slow_peer``, restarted with ``SR_ELASTIC_JOIN=1``: the leave and the
+   rejoin land on distinct, ordered epochs, the survivor ends with no dead
+   peer, both sides' best within 100x of the no-fault run's (JAX's drill's
+   bar); the detection ms, epochs and the joiner's admission-to-first-
+   exchange ms; (c) ``scheduler="async"`` on config3, 100 x 100, 1 x
+   ASYNC_CYCLES, in a child started first that runs beside (a), (b) and
+   (d) (its cost is one constant optimization per work unit, which no cut
+   of cycles removes): B1 launches equal the scorer's dispatches, the head
+   occupancy; (d) ``make_sharded_loss`` over [cuda:0, cuda:0] at
+   ROWS_SHARDED rows x 1,024 programs, weighted and not, against one B1
+   call and the plain version, both timed, and lockstep with
+   ``data_sharding="rows"`` equal to the unsharded search bit for bit. The
+   children load the libraries phase 1 built and import nothing of JAX
+   (``_check_child_builds``); each prints its launches, which are the
+   paths ``scale_out``, ``elastic`` and ``async``; the parent's are
+   ``rows``.
 
 Every launch count in the kernels line is measured: each path sets the
 counts of B1-B4 and B2v to 0 just before it runs and reads all five just
@@ -239,6 +267,16 @@ FLEET_CHECK_LANES = 3
 # after COMPLEX_ITERATIONS iterations (seed COMPLEX_SEED)
 FEATURES_LOCKSTEP_CYCLES = 50
 COMPLEX_ITERATIONS, COMPLEX_SEED = 8, 0
+# phase 14 (scale_out), cut in depth only: (b) the elastic drill runs
+# ELASTIC_ITERATIONS x ELASTIC_CYCLES (of 550 cycles) with rank 1 killed at
+# ELASTIC_KILL_AT and the survivor paced ELASTIC_PACE_MS a post, so that a
+# restart lands mid-run; (c) the async scheduler runs 1 x ASYNC_CYCLES; (d)
+# the row-sharded loss on ROWS_SHARDED rows (BASELINE.json config 5's
+# scale), the data_sharding lockstep check 1 x ROWS_LOCKSTEP_CYCLES
+ELASTIC_ITERATIONS, ELASTIC_CYCLES, ELASTIC_KILL_AT = 20, 20, 2
+ELASTIC_PACE_MS, ELASTIC_KV_TIMEOUT_MS = 300, 5000
+ASYNC_CYCLES = 10
+ROWS_SHARDED, ROWS_LOCKSTEP_CYCLES = 1_000_000, 3
 
 # H100 SXM peaks (NVIDIA data sheet; at the 700 W power limit)
 PEAK_F32_FLOPS = 67e12
@@ -1363,6 +1401,7 @@ def engine_path(device, lockstep=None, block=True, iterations=ENGINE_ITERATIONS,
     stats = {"ms_per_cycle": evolve_s / n_cycles * 1e3,
              "evals_per_s": res.num_evals / res.iteration_seconds,
              "main_loop_s": res.iteration_seconds,
+             "best": min(m.loss for m in front),
              "leg_walls_ms": {n: [w * 1e3 for w in ws] for n, ws in walls.items()}}
     print(f"config3 device engine, {leg_name}: {populations}x{population_size}, {rows} rows, "
           f"{iterations} iterations x {cycles} cycles (cut from 550; the last under "
@@ -3462,13 +3501,14 @@ class _Child:
         self.proc.wait(timeout=60)
 
 
-def _check_child_builds(stopped, parent_builds):
-    """The restarted child ran the card's kernels (B1 and B3 loaded) from
-    the libraries phase 1 built, and imported nothing of JAX."""
+def _check_child_builds(stopped, parent_builds, tag="net (c): the restarted child",
+                        need=("fused_loss", "evolve_block")):
+    """The child ran the card's kernels (those of ``need`` loaded) from the
+    libraries phase 1 built, and imported nothing of JAX."""
     libs = stopped["libraries"]
-    if stopped["jax"] or not {"fused_loss", "evolve_block"} <= set(libs) or any(
+    if stopped["jax"] or not set(need) <= set(libs) or any(
             parent_builds.get(k) != v for k, v in libs.items()):
-        _fail(f"net (c): the restarted child loaded {libs} (phase 1 built {parent_builds}); "
+        _fail(f"{tag} loaded {libs} (phase 1 built {parent_builds}); "
               f"a JAX module imported: {stopped['jax']}")
 
 
@@ -4137,6 +4177,579 @@ def features_path(device, lockstep_stats):
     return b2v, paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: scale_out, the multi-process search (parallel/)
+# ---------------------------------------------------------------------------
+
+_SCALE_CHILD = """
+import json, sys, time
+t0 = time.perf_counter()
+sys.path.insert(0, {root!r})
+import chip_smoke
+from symbolicregression_jl_tpu_torch.parallel import distributed
+mode, rank, spec = sys.argv[1], int(sys.argv[2]), json.loads(sys.argv[3])
+if mode == "world":
+    distributed.initialize(coordinator_address=spec["address"], num_processes=2,
+                           process_id=rank)
+child = chip_smoke.async_child if mode == "async" else chip_smoke.scale_child
+out = child(rank, spec, time.perf_counter() - t0)
+print("RESULT " + json.dumps(out), flush=True)
+"""
+
+
+def _frontier_text(res, options):
+    return ";".join(f"{m.get_complexity(options)}:{m.loss!r}" for m in sorted(
+        res.hall_of_fame.pareto_frontier(), key=lambda m: m.get_complexity(options)))
+
+
+def scale_child(rank, spec, import_s):
+    """One process of phase 14 (a) or (b), in a child of the smoke: the
+    config3 search of ``spec`` (device, cycles, iterations, extra Options)
+    on this process's islands, every evolve and const-opt leg timed between
+    synchronizations; with ``spec["profile"]`` the search runs under
+    torch.profiler (CUDA activity) for the card's busy share of the wall;
+    with ``spec["check"]`` B3 on the engine's last launch's inputs (8
+    cycles) and B1 and B2 on the frontier's trees are held against their
+    plain versions afterwards (not counted). Returns a dict of what the
+    parent prints and checks: frontier, losses, launches (each checked
+    against the engine's calls here), leg ms per iteration, payload bytes,
+    the libraries loaded, whether a JAX module was imported, and for a
+    joiner the ms from its admission to its first exchange."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import symbolicregression_jl_tpu_torch.models.device_search as ds
+    from symbolicregression_jl_tpu_torch import equation_search
+    from symbolicregression_jl_tpu_torch.ops import interp_cuda
+    from symbolicregression_jl_tpu_torch.ops.evolve_block_cuda import (
+        evolve_block, evolve_block_reference,
+    )
+    from symbolicregression_jl_tpu_torch.ops.flat import flatten_trees
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import (
+        fused_loss, fused_loss_grad, fused_loss_grad_reference, fused_loss_reference,
+        pack_programs_fused,
+    )
+    from symbolicregression_jl_tpu_torch.parallel import distributed as dist
+    from symbolicregression_jl_tpu_torch.parallel import membership
+
+    device = torch.device(spec["device"])
+    X, y = config3_data(n_rows=spec.get("rows", CONFIG3_ROWS))
+    options = _config3_options(device, 0, cycles=spec["cycles"], **spec.get("options", {}))
+    marks = {}
+    real_join, real_exchange = membership.ExchangeGroup.join, membership.ExchangeGroup.exchange
+
+    def join(self, *a, **k):
+        out = real_join(self, *a, **k)
+        marks["admitted"] = time.perf_counter()
+        return out
+
+    def exchange(self, *a, **k):
+        out = real_exchange(self, *a, **k)
+        if "admitted" in marks and "first_exchange" not in marks:
+            marks["first_exchange"] = time.perf_counter()
+        return out
+
+    membership.ExchangeGroup.join, membership.ExchangeGroup.exchange = join, exchange
+    on_card = device.type == "cuda"
+    wrap, walls, _ = _leg_timer(0, trace=())
+    # the first evolve leg runs with host syncs made errors, as phase 5's
+    wrap, checked = _first_evolve_no_sync(wrap)
+    if on_card:
+        ds._LEG_WRAP = wrap
+    with (engine_block_env(True) if on_card else contextlib.nullcontext()), \
+            _block_launches() as b3_args, (
+            profile(activities=[ProfilerActivity.CUDA]) if spec.get("profile") and on_card
+            else contextlib.nullcontext()) as prof:
+        zero_launches()
+        t0 = time.perf_counter()
+        res = equation_search(X, y, options=options, niterations=spec["iterations"],
+                              verbosity=0)
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+    st = res.engine_stats
+    its = st["iterations"]
+    b1, b2, b3 = counts[:3]
+    if on_card and (b1 != st["score_calls"] or b1 == 0 or b2 != st["grad_calls"]):
+        raise RuntimeError(f"rank {rank}: B1 {b1} for {st['score_calls']} scoring calls, "
+                           f"B2 {b2} for {st['grad_calls']} gradient calls")
+    if on_card and not checked:
+        raise RuntimeError(f"rank {rank}: the evolve leg ran without the host-sync check")
+    if on_card and (st["block"] != "kernel" or b3 != its):
+        raise RuntimeError(f"rank {rank}: evolve leg {st['block']!r}, {b3} B3 launches in "
+                           f"{its} iterations")
+    front = res.pareto_frontier
+    if not front or not all(np.isfinite(m.loss) for m in front):
+        raise RuntimeError(f"rank {rank}: the frontier is empty or not finite")
+    busy = None
+    if prof is not None:
+        busy = 0.0
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total", None)
+            busy += (getattr(ev, "self_cuda_time_total", 0.0) if us is None else us) * 1e-6
+    errs = {}
+    if spec.get("check") and on_card:
+        saved = read_launches()
+        opset, N, loss = options.operators, options.max_nodes, options.loss
+        args = next(iter(b3_args.values()))[1]
+        cfg = dataclasses.replace(args[14], ncycles=8)
+        args = (*args[:14], cfg, *args[15:])
+        errs["evolve_block"] = compare_block(f"scale_out rank {rank}: B3",
+                                             evolve_block(*args), evolve_block_reference(*args))
+        Xd, yd = torch.from_numpy(X).to(device), torch.from_numpy(y).to(device)
+        prog, vals = (torch.from_numpy(a).to(device) for a in pack_programs_fused(
+            flatten_trees([m.tree for m in front], N), opset))
+        got = fused_loss(prog, vals, Xd, yd, None, opset, loss)
+        gl, gg = fused_loss_grad(prog, vals, Xd, yd, None, opset, loss)
+        rl, rg = fused_loss_grad_reference(prog, vals, Xd, yd, None, opset, loss)
+        errs["fused_loss"] = compare(f"scale_out rank {rank}: B1 on the frontier", got,
+                                     fused_loss_reference(prog, vals, Xd, yd, None, opset, loss))
+        errs["fused_loss_grad"] = max(compare(f"scale_out rank {rank}: B2", gl, rl),
+                                      compare_grads(f"scale_out rank {rank}: B2", gg, rg))
+        for w, n in zip(_kernel_wrappers(), saved):
+            w.launches = n
+    host = st["host_seconds"]
+    legs = {k: [x * 1e3 for x in v] for k, v in walls.items()}
+    legs["exchange"] = host.get("exchange", 0.0) * 1e3 / max(its, 1)
+    return {
+        "rank": rank, "best": min(m.loss for m in front), "frontier": _frontier_text(res, options),
+        "no_sync_checked": bool(checked),
+        "num_evals": res.num_evals, "iterations": its, "main_loop_s": res.iteration_seconds,
+        "setup_s": res.setup_seconds, "wall_s": wall, "import_s": import_s,
+        "evals_per_s": res.num_evals / res.iteration_seconds,
+        "busy": None if busy is None else busy / wall, "launches": list(counts),
+        "legs_ms": legs, "exchange_bytes": st.get("exchange_bytes"),
+        "islands": st.get("islands"), "epoch": st.get("epoch"), "live": st.get("live"),
+        "dead": sorted(dist.dead_peers()), "errs": errs,
+        "admit_to_exchange_ms": ((marks["first_exchange"] - marks["admitted"]) * 1e3
+                                 if "first_exchange" in marks else None),
+        "libraries": {k: v["library"] for k, v in interp_cuda.BUILD_INFO.items()},
+        "jax": any(m == "jax" or m.startswith(("jax.", "symbolicregression_jl_tpu."))
+                   for m in sys.modules),
+    }
+
+
+def _spawn_scale(script, mode, rank, spec, env, log=None):
+    """A child of phase 14; with ``log`` its output goes to that file (a
+    child the parent does not read until much later must not fill a
+    pipe)."""
+    out = open(log, "w") if log else subprocess.PIPE
+    try:
+        proc = subprocess.Popen([sys.executable, script, mode, str(rank), json.dumps(spec)],
+                                stdout=out, stderr=subprocess.STDOUT, text=True, env=env,
+                                cwd=os.path.dirname(script))
+    finally:
+        if log:
+            out.close()
+    proc.log = log
+    return proc
+
+
+def _scale_results(tag, procs, timeout=300, codes=None):
+    """Each child's RESULT dict (None for one that exited with its expected
+    non-zero code); a child past ``timeout`` is killed and fails the smoke."""
+    outs = []
+    for i, p in enumerate(procs):
+        try:
+            out, _ = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            _fail(f"{tag}: child {i} still running after {timeout} s")
+        if p.log:
+            with open(p.log) as f:
+                out = f.read()
+        want = 0 if codes is None else codes[i]
+        if p.returncode != want:
+            _fail(f"{tag}: child {i} exited {p.returncode} (expected {want}); its last "
+                  f"lines:\n" + "\n".join(out.splitlines()[-30:]))
+        line = next((ln for ln in out.splitlines() if ln.startswith("RESULT ")), None)
+        if want == 0 and line is None:
+            _fail(f"{tag}: child {i} printed no RESULT:\n" + out[-3000:])
+        outs.append(json.loads(line[len("RESULT "):]) if line else None)
+    return outs
+
+
+def _scale_env(**kw):
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("SR_FAULT_SPEC", "SR_ENGINE_BLOCK", "SR_ELASTIC", "SR_COORD",
+                                "SR_KV_"))}
+    env.update({k: str(v) for k, v in kw.items()})
+    return env
+
+
+def _add_launches(total, outs):
+    for o in outs:
+        if o is not None:
+            total[:] = [a + b for a, b in zip(total, o["launches"])]
+    return total
+
+
+def _free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def scale_world(device, script, solo, parent_builds, iterations=ENGINE_ITERATIONS,
+                cycles=ENGINE_CYCLES):
+    """Phase 14 (a): a world of 2 over ``initialize()`` (a TCPStore on
+    127.0.0.1 hosted by rank 0, gloo), both processes on the one card, each
+    the device engine on 50 of config3's 100 islands, ``iterations`` x
+    ``cycles`` on the block. Both must end with identical halls of fame;
+    each launched B3 once per iteration. Per process: leg ms per iteration
+    (their kernels share the card, so each includes the other's work), the
+    payload bytes, evals/s and the card's busy share of its wall; phase 5's
+    solo run beside them. Returns the children's launches."""
+    spec = {"device": device.type, "cycles": cycles, "iterations": iterations,
+            "address": f"127.0.0.1:{_free_port()}", "profile": True, "check": True,
+            "rows": CONFIG3_ROWS}
+    t0 = time.perf_counter()
+    outs = _scale_results("scale_out (a)", [_spawn_scale(script, "world", r, spec, _scale_env())
+                                            for r in (0, 1)])
+    wall = time.perf_counter() - t0
+    for o in outs:
+        _check_child_builds(o, parent_builds, tag=f"scale_out (a): rank {o['rank']}")
+    if outs[0]["frontier"] != outs[1]["frontier"]:
+        _fail(f"scale_out (a): the halls of fame differ:\n{outs[0]['frontier']}\n"
+              f"{outs[1]['frontier']}")
+    for o in outs:
+        idle = ("not measured (no device time traced)" if not o["busy"]
+                else f"{1 - o['busy']:.1%}")
+        print(f"scale_out (a) rank {o['rank']} of 2 on the one card (islands "
+              f"{o['islands']}): imports {o['import_s']:.2f} s, set-up {o['setup_s']:.2f} s, "
+              f"main loop {o['main_loop_s']:.3f} s; per iteration, host ms between "
+              f"synchronizations (the other process's kernels, and (c)'s, share the card): evolve "
+              + ", ".join(f"{x:.3f}" for x in o["legs_ms"].get("evolve", []))
+              + "; const-opt " + ", ".join(f"{x:.3f}" for x in o["legs_ms"].get("const_opt", []))
+              + f"; exchange {o['legs_ms']['exchange']:.3f} ms (payload "
+              f"{o['exchange_bytes'][0]} bytes per iteration); {o['evals_per_s']:.4g} evals/s "
+              f"(the world's); card idle {idle} of the process's search wall (its own "
+              f"kernels under torch.profiler; set-up included); launches B1 "
+              f"{o['launches'][0]}, B2 {o['launches'][1]}, B3 {o['launches'][2]}; B1, B2, B3 "
+              f"against their plain versions: max abs err "
+              + ", ".join(f"{k} {v:.3e}" for k, v in o["errs"].items())
+              + f"; first evolve leg made no host sync; best loss {o['best']:.6g}", flush=True)
+    print(f"scale_out (a): identical halls of fame ({outs[0]['frontier'].count(':')} members), "
+          f"children's wall {wall:.2f} s; solo (phase 5, 100 islands in one process): main loop "
+          f"{solo['main_loop_s']:.3f} s, {solo['evals_per_s']:.4g} evals/s, best loss "
+          f"{solo['best']:.6g}", flush=True)
+    return outs
+
+
+def scale_elastic(device, script, parent_builds, iterations=ELASTIC_ITERATIONS,
+                  cycles=ELASTIC_CYCLES):
+    """Phase 14 (b), the elastic drill of the JAX package's
+    ``scripts/fault_smoke.py`` at config3 width on the card: a world of 2
+    over a file coordination directory (``SR_COORD_DIR``,
+    ``SR_ELASTIC_WORLD``, ``on_peer_loss="rejoin"``) first without a fault,
+    then with rank 1 killed by ``peer_death`` (exit 43) while rank 0 is
+    paced by ``slow_peer``; rank 1 restarted with ``SR_ELASTIC_JOIN=1``
+    joins at a later epoch, adopts the leader's shard and finishes. The
+    survivor ends with no dead peer. Prints the leave's detection ms (from
+    the victim's exit to the epoch record), the epochs, the joiner's
+    admission to first exchange, each side's best against the no-fault
+    run's. Returns the children's launches."""
+    import pickle
+    import tempfile
+    import urllib.parse
+
+    spec = {"device": device.type, "cycles": cycles, "iterations": iterations,
+            "options": {"on_peer_loss": "rejoin", "heartbeat_every_seconds": 1.0},
+            "rows": CONFIG3_ROWS}
+    base = dict(SR_ELASTIC_WORLD=2, SR_KV_TIMEOUT_MS=ELASTIC_KV_TIMEOUT_MS,
+                SR_KV_BACKOFF_MS=50)
+    pacing = ";".join(f"slow_peer@{i}:delay_ms={ELASTIC_PACE_MS}" for i in range(4 * iterations))
+    with tempfile.TemporaryDirectory() as d:
+        ref_dir, coord = os.path.join(d, "ref"), os.path.join(d, "coord")
+        ref = _scale_results("scale_out (b) no-fault run", [
+            _spawn_scale(script, "elastic", r, spec,
+                         _scale_env(SR_COORD_DIR=ref_dir, SR_ELASTIC_ID=r, **base))
+            for r in (0, 1)])
+        t0 = time.perf_counter()
+        survivor = _spawn_scale(script, "elastic", 0, spec, _scale_env(
+            SR_COORD_DIR=coord, SR_ELASTIC_ID=0, SR_FAULT_SPEC=pacing, **base))
+        victim = _spawn_scale(script, "elastic", 1, spec, _scale_env(
+            SR_COORD_DIR=coord, SR_ELASTIC_ID=1, SR_FAULT_SPEC=f"peer_death@{ELASTIC_KILL_AT}",
+            **base))
+        _scale_results("scale_out (b) victim", [victim], codes=[43])
+        t_death = time.time()
+        restart_s = time.perf_counter() - t0
+        rejoiner = _spawn_scale(script, "elastic", 1, spec, _scale_env(
+            SR_COORD_DIR=coord, SR_ELASTIC_ID=1, SR_ELASTIC_JOIN=1, **base))
+        surv, rej = _scale_results("scale_out (b)", [survivor, rejoiner])
+        wall = time.perf_counter() - t0
+        records = []
+        for fn in os.listdir(coord):
+            if urllib.parse.unquote(fn).startswith("srep/"):
+                path = os.path.join(coord, fn)
+                with open(path, "rb") as f:
+                    records.append((pickle.load(f), os.stat(path).st_mtime))
+    records.sort(key=lambda r: r[0]["epoch"])
+    kills = [r for r in records if 1 in r[0]["left"]]
+    joins = [r for r in records if 1 in r[0]["joined"]]
+    if not kills or not joins or joins[0][0]["epoch"] <= kills[0][0]["epoch"]:
+        _fail(f"scale_out (b): no leave then later rejoin of rank 1: "
+              f"{[r[0] for r in records]}")
+    if surv["dead"] or rej["dead"] or surv["live"] != [0, 1]:
+        _fail(f"scale_out (b): dead peers after the rejoin: survivor {surv['dead']} live "
+              f"{surv['live']}, joiner {rej['dead']}")
+    for o in (*ref, surv, rej):
+        _check_child_builds(o, parent_builds, tag=f"scale_out (b): rank {o['rank']}")
+    ref_best = min(o["best"] for o in ref)
+    for tag, o in (("survivor", surv), ("joiner", rej)):
+        if not o["best"] <= max(ref_best * 100.0, 0.05):
+            _fail(f"scale_out (b): the {tag}'s best {o['best']:.6g} against the no-fault run's "
+                  f"{ref_best:.6g}")
+    adm = rej["admit_to_exchange_ms"]
+    print(f"scale_out (b) elastic drill, config3 width (50 islands a rank), {iterations} x "
+          f"{cycles} (cut from 550 cycles so that the restart lands mid-run; the survivor "
+          f"paced {ELASTIC_PACE_MS} ms a post, KV deadline {ELASTIC_KV_TIMEOUT_MS} ms): victim "
+          f"exited 43 at iteration {ELASTIC_KILL_AT} after {restart_s:.2f} s; leave formalized "
+          f"at epoch {kills[0][0]['epoch']} (iteration {kills[0][0]['iteration']}) "
+          f"{(kills[0][1] - t_death) * 1e3:.1f} ms after the victim's exit; rejoin at epoch "
+          f"{joins[0][0]['epoch']} (iteration {joins[0][0]['iteration']}); the joiner: imports "
+          f"{rej['import_s']:.2f} s, admission to first exchange "
+          + (f"{adm:.1f} ms" if adm is not None else "not reached")
+          + f", {rej['iterations']} iterations, best {rej['best']:.6g}; the survivor: "
+          f"{surv['iterations']} iterations, live {surv['live']}, no dead peer, best "
+          f"{surv['best']:.6g}; no-fault run best {ref[0]['best']:.6g} / {ref[1]['best']:.6g} "
+          f"(main loop {ref[0]['main_loop_s']:.2f} s); drill wall {wall:.2f} s", flush=True)
+    return [*ref, surv, rej]
+
+
+def async_child(rank, spec, import_s):
+    """Phase 14 (c), in a child of the smoke: ``scheduler="async"`` on
+    config3 (100 islands x 100 members, 1 iteration of ``spec["cycles"]``
+    cycles, ``async_workers`` at its default), one work unit per island, B1
+    launched from the pool's threads. Returns what the parent checks and
+    prints: the launches, the scorer's dispatches, the wall and main loop,
+    the head occupancy, the host seconds of the work units' two parts
+    summed over the threads, the best loss, the libraries loaded and
+    whether a JAX module was imported."""
+    import threading
+
+    import numpy as np
+
+    import symbolicregression_jl_tpu_torch.parallel.islands as islands
+    from symbolicregression_jl_tpu_torch import Options, equation_search
+    from symbolicregression_jl_tpu_torch.ops import interp_cuda
+
+    X, y = config3_data()
+    options = Options(populations=100, population_size=100, maxsize=20,
+                      ncycles_per_iteration=spec["cycles"], seed=0, save_to_file=False,
+                      progress=False, device=spec["device"], scheduler="async", **CONFIG3_OPS)
+    spent = {"s_r_cycle_lockstep": 0.0, "optimize_and_simplify_populations": 0.0}
+    saved = {name: getattr(islands, name) for name in spent}
+    lock = threading.Lock()
+
+    def timed(name):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return saved[name](*args, **kwargs)
+            finally:
+                with lock:
+                    spent[name] += time.perf_counter() - t
+        return run
+
+    for name in spent:
+        setattr(islands, name, timed(name))
+    zero_launches()
+    t0 = time.perf_counter()
+    res = equation_search(X, y, options=options, niterations=1, verbosity=0)
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    front = res.pareto_frontier
+    return {
+        "launches": list(counts), "dispatches": res.scoring_dispatches,
+        "use_kernel": res.use_kernel, "wall_s": wall, "main_loop_s": res.iteration_seconds,
+        "num_evals": res.num_evals, "head_occupancy": res.head_occupancy, "spent": spent,
+        "best": min((m.loss for m in front), default=float("nan")),
+        "finite": bool(front) and all(np.isfinite(m.loss) for m in front),
+        "import_s": import_s,
+        "libraries": {k: v["library"] for k, v in interp_cuda.BUILD_INFO.items()},
+        "jax": any(m == "jax" or m.startswith(("jax.", "symbolicregression_jl_tpu."))
+                   for m in sys.modules),
+    }
+
+
+def scale_async(proc, lockstep_stats, parent_builds, cycles=ASYNC_CYCLES):
+    """Phase 14 (c)'s checks on ``async_child``'s result (the child ran
+    beside (a), (b) and (d)): it loaded the parent's libraries, selected
+    B1, and its B1 launches equal the scorer's dispatches, as phase 4's do;
+    a finite frontier. Prints the main loop, evals/s, the launches and the
+    head occupancy. Returns the launches."""
+    out, = _scale_results("scale_out (c)", [proc])
+    _check_child_builds(out, parent_builds, tag="scale_out (c): the async child",
+                        need=("fused_loss",))
+    b1 = out["launches"][0]
+    if not out["use_kernel"]:
+        _fail("scale_out (c): the async scorer did not select B1")
+    if b1 != out["dispatches"] or b1 == 0:
+        _fail(f"scale_out (c): {b1} B1 launches for {out['dispatches']} scoring dispatches")
+    if not out["finite"]:
+        _fail("scale_out (c): the async frontier is empty or not finite")
+    per = out["main_loop_s"] / (100 * cycles) * 1e3
+    print(f"scale_out (c) async scheduler, config3 100x100, 1 iteration x {cycles} cycles, "
+          f"{min(100, 8)} workers, in a child beside (a), (b) and (d): imports "
+          f"{out['import_s']:.2f} s, wall {out['wall_s']:.3f} s, main loop "
+          f"{out['main_loop_s']:.3f} s ({per:.3f} ms per island-cycle against lockstep's "
+          f"{lockstep_stats['ms_per_cycle'] / 100:.3f}), "
+          f"{out['num_evals'] / out['main_loop_s']:.4g} evals/s, B1 {b1} launches = "
+          f"{out['dispatches']} scoring dispatches, head occupancy "
+          f"{out['head_occupancy']:.2%}; work units' host s summed over the threads: cycles "
+          f"{out['spent']['s_r_cycle_lockstep']:.2f}, const-opt + simplify "
+          f"{out['spent']['optimize_and_simplify_populations']:.2f}; best loss "
+          f"{out['best']:.6g}", flush=True)
+    return tuple(out["launches"])
+
+
+def scale_rows(device, rows=ROWS_SHARDED, P=1024):
+    """Phase 14 (d): ``make_sharded_loss`` over a 1 x 2 mesh whose entries
+    are both ``device``, at ``rows`` rows x 5 features f32 with P random
+    config3 programs, unweighted and weighted, held against one B1 call
+    over all rows and against the plain version (in program chunks); both
+    timed. Then ``Options(data_sharding="rows")`` lockstep for a few
+    config3 cycles: with one device it equals the unsharded search bit for
+    bit. Returns the launches of the sharded losses and the sharded
+    search."""
+    import numpy as np
+    import torch
+
+    from symbolicregression_jl_tpu_torch import Options, equation_search
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import (
+        fused_loss, fused_loss_reference, optab_tensor, unpack_programs_fused, work_counts,
+    )
+    from symbolicregression_jl_tpu_torch.parallel.mesh import make_mesh
+    from symbolicregression_jl_tpu_torch.parallel.sharding import (
+        make_sharded_loss, shard_dataset, shard_population,
+    )
+
+    opts = Options(maxsize=20, device=device.type, **CONFIG3_OPS)
+    opset, N, loss = opts.operators, opts.max_nodes, opts.loss
+    Xn, yn = config3_data(n_rows=rows, seed=5)
+    wn = np.random.default_rng(6).uniform(0.5, 1.5, size=rows).astype(np.float32)
+    prog_np, vals_np = random_programs(opset, P, N, CONFIG3_FEATURES, seed=P + 1)
+    flat = unpack_programs_fused(prog_np, vals_np, opset)
+    X, y, w = (torch.from_numpy(a).to(device) for a in (Xn, yn, wn))
+    prog, vals = torch.from_numpy(prog_np).to(device), torch.from_numpy(vals_np).to(device)
+    tab = optab_tensor(opset, device)
+    mesh = make_mesh(1, 2, devices=[device, device])
+    fs = shard_population(mesh, flat)
+    total = [0, 0, 0, 0, 0]
+    for weighted in (False, True):
+        tag = "weighted" if weighted else "unweighted"
+        wt = w if weighted else None
+        loss_fn = make_sharded_loss(mesh, opset, loss, has_weights=weighted)
+        Xs, ys, ws = shard_dataset(mesh, X, y, wt)
+        zero_launches()
+        got = loss_fn(fs, Xs, ys, ws)
+        torch.cuda.synchronize()
+        counts = read_launches()
+        if counts[0] != 2:
+            _fail(f"scale_out (d) {tag}: {counts[0]} B1 launches for a 1 x 2 mesh")
+        total = [a + b for a, b in zip(total, counts)]
+        one = fused_loss(prog, vals, X, y, wt, opset, loss, tab)
+        plain = torch.cat([fused_loss_reference(prog[i:i + 32], vals[i:i + 32], X, y, wt,
+                                                opset, loss) for i in range(0, P, 32)])
+        torch.cuda.synchronize()
+        compare(f"scale_out (d) {tag}: the sharded loss against one B1 call", got, one)
+        compare(f"scale_out (d) {tag}: the sharded loss against the plain version", got, plain)
+        fin = torch.isfinite(one)
+        rel = float(((got[fin].double() - one[fin].double()).abs()
+                     / one[fin].double().abs().clamp_min(1e-30)).max()) if bool(fin.any()) else 0.0
+        ms = time_ms(lambda: loss_fn(fs, Xs, ys, ws), warmup=1, reps=10)
+        one_ms = time_ms(lambda: fused_loss(prog, vals, X, y, wt, opset, loss, tab), warmup=1,
+                         reps=10)
+        t0 = time.perf_counter()
+        for i in range(0, P, 32):
+            fused_loss_reference(prog[i:i + 32], vals[i:i + 32], X, y, wt, opset, loss)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        work = work_counts(prog_np, rows, CONFIG3_FEATURES, weighted=weighted)
+        bound = max(work["operations"] / PEAK_F32_FLOPS, work["bytes"] / PEAK_BYTES) * 1e3
+        print(f"scale_out (d) rows, {tag}: make_sharded_loss over [{device}, {device}] at "
+              f"{rows} rows x {CONFIG3_FEATURES} features x {P} programs ({int(fin.sum())} "
+              f"finite, max relative difference from one B1 call {rel:.3e}): "
+              f"{ms:.3f} ms against one B1 call over all rows {one_ms:.3f} ms ((c)'s child "
+              f"shares the card; bound "
+              f"{bound:.4f} ms), the plain version {plain_ms:.1f} ms (32 programs a call); "
+              f"within tolerance of both (each shard's mean is rounded to f32 before the f64 "
+              f"combination, so not bit for bit)", flush=True)
+    for w_ in _kernel_wrappers():
+        w_.launches = 0
+    X3, y3 = config3_data()
+    runs = {}
+    for rows_opt in (None, "rows"):
+        o = Options(populations=100, population_size=100, maxsize=20,
+                    ncycles_per_iteration=ROWS_LOCKSTEP_CYCLES, seed=0, save_to_file=False,
+                    progress=False, device=device.type, data_sharding=rows_opt, **CONFIG3_OPS)
+        zero_launches()
+        res = equation_search(X3, y3, options=o, niterations=1, verbosity=0)
+        counts = read_launches()
+        if counts[0] != res.scoring_dispatches:
+            _fail(f"scale_out (d): {counts[0]} B1 launches for {res.scoring_dispatches} "
+                  "dispatches")
+        runs[rows_opt] = (_frontier_text(res, o), res.num_evals, res.iteration_seconds)
+        if rows_opt == "rows":
+            total = [a + b for a, b in zip(total, counts)]
+    if runs[None][:2] != runs["rows"][:2]:
+        _fail(f"scale_out (d): data_sharding='rows' on one device changed the search:\n"
+              f"{runs[None]}\n{runs['rows']}")
+    print(f"scale_out (d): lockstep config3 1 x {ROWS_LOCKSTEP_CYCLES} cycles with "
+          f"data_sharding='rows' on the one card equals the unsharded search bit for bit "
+          f"(frontier and num_evals); main loop {runs['rows'][2]:.3f} s against "
+          f"{runs[None][2]:.3f} s", flush=True)
+    return tuple(total)
+
+
+def scale_out(device, solo, lockstep_stats):
+    """Phase 14: (a) a world of two device-engine processes on the one card,
+    (b) the elastic drill, (c) the async scheduler, (d) row sharding. (c)
+    runs in a child started first, beside (a), (b) and (d): it is host work
+    under one GIL (one constant optimization per work unit, which no cut of
+    cycles removes), so the phase takes the longer of (c) and the rest, not
+    their sum (each one's times include the other's load). Every child
+    counts its own launches. Returns ({path: launches}, {kernel: max abs
+    err})."""
+    import tempfile
+
+    from symbolicregression_jl_tpu_torch.ops import interp_cuda
+
+    t0 = time.perf_counter()
+    parent_builds = {k: v["library"] for k, v in interp_cuda.BUILD_INFO.items()}
+    paths, errs = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        script = os.path.join(d, "scale_child.py")
+        with open(script, "w") as f:
+            f.write(_SCALE_CHILD.format(root=os.path.dirname(os.path.abspath(__file__))))
+        beside = _spawn_scale(script, "async", 0, {"device": device.type, "cycles": ASYNC_CYCLES},
+                              _scale_env(), log=os.path.join(d, "async.log"))
+        try:
+            world = scale_world(device, script, solo, parent_builds)
+            paths["scale_out"] = tuple(_add_launches([0] * 5, world))
+            elastic = scale_elastic(device, script, parent_builds)
+            paths["elastic"] = tuple(_add_launches([0] * 5, elastic))
+            paths["rows"] = scale_rows(device)
+            paths["async"] = scale_async(beside, lockstep_stats, parent_builds)
+        finally:
+            if beside.poll() is None:
+                beside.kill()
+                beside.wait()
+    for o in world:
+        for k, v in o["errs"].items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    print(f"phase 14 scale_out: {time.perf_counter() - t0:.2f} s", flush=True)
+    return paths, errs
+
+
 def build_from_two_threads():
     """Phase 1's build, asked for by two threads at once (a server's workers
     reaching the kernels first together): ``build_all`` serializes them, so
@@ -4234,6 +4847,10 @@ def main() -> int:
     paths["net"] = net_path(device, multitarget[0], smi)
     b2v, feature_paths = features_path(device, lockstep_stats)
     paths.update(feature_paths)
+    scale_paths, scale_errs = scale_out(device, block_stats, lockstep_stats)
+    paths.update(scale_paths)
+    for rec in (b1, b2, b3):
+        rec["max_abs_err"] = max(rec["max_abs_err"], scale_errs.get(rec["name"], 0.0))
     for i, rec in enumerate((b1, b2, b3, b4, b2v)):
         rec["launches_by_path"] = {path: counts[i] for path, counts in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())

@@ -9,7 +9,11 @@ through the interpreter's reverse-sweep gradient, and a complexity-indexed
 hall of fame. ``fleet_search`` (models/device_search.py) and
 ``multitarget_search`` run many device-engine searches as one, sharing each
 kernel launch across them; ``StreamSession`` keeps one such lane alive over
-a dataset whose rows change between iterations. Entry points run on ``cuda`` unless the caller
+a dataset whose rows change between iterations. ``parallel/`` spreads one search
+over processes (a world joined by ``parallel.distributed.initialize``, each
+process's device engine on its share of the islands, exchanging through a
+TCPStore; elastic rejoin), runs the asynchronous island scheduler
+(``scheduler="async"``) and shards scoring rows. Entry points run on ``cuda`` unless the caller
 asks for the CPU (``Options(device="cpu")``). The package imports nothing of the JAX
 package; ``convert.py`` carries state across from it as numpy arrays.
 """
@@ -60,6 +64,7 @@ from .ops.losses import (
     make_loss,
 )
 from .analysis.ir_verify import FlatIRError, verify_flat_trees
+from .parallel.distributed import PeerLossError
 from .utils.checkpoint import (
     CheckpointError,
     SearchCheckpoint,
@@ -109,6 +114,7 @@ __all__ = [
     "latest_checkpoint",
     "load_checkpoint",
     "verify_flat_trees",
+    "PeerLossError",
     "DWDMarginLoss",
     "ExpLoss",
     "HuberLoss",

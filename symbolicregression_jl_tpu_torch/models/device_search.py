@@ -124,6 +124,7 @@ from ..ops.evolve import (
     _complexity_members,
     _score_of,
     dim_penalty_batch,
+    extract_topn_pool,
     fleet_migrate_from_pool,
     init_state,
     merge_best_seen,
@@ -1129,13 +1130,19 @@ class _EngineLane:
 
     ``fleet``: the lane's ``cfg.niterations`` is 0 when there is no warmup
     schedule (the only thing it drives), so that lanes of other budgets
-    share one engine config, as the JAX package's ``_FleetLane`` does."""
+    share one engine config, as the JAX package's ``_FleetLane`` does.
+    ``islands``: this process's share of the islands in a multi-process
+    world (default ``options.populations``); ``local_migration=False`` turns
+    the in-program migration off, where the cross-process pools take its
+    place."""
 
     def __init__(self, dataset: Dataset, options: Options, niterations: int,
-                 rng: np.random.Generator, init_trees=None, fleet: bool = False):
+                 rng: np.random.Generator, init_trees=None, fleet: bool = False,
+                 islands: int | None = None, local_migration: bool = True):
         self.dataset, self.options = dataset, options
         device = self.device = torch.device(options.device)
-        I, P = options.populations, options.population_size
+        I = options.populations if islands is None else islands
+        P = options.population_size
         eng_dt = self.eng_dt = np.dtype(options.dtype)
         vdt = self.vdt = getattr(torch, eng_dt.name)
 
@@ -1147,6 +1154,8 @@ class _EngineLane:
         )
         if fleet and cfg.warmup_maxsize_by == 0:
             cfg = dataclasses.replace(cfg, niterations=0)
+        if not local_migration:
+            cfg = dataclasses.replace(cfg, migration=False, hof_migration=False)
         self.cfg = cfg
         # engine config: the score normalization travels as data.norm
         self.ecfg = ecfg = dataclasses.replace(cfg, baseline_loss=1.0, use_baseline=True)
@@ -1161,11 +1170,19 @@ class _EngineLane:
         gen.manual_seed(int(rng.integers(0, 2**31 - 1)))
         batch_rows = min(int(options.batch_size), dataset.n) if options.batching else 0
         self.ctx = EvoContext(ecfg, device, gen, self.scorer.losses, batch_rows=batch_rows)
-        self.bflat = flatten_trees(init_trees, options.max_nodes, dtype=eng_dt)
-        losses0 = self.score_call(_flat_to_tree(self.bflat, device, vdt))
-        state = init_state(self.bflat, losses0, ecfg, device)
+        self.build_state(init_trees)
+
+    def build_state(self, trees) -> EvoState:
+        """Host trees -> the scored state on the device (``self.state``). Runs
+        at set-up and again when an elastic joiner adopts a checkpoint
+        shard (the shard's trees replace the random ones)."""
+        ecfg, vdt = self.ecfg, self.vdt
+        self.bflat = flatten_trees(trees, self.options.max_nodes, dtype=self.eng_dt)
+        losses0 = self.score_call(_flat_to_tree(self.bflat, self.device, vdt))
+        state = init_state(self.bflat, losses0, ecfg, self.device)
         comp = _complexity_members(state, ecfg, self.ctx).to(vdt)
-        self.state = state._replace(score=_score_of(state.loss, comp, cfg))  # real baseline
+        self.state = state._replace(score=_score_of(state.loss, comp, self.cfg))  # real baseline
+        return self.state
 
     def score_call(self, batch: Tree) -> torch.Tensor:
         """Losses of a batch the host hands the engine (initial members, the
@@ -1178,6 +1195,27 @@ class _EngineLane:
         return losses
 
 
+
+
+def _hof_pool_np(decoded_rows, cfg: EvoConfig):
+    """Concatenate every process's decoded best-seen frontier into one
+    migration pool (the 8-tuple of ``_topn_pool``) as host numpy arrays."""
+    vdt = np.dtype(cfg.val_dtype)
+    kinds, ops, lhss, rhss, feats, vals, lens, losses = ([] for _ in range(8))
+    for bs_loss, bs_exists, bs_len, fields, _ in decoded_rows:
+        kind, op, lhs, rhs, feat, val = fields
+        kinds.append(kind.astype(np.int32))
+        ops.append(op.astype(np.int32))
+        lhss.append(lhs.astype(np.int32))
+        rhss.append(rhs.astype(np.int32))
+        feats.append(feat.astype(np.int32))
+        vals.append(val.astype(vdt))
+        lens.append(np.where(bs_exists, bs_len, 0).astype(np.int32))
+        losses.append(np.where(bs_exists, bs_loss, np.inf).astype(vdt))
+    return tuple(np.concatenate(a) for a in (kinds, ops, lhss, rhss, feats, vals, lens, losses))
+
+
+_STOP_CODES = {1: "early_stop", 2: "timeout", 3: "max_evals", 4: "user_quit", 5: "callback"}
 
 
 def device_search_one_output(
@@ -1200,7 +1238,23 @@ def device_search_one_output(
     snapshot written and the islands a ``nan_flood`` fault poisoned; and,
     under ``Options.profile``, ``engine_profile``: the stage profiler's
     summary. ``recorder``: a shared ``utils.recorder.Recorder`` (dumped by
-    its owner), or None for one of this search's own."""
+    its owner), or None for one of this search's own.
+
+    In a world of more than one process (``parallel/distributed.py``) every
+    process runs this function on its own slice of the islands, on
+    ``Options.device`` (processes may share one card). The in-program
+    migration is off; instead, once per iteration, each process's packed
+    readback and topn migration pool are exchanged through an
+    ``ExchangeGroup`` (``parallel/membership.py``, the one host step of the
+    iteration, its own leg "exchange") and every process injects the
+    global pools. ``stop_sync`` makes the stop decision lockstep and is the
+    admission point of elastic membership; a final flat gather of each
+    process's best members per complexity gives every process the same hall
+    of fame. Snapshots go to ``{checkpoint_base}.p{rank}``.
+    ``engine_stats["exchange_bytes"]`` is the payload this process posted
+    per iteration."""
+    from ..parallel import distributed as dist
+    from ..parallel import membership
     from ..search import SearchResult  # late import (module cycle)
     from ..utils import faults
     from ..utils.checkpoint import SearchCheckpoint, SearchCheckpointer, options_fingerprint
@@ -1211,14 +1265,44 @@ def device_search_one_output(
 
     _reject_out_of_slice(options)
     cache_stats0 = PROGRAM_CACHE.stats() if options.profile else None
+    # world identity: the process group's size and rank, or the elastic
+    # rig's SR_ELASTIC_WORLD / SR_ELASTIC_ID (a logical world over a shared
+    # coordination directory, with no process group: the only way a
+    # RESTARTED process can come back)
+    n_proc, proc_id = dist.world_shape()
+    multi_host = n_proc > 1
+    head = proc_id == 0
+    if options.use_recorder and multi_host:
+        raise ValueError(
+            "use_recorder is single-process: lineage replay cannot see other "
+            "processes' events (run the recorder session un-distributed)"
+        )
     own_recorder = recorder is None
     if own_recorder:
         recorder = Recorder(options)
     t_setup = time.perf_counter()
     I, P = options.populations, options.population_size
+    if multi_host:
+        # even split required: the per-iteration allgather needs identical
+        # pool shapes on every process, and this check must raise on ALL
+        # processes (an uneven raise would leave the others deadlocked in
+        # their first collective)
+        if I % n_proc != 0:
+            raise ValueError(
+                f"multi-host search needs populations divisible by the "
+                f"process count (populations={I}, processes={n_proc})"
+            )
+        isl_start, isl_stop = dist.process_island_slice(I)
+        I = isl_stop - isl_start
+        # decorrelate this process's initial populations and engine generator
+        rng = np.random.default_rng([int(rng.integers(0, 2**31 - 1)), proc_id])
     injector = faults.install(options.fault_spec) if options.fault_spec else faults.active()
-    ckptr = (SearchCheckpointer.from_options(options, checkpoint_base)
-             if checkpoint_base else None)
+    ckptr = None
+    if checkpoint_base:
+        # per-process snapshot files: each process owns only its island
+        # slice; equation_search(resume_from=...) falls back to .p{rank}
+        ckptr = SearchCheckpointer.from_options(
+            options, f"{checkpoint_base}.p{proc_id}" if multi_host else checkpoint_base)
 
     init_trees = None
     if saved_state is not None:
@@ -1226,7 +1310,11 @@ def device_search_one_output(
         if len(init_trees) < I * P:
             init_trees.extend(Population.random_trees(
                 I * P - len(init_trees), options, dataset.n_features, rng))
-    lane = _EngineLane(dataset, options, niterations, rng, init_trees)
+    # cross-process pools (injected once per iteration below) subsume the
+    # in-program migration: the pool is then GLOBAL across all processes'
+    # islands, as the reference's head-mediated migration
+    lane = _EngineLane(dataset, options, niterations, rng, init_trees, islands=I,
+                       local_migration=not multi_host)
     device, eng_dt, vdt = lane.device, lane.eng_dt, lane.vdt
     cfg, ecfg, data, ctx = lane.cfg, lane.ecfg, lane.data, lane.ctx
     use_kernel, scorer, score_call, bflat, state = (
@@ -1271,6 +1359,11 @@ def device_search_one_output(
     # iteration's logs in lockstep) or the profiler (whose fences serialize
     # the pipeline anyway) needs the synchronous one
     async_rb = options.async_readback is not False and replay is None and not options.profile
+    if multi_host and membership.elastic_enabled(options):
+        # elastic membership admits joiners at iteration boundaries; the
+        # one-slot pipelined exchange would straddle an epoch bump (the
+        # stashed payload was posted under the pre-join epoch's keys)
+        async_rb = False
     prof = StageProfiler(device=device) if options.profile else NULL_PROFILER
     early_stop = options.early_stop_fn()
     own_stdin = stdin_reader is None
@@ -1283,24 +1376,98 @@ def device_search_one_output(
     base_evals = float(getattr(saved_state, "num_evals", 0.0) or 0.0) if saved_state else 0.0
     num_evals = base_evals
     device_evals = 0.0
+    own_dev_evals = 0.0  # this process's cumulative device evals (multi-process)
     host_evals = 0.0
     pending = None
-    setup_seconds = time.perf_counter() - t_setup
-    start_time = time.time()
     stop_reason = None
     iterations_run = 0
     checkpoint_seconds = []
+    exchange_bytes = []
     flooded_islands = 0
+    it_start = 0
+    start_time = time.time()
 
-    def consume(buf: np.ndarray):
-        """Fold one iteration's packed readback into the hall of fame, then
-        inject the simplify pool into the CURRENT device state."""
-        nonlocal state, device_evals, host_evals
-        with prof.stage("decode_hof"):
-            bs_loss, bs_exists, bs_len, fields, device_evals = _decode_readback(buf, cfg)
-            members = _bs_to_members(bs_loss, bs_exists, bs_len, fields, cfg, options)
-            for m in members:
-                hof.update(m, options)
+    # --- the exchange group: every multi-process search routes its
+    # exchange through one (the KV store carries it on every backend, so
+    # membership.should_use_group holds in every such world); created after
+    # the set-up so that a joiner never holds up the others while it builds
+    grp = None
+    cur_it = [0]  # the shard provider's view of the loop counter
+    if multi_host:
+
+        def shard_provider() -> bytes:
+            # the leader publishes this process's state as a format-2
+            # checkpoint shard when a joiner is admitted: the encoding the
+            # on-disk snapshots use, verified on load
+            from ..utils.checkpoint import dump_checkpoint_bytes
+
+            ck_pops, _, _ = _decode_state_populations(state, I, P, cfg, options)
+            return dump_checkpoint_bytes(SearchCheckpoint(
+                iteration=int(cur_it[0]), niterations=niterations, scheduler="device",
+                exact=False, populations=ck_pops, hall_of_fame=hof.copy(),
+                num_evals=float(num_evals), options_fingerprint=options_fingerprint(options),
+                wall_time=time.time() - start_time, out_j=out_j,
+            ))
+
+        grp = membership.ExchangeGroup(
+            membership.coord_store(), membership.next_group_id(out_j), proc_id, n_proc,
+            on_peer_loss=options.on_peer_loss, topology=options.exchange_topology,
+            heartbeat_every=options.heartbeat_every_seconds, shard_provider=shard_provider,
+        )
+        if membership.join_pending():
+            # JOINER: announce only now (the kernels are built), adopt the
+            # leader's shard and re-enter at the recorded iteration boundary
+            import warnings
+
+            from ..utils.checkpoint import CheckpointError, load_checkpoint_bytes
+
+            record, shard = grp.join()
+            it_start = int(record.get("iteration", 0))
+            cur_it[0] = it_start
+            if shard is not None:
+                try:
+                    ck = load_checkpoint_bytes(shard)
+                    strees = [m.tree for pop in ck.populations for m in pop.members][: I * P]
+                    if len(strees) < I * P:
+                        strees.extend(Population.random_trees(
+                            I * P - len(strees), options, dataset.n_features, rng))
+                    state = lane.build_state(strees)
+                    for m in ck.hall_of_fame.members:
+                        if m is not None:
+                            hof.update(m.copy(), options)
+                except CheckpointError as e:
+                    warnings.warn(f"rejoin shard rejected ({e}); warm-starting from "
+                                  "random populations instead")
+            if verbosity > 0:
+                print(f"[device] rank {proc_id} rejoined at epoch {grp.epoch} "
+                      f"(iteration {it_start}/{niterations}, live={grp.live})")
+    known_dead = set(dist.dead_peers())
+
+    def note_lost_peers():
+        """Degraded-mode bookkeeping (on_peer_loss="continue"): name newly
+        lost processes and re-derive this process's share of the global
+        island space so logs agree on the shrunken world. The islands on
+        the device are untouched: survivors keep searching their slice."""
+        import warnings
+
+        lost = set(dist.dead_peers()) - known_dead
+        if not lost:
+            return
+        known_dead.update(lost)
+        live = dist.live_process_ids()
+        try:
+            s0, s1 = dist.process_island_slice(options.populations, live=live)
+            span = f"; this process now covers island slice [{s0}, {s1})"
+        except ValueError:
+            span = ""
+        warnings.warn(
+            f"peer process(es) {sorted(lost)} lost mid-search; continuing "
+            f"on {len(live)} survivor(s) with a one-iteration-stale "
+            f"migration pool{span}"
+        )
+
+    def simplify_inject(members):
+        nonlocal state, host_evals
         if options.should_simplify:
             with prof.stage("simplify"):
                 pool, n_scored = _simplified_frontier_pool(
@@ -1314,7 +1481,50 @@ def device_search_one_output(
                     )
                     prof.fence()
 
-    for it in range(niterations):
+    def consume(buf: np.ndarray):
+        """Fold one iteration's packed readback into the hall of fame, then
+        inject the simplify pool into the CURRENT device state."""
+        nonlocal device_evals
+        with prof.stage("decode_hof"):
+            bs_loss, bs_exists, bs_len, fields, device_evals = _decode_readback(buf, cfg)
+            members = _bs_to_members(bs_loss, bs_exists, bs_len, fields, cfg, options)
+            for m in members:
+                hof.update(m, options)
+        simplify_inject(members)
+
+    def consume_gathered(gathered):
+        """Multi-process: fold every process's readback (one row per live
+        process) into the hall of fame, inject the global topn pool with
+        fraction_replaced and every process's best-seen frontier with
+        fraction_replaced_hof (reference migrate! semantics), then the
+        simplify pool. Every process does the same deterministic host work
+        on the same rows."""
+        nonlocal state, device_evals
+        with prof.stage("decode_hof"):
+            g0 = np.asarray(gathered[0])
+            decoded = [_decode_readback(np.asarray(g0[pi]), cfg) for pi in range(g0.shape[0])]
+            device_evals = sum(d[4] for d in decoded)
+            members = []
+            for d in decoded:
+                members.extend(_bs_to_members(d[0], d[1], d[2], d[3], cfg, options))
+            for m in members:
+                hof.update(m, options)
+        with prof.stage("migrate"):
+            if options.migration:
+                topn_pool = tuple(torch.from_numpy(np.ascontiguousarray(
+                    g.reshape((-1,) + g.shape[2:]))).to(device) for g in gathered[1:])
+                state = migrate_from_pool(state, ctx, topn_pool,
+                                          float(options.fraction_replaced), data.norm)
+            if options.hof_migration:
+                hof_pool = tuple(torch.from_numpy(a).to(device)
+                                 for a in _hof_pool_np(decoded, cfg))
+                state = migrate_from_pool(state, ctx, hof_pool,
+                                          float(options.fraction_replaced_hof), data.norm)
+            prof.fence()
+        simplify_inject(members)
+
+    setup_seconds = time.perf_counter() - t_setup
+    for it in range(it_start, niterations):
         # simulated preemption (fault-injection harness): one call per
         # iteration, before its legs
         injector.maybe_die("peer_death")
@@ -1331,9 +1541,18 @@ def device_search_one_output(
         with timer.leg("readback", stage=False):
             with prof.stage("readback_pack"):
                 rb = _readback_pack(state)
+                pool_dev = ()
+                if multi_host and options.migration:
+                    # this process's topn pool rides the same exchange as
+                    # the readback (options are equal on every process, so
+                    # the exchange stays uniform)
+                    pool_dev = extract_topn_pool(state, ecfg)
                 prof.fence()
             fetch = readback.start(rb)
-            if async_rb:
+            if multi_host:
+                with prof.stage("readback_d2h"):
+                    payload = (fetch(), *(a.cpu().numpy() for a in pool_dev))
+            elif async_rb:
                 prev, pending = pending, fetch
                 if prev is not None:
                     consume(prev())
@@ -1349,9 +1568,20 @@ def device_search_one_output(
                     # populations (out{j}_pop{i} entries, as the host engines)
                     _replay_logs(replay, ctx)
                     replay.snapshot_populations(_state_arrays(state), it + 1)
+        if multi_host:
+            # the iteration's one cross-process step: flat (every live row)
+            # or ring ([self, pred] rows); pipelined, the previous
+            # iteration's payload (one-iteration-stale pools)
+            with timer.leg("exchange", stage=False), prof.stage("exchange"):
+                exchange_bytes.append(sum(a.nbytes for a in payload))
+                own_dev_evals = float(_decode_readback(payload[0], cfg)[4])
+                gathered = grp.roll(payload) if async_rb else grp.exchange(payload)
+                note_lost_peers()
+                if gathered is not None:
+                    consume_gathered(gathered)
         iterations_run += 1
         num_evals = base_evals + device_evals + host_evals
-        if output_file and options.save_to_file:
+        if output_file and options.save_to_file and head:
             save_hall_of_fame(output_file, hof, options, dataset.variable_names,
                               num_evals=num_evals)
         if ckptr is not None and ckptr.due(it + 1):
@@ -1367,13 +1597,16 @@ def device_search_one_output(
                     wall_time=time.time() - start_time, out_j=out_j,
                 ))
             checkpoint_seconds.append(time.perf_counter() - t_ck)
-        reporter.update(hof, num_evals, dataset.variable_names,
-                        force=it == niterations - 1, y_variable_name=dataset.y_variable_name)
-        prof.next_iteration()
+        if head:
+            reporter.update(hof, num_evals, dataset.variable_names,
+                            force=it == niterations - 1, y_variable_name=dataset.y_variable_name)
 
         # stop conditions (reference SymbolicRegression.jl
         # src/SearchUtils.jl:190-212); in the pipelined loop the hall of fame
-        # and num_evals lag one iteration
+        # and num_evals lag one iteration. In a world of processes the
+        # decision is LOCKSTEP: any process's local trigger is gathered so
+        # every process breaks on the same iteration
+        stop_code = 0
         if options.iteration_callback is not None:
             from ..search import IterationReport
 
@@ -1381,38 +1614,92 @@ def device_search_one_output(
                 iteration=it + 1, niterations=niterations, hall_of_fame=hof,
                 num_evals=float(num_evals), elapsed=time.time() - start_time,
             )):
-                stop_reason = "callback"
-                break
-        if early_stop is not None and any(
-            early_stop(m.loss, m.get_complexity(options)) for m in hof.pareto_frontier()
-        ):
-            stop_reason = "early_stop"
-            break
-        if (options.timeout_in_seconds is not None
-                and time.time() - start_time > options.timeout_in_seconds):
-            stop_reason = "timeout"
-            break
-        if options.max_evals is not None and num_evals >= options.max_evals:
-            stop_reason = "max_evals"
-            break
-        if stdin_reader.check_for_user_quit():
-            stop_reason = "user_quit"
+                stop_code = 5
+        if stop_code == 0:
+            if early_stop is not None and any(
+                early_stop(m.loss, m.get_complexity(options)) for m in hof.pareto_frontier()
+            ):
+                stop_code = 1
+            elif (options.timeout_in_seconds is not None
+                    and time.time() - start_time > options.timeout_in_seconds):
+                stop_code = 2
+            elif options.max_evals is not None and num_evals >= options.max_evals:
+                stop_code = 3
+            elif head and stdin_reader.check_for_user_quit():
+                stop_code = 4
+        if multi_host:
+            with timer.leg("exchange", stage=False), prof.stage("stop_sync"):
+                # the iteration's ADMISSION POINT: stop codes max-reduce,
+                # per-process cumulative evals sum-reduce (exact under the
+                # ring, whose payload exchange sees [self, pred] rows only),
+                # and any membership change lands here, in lockstep, with an
+                # epoch bump
+                cur_it[0] = it + 1
+                stop_code, evals_sum, _ = grp.stop_sync(stop_code, own_dev_evals, it + 1)
+                device_evals = evals_sum
+                num_evals = base_evals + device_evals + host_evals
+                note_lost_peers()
+        prof.next_iteration()
+        if stop_code:
+            stop_reason = _STOP_CODES[int(stop_code)]
             break
 
-    if pending is not None:
+    if multi_host:
+        if async_rb:
+            # drain the pipeline: every process reaches here on the same
+            # iteration (lockstep stop), so the last gather stays uniform
+            with timer.leg("exchange", stage=False):
+                gathered = grp.flush()
+                note_lost_peers()
+                if gathered is not None:
+                    consume_gathered(gathered)
+    elif pending is not None:
         # drain the pipeline: the last iteration's readback is in flight
         consume(pending())
-        num_evals = base_evals + device_evals + host_evals
+    num_evals = base_evals + device_evals + host_evals
     iteration_seconds = time.time() - start_time
     if own_stdin:
         stdin_reader.close()
 
     # final population readback: folds the last constant optimization's
     # improvements (absent from the frontier readbacks) into the hall of fame
-    pops, _, _ = _decode_state_populations(state, I, P, cfg, options)
-    for pop in pops:
-        hof.update_many(pop.members, options)
-    if output_file and options.save_to_file:
+    pops, final_slots, (kind, opa, lhs, rhs, feat, val, length, loss, _) = (
+        _decode_state_populations(state, I, P, cfg, options))
+    if not multi_host:
+        for pop in pops:
+            hof.update_many(pop.members, options)
+    else:
+        # final lockstep hall-of-fame sync: the last const-opt's improvements
+        # live only in the state, so folding LOCAL members in here would make
+        # the processes' halls of fame diverge. Exchange a best-per-complexity
+        # snapshot of the final populations (always FLAT, even under the
+        # ring) and let every process merge the same global set.
+        S1 = cfg.maxsize + 1
+        vdt_np = np.dtype(cfg.val_dtype)
+        fl = np.full((S1,), np.inf, vdt_np)
+        fn_ = np.zeros((S1,), vdt_np)
+        ffields = [np.zeros((S1, N), vdt_np) for _ in range(6)]
+        for i, p, comp_ip in final_slots:
+            s_ = min(int(comp_ip), cfg.maxsize)
+            if np.isfinite(loss[i, p]) and loss[i, p] < fl[s_]:
+                fl[s_] = loss[i, p]
+                fn_[s_] = length[i, p]
+                for arr, src in zip(ffields, (kind, opa, lhs, rhs, feat, val)):
+                    arr[s_] = src[i, p]
+        with timer.leg("exchange", stage=False):
+            g, _, _ = grp.allgather((fl, fn_, *ffields))
+            note_lost_peers()
+        for pi in range(np.asarray(g[0]).shape[0]):
+            bl = np.asarray(g[0][pi])
+            bn = np.asarray(g[1][pi]).astype(np.int32)
+            flds = [np.asarray(g[2 + j][pi]) for j in range(6)]
+            for m in _bs_to_members(bl, np.isfinite(bl), bn, flds, cfg, options):
+                hof.update(m, options)
+    if grp is not None:
+        # stop the heartbeat thread and drop this rank's beat: the group is
+        # per-search state, nothing survives into the next equation_search
+        grp.close()
+    if output_file and options.save_to_file and head:
         save_hall_of_fame(output_file, hof, options, dataset.variable_names,
                           num_evals=num_evals)
     result = SearchResult(hall_of_fame=hof, populations=pops, dataset=dataset,
@@ -1431,6 +1718,12 @@ def device_search_one_output(
         "checkpoint_seconds": checkpoint_seconds,
         "nan_flooded_islands": flooded_islands,
     }
+    if multi_host:
+        result.engine_stats.update(
+            world=n_proc, rank=proc_id, islands=(isl_start, isl_stop),
+            exchange_bytes=exchange_bytes,
+            epoch=grp.epoch, live=list(grp.live),
+        )
     if options.profile:
         prof.set_counters("program_cache", _cache_counters(cache_stats0))
         result.engine_profile = prof.summary()
@@ -1514,6 +1807,10 @@ def fleet_eligibility(options: Options) -> str | None:
         return "save_to_file (fleet lanes have no per-lane output file)"
     if options.checkpoint_every is not None or options.checkpoint_every_seconds is not None:
         return "checkpointing (fleet lanes snapshot via the serve spool only)"
+    from ..parallel.distributed import world_shape
+
+    if world_shape()[0] > 1:
+        return "multi-host (the per-iteration cross-host exchange is per-search)"
     return None
 
 

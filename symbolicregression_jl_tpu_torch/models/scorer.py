@@ -102,6 +102,36 @@ class BatchScorer:
                 if options.dimensional_constraint_penalty is None
                 else float(options.dimensional_constraint_penalty)
             )
+        self._sharded = None
+        if options.data_sharding == "rows":
+            self._setup_row_sharding()
+
+    def _setup_row_sharding(self) -> None:
+        """Shard the dataset rows across every device of ``Options.device``'s
+        kind and route full-data scoring through the row-sharded loss
+        (``parallel/sharding.py``: only per-tree partials cross devices).
+        With one device it returns at once, and the search is unchanged."""
+        import warnings
+
+        from ..parallel.mesh import make_mesh
+        from ..parallel.sharding import make_sharded_loss, shard_dataset
+
+        devices = _row_devices(self.device)
+        n_dev = len(devices)
+        if n_dev == 1:
+            return
+        if self.dataset.n % n_dev != 0:
+            warnings.warn(
+                f"data_sharding='rows' needs n ({self.dataset.n}) divisible by "
+                f"device count ({n_dev}); falling back to single-device scoring"
+            )
+            return
+        mesh = make_mesh(1, n_dev, devices=devices)
+        self._mesh = mesh
+        self._sharded = make_sharded_loss(
+            mesh, self.opset, self.loss_elem, has_weights=self.w is not None
+        )
+        self._shards = shard_dataset(mesh, self.X, self.y, self.w)
 
     # -- losses --------------------------------------------------------------
 
@@ -146,7 +176,11 @@ class BatchScorer:
             self.num_evals += P if idx is None else P * (len(idx) / self.dataset.n)
             self.num_dispatches += 1
         X, y, w = self.rows(idx)
-        if self.use_kernel:
+        if self._sharded is not None and idx is None and self.objective is None:
+            if self.repoint:
+                flat = stack_sound_pointers(flat)
+            fetch = _readback(self._sharded(flat, *self._shards))
+        elif self.use_kernel:
             if self.repoint:
                 flat = stack_sound_pointers(flat)
             prog, vals = pack_programs_fused(flat, self.opset)
@@ -236,6 +270,14 @@ class BatchScorer:
         losses = self.loss_many(trees, idx=idx)
         scores = self.score_of(losses, np.asarray(complexities))
         return scores, losses
+
+
+def _row_devices(device: torch.device) -> list:
+    """The devices ``data_sharding="rows"`` splits rows over: every CUDA
+    device for a CUDA search, the one CPU otherwise."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [device]
 
 
 def _readback(dev: torch.Tensor):

@@ -43,7 +43,7 @@ from .evolve_block import (
     run_block,
     tournament_thresholds,
 )
-from .interp_cuda import _SMEM_LIMIT, build
+from .interp_cuda import _SMEM_LIMIT, build, count_launch
 from .losses import kernel_loss_spec
 from .operators import OperatorSet, kernel_op_table
 
@@ -280,7 +280,7 @@ def evolve_block(words, consts, length, loss, score, birth, fnorm, seed, step0, 
         raise RuntimeError(
             f"evolve_block kernel launch failed: {lib.sr_cuda_error_string(err).decode()}"
         )
-    evolve_block.launches += 1
+    count_launch(evolve_block)
     return out
 
 

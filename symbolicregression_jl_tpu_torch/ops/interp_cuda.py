@@ -138,6 +138,18 @@ _SIGNED: set = set()
 # searches) reaching a kernel first at once would otherwise both run nvcc
 # into the same pid-named temporary library
 _BUILD_LOCK = threading.Lock()
+# the wrappers' launch counts are bumped under one lock: the async island
+# scheduler launches B1 from several threads at once, and a bare ``+= 1``
+# on a function attribute can lose counts there
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, exactly under concurrent callers."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1
+
+
 _SMEM_LIMIT = 227 * 1024
 #: each kernel's block shape on the shared core, threads and rows per thread
 #: (RPT; 1, 2 or 4), chosen by measurement on the H100 (PERF.md), and the
@@ -680,7 +692,7 @@ def eval_preds(prog, vals, X, opset: OperatorSet, table=None) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"eval_preds kernel launch failed: "
                            f"{lib.sr_cuda_error_string(err).decode()}")
-    eval_trees_kernel.launches += 1
+    count_launch(eval_trees_kernel)
     return preds
 
 
@@ -737,7 +749,7 @@ def preds_vjp(prog, vals, X, seed, opset: OperatorSet, table=None) -> torch.Tens
     if err != 0:
         raise RuntimeError(f"preds_vjp kernel launch failed: "
                            f"{lib.sr_cuda_error_string(err).decode()}")
-    preds_vjp.launches += 1
+    count_launch(preds_vjp)
     return grads
 
 
@@ -816,7 +828,7 @@ def fused_loss(prog, vals, X, y, w, opset: OperatorSet, loss_elem, table=None) -
     _launch("fused_loss", prog, vals, X, y, w, optab, table, spec, P, P_lane, N, R, prog_ld,
             (threads, rpt, tpb, rows_per_chunk, n_chunks, smem),
             (P, n_chunks, 3) if n_chunks > 1 else (1,), (out,))
-    fused_loss.launches += 1
+    count_launch(fused_loss)
     return out
 
 
@@ -849,7 +861,7 @@ def fused_loss_grad(prog, vals, X, y, w, opset: OperatorSet, loss_elem, table=No
     _launch("fused_loss_grad", prog, vals, X, y, w, optab, table, spec, P, P_lane, N, R,
             prog_ld, (threads, rpt, tpb, rows_per_chunk, n_chunks, smem),
             (P, n_chunks, 3 + N) if n_chunks > 1 else (1,), (out, grads))
-    fused_loss_grad.launches += 1
+    count_launch(fused_loss_grad)
     return out, grads
 
 

@@ -8,10 +8,11 @@ SymbolicRegression.jl/src/MutationWeights.jl:30-43 for mutation weights). Defaul
 mirror the reference so search dynamics are comparable out of the box.
 
 ``Options`` resolves operators and losses to torch callables. One field is
-the port's own: ``device`` ("cuda" by default; tests pass "cpu"). Options
-that select a feature not ported yet (slice 4: the async scheduler, row
-sharding, multi-host exchange policies) raise ``NotImplementedError``
-naming the ROADMAP.md item that will bring it.
+the port's own: ``device`` ("cuda" by default; tests pass "cpu"). Every
+field of the JAX package's Options is taken. What the port leaves out is
+the JAX engine's in-process mesh: on a machine with several cards the
+device engine runs on ``device`` alone, where the JAX engine shards its
+islands over every local device (ROADMAP.md, A and C).
 """
 
 from __future__ import annotations
@@ -82,8 +83,7 @@ class Options:
     """All search hyperparameters. Field names and defaults track the
     reference's Options constructor (SymbolicRegression.jl/src/Options.jl:379-453);
     the JAX package's own knobs are grouped at the bottom, with the port's
-    ``device``. Fields of features not ported yet keep their defaults and
-    raise when set (``_reject_out_of_slice``)."""
+    ``device``."""
 
     # -- operators & losses --------------------------------------------------
     binary_operators: Sequence[Any] = ("+", "-", "/", "*")
@@ -194,7 +194,7 @@ class Options:
     pad_multiple: int = 8  # node-slot padding bucket
     # "lockstep": host-driven islands, one scoring dispatch per cycle;
     # "device": the device-resident engine (models/device_search.py);
-    # "async" is a later slice (raises)
+    # "async": the reference-style async island scheduler (parallel/islands.py)
     scheduler: str = "lockstep"
     async_workers: int | None = None  # async scheduler only
     device_mutation_attempts: int = 1  # device engine only
@@ -202,7 +202,9 @@ class Options:
     # the CUDA context (models/warmup.py; the reference precompiles its
     # workload, SymbolicRegression.jl/src/precompile.jl:36-93)
     jit_warmup: bool = True
-    data_sharding: str | None = None  # "rows": later slice (raises)
+    # "rows": shard dataset rows over every device of ``device``'s kind
+    # (models/scorer.py; with one device the scorer is unchanged)
+    data_sharding: str | None = None
     # multi-output fits: run the per-output searches on a host thread pool
     # (None = auto: concurrent; False = serial). Concurrent and serial runs
     # are seed-for-seed identical (per-output RNG streams either way).
@@ -225,8 +227,11 @@ class Options:
     checkpoint_every_seconds: float | None = None
     checkpoint_file: str | None = None  # base path; default "sr_checkpoint.pkl"
     checkpoint_keep: int = 3
-    # multi-host exchange policies: a later slice (setting on_peer_loss or
-    # exchange_topology raises); heartbeat_every_seconds only serves them
+    # multi-process exchange policies (parallel/distributed.py,
+    # parallel/membership.py): on a lost peer raise, continue on the
+    # survivors, or continue and admit a restarted peer at the next epoch;
+    # the heartbeat cadence of the elastic group; the per-iteration payload
+    # exchange over every member ("flat") or from the ring predecessor
     on_peer_loss: str = "raise"
     heartbeat_every_seconds: float = 5.0
     exchange_topology: str = "flat"
@@ -250,7 +255,6 @@ class Options:
     max_nodes: int = dataclasses.field(init=False)
 
     def __post_init__(self):
-        _reject_out_of_slice(self)
         self.operators = resolve_operators(self.binary_operators, self.unary_operators)
         self.loss = resolve_loss(self.elementwise_loss)
         if np.dtype(self.dtype).kind == "c":
@@ -446,22 +450,6 @@ class Options:
             return cond
         thresh = float(cond)
         return lambda loss, complexity: loss < thresh
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP.md, {item})"
-    )
-
-
-def _reject_out_of_slice(o: Options) -> None:
-    """Features not ported yet raise instead of falling back silently."""
-    if o.scheduler == "async":
-        raise _not_ported("scheduler='async'", "A, slice 4: parallel/islands.py")
-    if o.data_sharding is not None:
-        raise _not_ported(f"data_sharding={o.data_sharding!r}", "A, slice 4: parallel/sharding.py")
-    if o.on_peer_loss != "raise" or o.exchange_topology != "flat":
-        raise _not_ported("multi-host exchange policies", "A, slice 4: parallel/")
 
 
 def _normalize_constraints(constraints, opset: OperatorSet):

@@ -486,6 +486,12 @@ def equation_search(
     with ``saved_state``.
     """
     options = options or Options()
+    # peer-death state is PER SEARCH: a second equation_search in the same
+    # process must not exclude peers that died in a previous search's
+    # exchange
+    from .parallel import distributed as _dist
+
+    _dist.reset_peer_state()
     if parallelism is not None:
         try:
             scheduler = _PARALLELISM_TO_SCHEDULER[parallelism]
@@ -545,9 +551,15 @@ def equation_search(
 
         resumes = []
         for j in range(nout):
-            # multi-host runs also write per-process .p{id} snapshots: a
-            # later slice (ROADMAP.md, A, slice 4)
-            ck = load_checkpoint(resume_from if nout == 1 else f"{resume_from}.out{j + 1}")
+            base_j = resume_from if nout == 1 else f"{resume_from}.out{j + 1}"
+            try:
+                ck = load_checkpoint(base_j)
+            except FileNotFoundError:
+                # multi-process device runs snapshot per process (.p{id})
+                world, pid = _dist.world_shape()
+                if world <= 1:
+                    raise
+                ck = load_checkpoint(f"{base_j}.p{pid}")
             if ck.options_fingerprint and tuple(ck.options_fingerprint) != _ofp(options):
                 warnings.warn(
                     "resume_from: checkpoint was written with different "
@@ -641,6 +653,11 @@ def equation_search(
             out_j=j + 1,
             checkpoint_base=_ckpt_base(j),
         )
+        if options.scheduler == "async":
+            from .parallel.islands import async_search_one_output
+
+            return async_search_one_output(dataset, options, nit, child_rngs[j],
+                                           recorder=shared_recorder, **kw)
         if options.scheduler == "device":
             from .models.device_search import device_search_one_output
 
@@ -655,7 +672,18 @@ def equation_search(
     # different outputs overlap. The reference interleaves (output,
     # population) work units in one scheduler for the same reason
     # (SymbolicRegression.jl/src/SymbolicRegression.jl:676-679,871-877).
-    if nout > 1 and options.parallel_outputs is not False:
+    serial = _dist.world_shape()[0] > 1
+    if nout > 1 and options.parallel_outputs is True and serial:
+        # multi-process exchanges are per output and lockstep across
+        # processes: interleaving outputs would deadlock them
+        import warnings
+
+        warnings.warn(
+            "parallel_outputs=True: multi-host searches run their outputs "
+            "serially (the per-iteration cross-host exchange is per-output)",
+            stacklevel=2,
+        )
+    if nout > 1 and options.parallel_outputs is not False and not serial:
         from concurrent.futures import ThreadPoolExecutor
 
         from .utils.stdin_reader import StdinReader

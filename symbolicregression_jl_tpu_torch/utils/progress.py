@@ -1,7 +1,7 @@
 """Terminal progress reporting: live bar + Pareto table.
 
-Reference: WrappedProgressBar with multiline postfix showing evals/sec and
-the dominating Pareto curve
+Reference: WrappedProgressBar with multiline postfix showing evals/sec, head
+occupancy and the dominating Pareto curve
 (SymbolicRegression.jl/src/ProgressBars.jl:6-35,
 SymbolicRegression.jl/src/SearchUtils.jl:286-355); non-progress mode prints the full
 search state at most every 5 seconds
@@ -29,6 +29,34 @@ class ProgressReporter:
         self.options = options
         self.start = time.time()
         self._last_print = 0.0
+        self._monitor_work = 0.0  # head-node occupancy accounting
+        self._monitor_total = 1e-9
+        self._warned_occupancy = False
+
+    # -- head occupancy (reference: ResourceMonitor,
+    # SymbolicRegression.jl/src/SearchUtils.jl:217-284) -----------------------
+
+    def head_work(self, seconds: float) -> None:
+        self._monitor_work += seconds
+
+    @property
+    def occupancy(self) -> float:
+        self._monitor_total = time.time() - self.start
+        return self._monitor_work / max(self._monitor_total, 1e-9)
+
+    def maybe_warn_occupancy(self) -> None:
+        if (
+            not self._warned_occupancy
+            and time.time() - self.start > 5.0
+            and self.occupancy > 0.4
+            and self.verbosity > 0
+        ):
+            self._warned_occupancy = True
+            print(
+                f"warning: head-node occupancy {self.occupancy:.0%} > 40% — "
+                "the scheduler loop is a bottleneck "
+                "(reference warns at the same threshold)"
+            )
 
     # -- updates --------------------------------------------------------------
 

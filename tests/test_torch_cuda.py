@@ -1222,3 +1222,91 @@ def test_device_engine_under_an_objective_on_the_card(cuda, monkeypatch):
     for m in res.pareto_frontier:
         want = float(np.mean((m.tree.eval_np(X, opts.operators) - y) ** 2))
         np.testing.assert_allclose(m.loss, want, rtol=2e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["plain", "weighted"])
+def test_row_sharded_loss_over_one_card_twice(cuda, weighted):
+    """``make_sharded_loss`` over [cuda:0, cuda:0] (rows in two shards, one
+    B1 launch each) agrees with one B1 launch over all rows to rtol 1e-5,
+    with equal ok flags; two launches are counted."""
+    from symbolicregression_jl_tpu_torch.parallel.mesh import make_mesh
+    from symbolicregression_jl_tpu_torch.parallel.sharding import (
+        make_sharded_loss, shard_dataset, shard_population,
+    )
+
+    opts = Options(binary_operators=["+", "-", "*", "/"], unary_operators=["cos", "exp"],
+                   maxsize=16, device="cuda")
+    rng = np.random.default_rng(7)
+    Xn = rng.normal(size=(3, 4096)).astype(np.float32)
+    yn = (Xn[0] * Xn[1] + np.cos(Xn[2])).astype(np.float32)
+    wn = rng.uniform(0.5, 1.5, size=4096).astype(np.float32) if weighted else None
+    flat = flatten_trees([gen_random_tree(int(rng.integers(1, 8)), opts.operators, 3, rng)
+                          for _ in range(64)], opts.max_nodes)
+    prog, vals = (torch.from_numpy(a).to(cuda) for a in pack_programs_fused(flat, opts.operators))
+    X, y = torch.from_numpy(Xn).to(cuda), torch.from_numpy(yn).to(cuda)
+    w = None if wn is None else torch.from_numpy(wn).to(cuda)
+    one = fused_loss(prog, vals, X, y, w, opts.operators, opts.loss).cpu().numpy()
+    mesh = make_mesh(1, 2, devices=[cuda, cuda])
+    fn = make_sharded_loss(mesh, opts.operators, opts.loss, has_weights=weighted)
+    Xs, ys, ws = shard_dataset(mesh, X, y, w)
+    before = fused_loss.launches
+    got = fn(shard_population(mesh, flat), Xs, ys, ws).cpu().numpy()
+    assert fused_loss.launches - before == 2
+    assert (np.isfinite(got) == np.isfinite(one)).all()
+    fin = np.isfinite(one)
+    np.testing.assert_allclose(got[fin], one[fin], rtol=1e-5, atol=1e-6)
+
+
+def test_world_of_two_on_the_card(cuda, tmp_path):
+    """Two processes joined by ``initialize`` (TCPStore on 127.0.0.1, gloo)
+    share the card, each the device engine on 8 of 16 islands at the quick
+    start's size (16 islands, not 15, so that they split in two): both end
+    with identical halls of fame, and each launched B1 for every scoring
+    call."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    script = tmp_path / "worker.py"
+    script.write_text(f"""
+import sys
+sys.path.insert(0, {repo!r})
+rank = int(sys.argv[1])
+from symbolicregression_jl_tpu_torch.parallel.distributed import initialize
+initialize(coordinator_address="127.0.0.1:{port}", num_processes=2, process_id=rank)
+import numpy as np
+from symbolicregression_jl_tpu_torch import Options, equation_search
+from symbolicregression_jl_tpu_torch.ops.interp_cuda import fused_loss
+rng = np.random.default_rng(0)
+X = rng.normal(size=(2, 200)).astype(np.float32)
+y = (2 * np.cos(X[1]) + X[0] ** 2 - 2).astype(np.float32)
+o = Options(binary_operators=["+", "-", "*"], unary_operators=["cos"], populations=16,
+            population_size=33, ncycles_per_iteration=100, maxsize=16, seed=0,
+            scheduler="device", save_to_file=False, device="cuda")
+res = equation_search(X, y, options=o, niterations=3, verbosity=0)
+assert fused_loss.launches == res.engine_stats["score_calls"] > 0
+front = ";".join(f"{{m.get_complexity(o)}}:{{m.loss!r}}" for m in res.pareto_frontier)
+print("RESULT", front, flush=True)
+""")
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("SR_", "WORLD_SIZE"))}
+    procs = [subprocess.Popen([sys.executable, str(script), str(r)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=env) for r in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    fronts = []
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+        fronts.append(next(ln for ln in out.splitlines() if ln.startswith("RESULT")))
+    assert fronts[0] == fronts[1]

@@ -2,8 +2,9 @@
 
 The port exports what the JAX root exports, in the same order, except the
 names of items not ported yet. ``_UNPORTED`` names each of those with the
-ROADMAP.md item that brings it; every later slice of the port shrinks it.
-Every exported loss builds the same elementwise values as the JAX one.
+ROADMAP.md item that brings it; it is empty since the multi-process slice
+(``PeerLossError`` from ``parallel/distributed.py``). Every exported loss
+builds the same elementwise values as the JAX one.
 """
 
 import jax
@@ -14,9 +15,7 @@ import torch
 import symbolicregression_jl_tpu as J
 import symbolicregression_jl_tpu_torch as T
 
-_UNPORTED = {
-    "PeerLossError": "slice 4: membership.py",
-}
+_UNPORTED: dict = {}
 
 # (name, factory arguments or None for a plain loss): every loss the two
 # roots export
@@ -64,6 +63,7 @@ def test_all_equals_jax_root_minus_unported():
         assert item.startswith(("slice 4", "slice 5")), item
     for name in T.__all__:
         assert hasattr(T, name), name
+    assert T.PeerLossError.__module__ == "symbolicregression_jl_tpu_torch.parallel.distributed"
 
 
 def test_root_imports():

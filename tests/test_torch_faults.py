@@ -3,7 +3,11 @@
 Specs parse and format to the same rules in both packages for every one of
 the 18 sites, malformed specs raise in both, an injector fires at the same
 call counts, the ``SR_FAULT_SPEC`` injector follows the variable, and a
-skewed clock holds each host's offset. Pure Python on both sides.
+skewed clock holds each host's offset. The five sites of the exchange and
+membership modules (``exchange_timeout``, ``peer_join``, ``kv_flap``,
+``slow_peer``, ``kv_partition``) fire at the JAX package's points, with
+the same effect, on each package's ``ExchangeGroup`` or store. Pure Python
+on both sides.
 """
 
 import time
@@ -159,3 +163,111 @@ def test_skewed_time_holds_each_hosts_offset():
     assert tf.skewed_time("h7") - time.time() < -250.0
     tf.install(None)
     assert abs(tf.skewed_time("h0") - time.time()) < 5.0
+
+
+# -- the exchange and membership sites fire at JAX's points -------------------
+
+
+def _pkgs():
+    from symbolicregression_jl_tpu.parallel import distributed as jd
+    from symbolicregression_jl_tpu.parallel import membership as jm
+    from symbolicregression_jl_tpu_torch.parallel import distributed as td
+    from symbolicregression_jl_tpu_torch.parallel import membership as tm
+
+    return {"jax": (jf, jd, jm), "torch": (tf, td, tm)}
+
+
+def _group(pkg, root, my_id, world, **kw):
+    faults, dist, mem = _pkgs()[pkg]
+    return mem.ExchangeGroup(mem.FileCoordStore(root), "f", my_id, world,
+                             start_heartbeat=False, **kw)
+
+
+def test_exchange_timeout_names_the_peer_in_both(tmp_path, monkeypatch):
+    """``exchange_timeout`` at the gather: the peer is missing at once, and
+    the raised error is the same text in both packages."""
+    monkeypatch.setenv("SR_KV_TIMEOUT_MS", "60000")
+    import numpy as np
+
+    msgs = {}
+    for pkg, (faults, dist, _) in _pkgs().items():
+        faults.install("exchange_timeout@0:peer=1")
+        g = _group(pkg, str(tmp_path / pkg), 0, 2)
+        t0 = time.monotonic()
+        with pytest.raises(dist.PeerLossError) as ei:
+            g.allgather((np.asarray([0]),))
+        assert time.monotonic() - t0 < 30.0  # not the 60 s deadline's wait
+        assert ei.value.missing == (1,) and ei.value.attempts == 1  # its own post
+        msgs[pkg] = str(ei.value)
+        faults.install(None)
+    assert msgs["jax"] == msgs["torch"]
+
+
+def test_kv_flap_costs_one_poll_attempt_in_both(tmp_path, monkeypatch):
+    monkeypatch.setenv("SR_KV_BACKOFF_MS", "10")
+    got = {}
+    for pkg, (faults, _, _) in _pkgs().items():
+        g = _group(pkg, str(tmp_path / pkg), 0, 2)
+        g.store.set("k", b"vv")
+        faults.install("kv_flap@0;kv_flap@2")
+        first = g._read_peer("k", time.monotonic() + 5.0)
+        second = g._read_peer("k", time.monotonic() + 5.0)
+        faults.install(None)
+        got[pkg] = (first, second)
+    assert got["jax"] == got["torch"] == ((b"vv", 2), (b"vv", 2))
+
+
+def test_slow_peer_delays_the_post_in_both(tmp_path):
+    import numpy as np
+
+    for pkg, (faults, _, _) in _pkgs().items():
+        g = _group(pkg, str(tmp_path / pkg), 0, 1)
+        faults.install("slow_peer@1:delay_ms=300")
+        times = []
+        for _ in range(3):
+            t0 = time.monotonic()
+            g.allgather((np.asarray([1]),))
+            times.append(time.monotonic() - t0)
+        faults.install(None)
+        assert times[1] >= 0.28 and times[0] < 0.28 and times[2] < 0.28, (pkg, times)
+
+
+def test_peer_join_defers_the_announcement_in_both(tmp_path):
+    for pkg, (faults, _, _) in _pkgs().items():
+        g = _group(pkg, str(tmp_path / pkg), 1, 2, on_peer_loss="rejoin")
+        faults.install("peer_join@0:defer_ms=300")
+        t0 = time.monotonic()
+        with pytest.raises(TimeoutError, match="not admitted"):
+            g.join(timeout_ms=50)
+        faults.install(None)
+        assert time.monotonic() - t0 >= 0.3
+        assert g.store.try_get(g._join_key(1)) is not None
+
+
+def test_kv_partition_severs_and_heals_alike(tmp_path):
+    """One sequence of store operations under ``kv_partition`` on each
+    package's ``PartitionedCoordStore``: the same reads, refusals and
+    partition stats."""
+    seen = {}
+    for pkg, (faults, _, mem) in _pkgs().items():
+        inner = mem.FileCoordStore(str(tmp_path / pkg))
+        inner.set("srpod/p/ad/h0", b"A")
+        inner.set("srpod/p/ad/h1", b"B")
+        store = mem.PartitionedCoordStore(inner)
+        faults.install("kv_partition@0:block=h0,ops=6")
+        trace = [store.try_get("srpod/p/ad/h0"), store.try_get("srpod/p/ad/h1")]
+        try:
+            store.get("srpod/p/ad/h0", timeout_ms=10)
+            trace.append("got")
+        except TimeoutError:
+            trace.append("timeout")
+        trace.append(store.set_if_absent("srpod/p/claim/h0/1", b"me"))
+        store.set("srpod/p/ad/h0", b"dropped")
+        trace.append(dict(store.partition_stats()))
+        trace.append(store.list("srpod/p/ad/"))
+        trace.append(store.try_get("srpod/p/ad/h0"))
+        trace.append(dict(store.partition_stats()))
+        faults.install(None)
+        seen[pkg] = trace
+    assert seen["jax"] == seen["torch"]
+    assert seen["torch"][0] is None and seen["torch"][-2] == b"A"

@@ -1,5 +1,5 @@
 """PyTorch port vs JAX package: flat IR, packing, conversion, import hygiene,
-and the out-of-slice options.
+and the options of later slices.
 
 Integer and host-side work must match exactly: the same trees flatten to
 identical arrays and print identical strings in both packages."""
@@ -158,9 +158,15 @@ def test_port_and_smoke_import_no_jax():
     ],
     ids=lambda kw: next(iter(kw)),
 )
-def test_out_of_slice_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.Options(device="cpu", **kwargs)
+def test_slice4_options_construct(kwargs):
+    """The slice-4 options build, as the JAX package's Options do."""
+    opts = T.Options(device="cpu", **kwargs)
+    jopts = J.Options(**kwargs)
+    for k, v in kwargs.items():
+        assert getattr(opts, k) == v == getattr(jopts, k)
+    for k in ("scheduler", "data_sharding", "exchange_topology", "on_peer_loss",
+              "async_workers", "heartbeat_every_seconds"):
+        assert getattr(opts, k) == getattr(jopts, k), k
 
 
 @pytest.mark.parametrize(
