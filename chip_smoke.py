@@ -207,7 +207,31 @@ JAX or of the JAX package. Phases, each of which raises on failure:
    children load the libraries phase 1 built and import nothing of JAX
    (``_check_child_builds``); each prints its launches, which are the
    paths ``scale_out``, ``elastic`` and ``async``; the parent's are
-   ``rows``.
+   ``rows``;
+15. ``pod``, federated serving (``serve/pod.py``) with chaos and the
+   invariant auditor (``utils/chaos.py``, ``utils/invariants.py``): (a)
+   two ``PodNode`` children, h0 and h1, over one ``FileCoordStore``; pinned
+   to h1 and running at once, a lockstep job at the quick start's size
+   with exact spool snapshots and a config3-width engine job on the block,
+   three short jobs queued behind them and two routed freely; h1 SIGKILLed
+   once both have a spool snapshot: every job DONE in the done ledger, no
+   duplicate result, the migrated lockstep frontier equal to an
+   uninterrupted run's string for string, the config3 job resumed on h0
+   with its last snapshot's frontier kept, more evaluations and B1, B2 and
+   B3 launched in h0; the kill-to-claim ms, the suspect window, the
+   adoption ms and each job's submit-to-DONE time; (b) a third host, h2,
+   given two jobs and SIGTERMed: exit 0, a retirement marker, h0's claim
+   of its generation, both jobs DONE, no duplicate, the handoff s; (c) in
+   a child started first, beside (a) and (b): one seeded chaos run
+   (``generate_schedule(CHAOS_SEED, CHAOS_DURATION_S)``, printed as its
+   ``schedule_spec``) over two pod children and a ``NetServer`` child on a
+   ``TorchCoordStore`` (a TCPStore the orchestrator hosts), kills as SIGKILL and
+   respawn, a mixed workload through ``PodClient`` and ``SRClient``, every
+   observation audited by ``InvariantAuditor``: any breach fails. The
+   children load the libraries phase 1 built and import nothing of JAX;
+   each reports its launches every 0.2 s (a SIGKILLed child's count is its
+   last report's): the paths ``pod`` ((a) and (b)) and ``chaos``; the
+   lockstep reference run in this process is ``pod reference``.
 
 Every launch count in the kernels line is measured: each path sets the
 counts of B1-B4 and B2v to 0 just before it runs and reads all five just
@@ -293,6 +317,12 @@ GRAD_RTOL, GRAD_SCALE_ATOL = 1e-4, 1e-6
 
 def _fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def _jax_imported():
+    """Whether this process imported jax or anything of the JAX package."""
+    return any(m in ("jax", "symbolicregression_jl_tpu")
+               or m.startswith(("jax.", "symbolicregression_jl_tpu.")) for m in sys.modules)
 
 
 def config3_data(n_rows=CONFIG3_ROWS, n_features=CONFIG3_FEATURES, seed=0):
@@ -4326,8 +4356,7 @@ def scale_child(rank, spec, import_s):
         "admit_to_exchange_ms": ((marks["first_exchange"] - marks["admitted"]) * 1e3
                                  if "first_exchange" in marks else None),
         "libraries": {k: v["library"] for k, v in interp_cuda.BUILD_INFO.items()},
-        "jax": any(m == "jax" or m.startswith(("jax.", "symbolicregression_jl_tpu."))
-                   for m in sys.modules),
+        "jax": _jax_imported(),
     }
 
 
@@ -4575,8 +4604,7 @@ def async_child(rank, spec, import_s):
         "finite": bool(front) and all(np.isfinite(m.loss) for m in front),
         "import_s": import_s,
         "libraries": {k: v["library"] for k, v in interp_cuda.BUILD_INFO.items()},
-        "jax": any(m == "jax" or m.startswith(("jax.", "symbolicregression_jl_tpu."))
-                   for m in sys.modules),
+        "jax": _jax_imported(),
     }
 
 
@@ -4750,6 +4778,785 @@ def scale_out(device, solo, lockstep_stats):
     return paths, errs
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: pod, federated serving (serve/pod.py), chaos and the auditor
+# ---------------------------------------------------------------------------
+
+# phase 15, cut in depth only: (a) the migrated lockstep job at the quick
+# start's size runs POD_LOCKSTEP_ITERATIONS x POD_LOCKSTEP_CYCLES (the
+# README's 20 x 550 cut), the config3-width engine job POD_ENGINE_ITERATIONS
+# x ENGINE_CYCLES on the block; the short jobs of (a) and (b) are JAX's
+# drill's (``_pod_short``); pod hosts beat every POD_HB_S and suspect a peer
+# after POD_SUSPECT_S (JAX's drill's 0.1 and 1.5 s). (c) JAX's soak
+# (``scripts/chaos_soak.py``, 60 s by default) cut to CHAOS_DURATION_S, its
+# schedule drawn from CHAOS_SEED
+POD_LOCKSTEP_ITERATIONS, POD_LOCKSTEP_CYCLES = 6, 10
+POD_ENGINE_ITERATIONS = 6
+POD_HB_S, POD_SUSPECT_S = 0.1, 1.5
+CHAOS_SEED, CHAOS_DURATION_S = 0, 25.0
+
+# a child of phase 15: a pod host or a NetServer ("pod", "net"), which
+# writes a report file every 0.2 s, or (c)'s chaos orchestrator ("chaos"), which
+# prints one RESULT line
+_POD_CHILD = """
+import json, sys, time
+t0 = time.perf_counter()
+sys.path.insert(0, {root!r})
+import chip_smoke
+mode, spec = sys.argv[1], json.loads(sys.argv[3])
+if mode == "chaos":
+    out = chip_smoke.chaos_child(spec, time.perf_counter() - t0)
+    print("RESULT " + json.dumps(out), flush=True)
+else:
+    chip_smoke.pod_child(mode, spec, time.perf_counter() - t0)
+"""
+
+
+def pod_child(mode, spec, import_s):
+    """One host of phase 15 on the card: a ``PodNode`` ("pod") over the
+    ``FileCoordStore`` at ``spec["coord"]`` or over the TCPStore at
+    ``spec["store"]`` (a ``TorchCoordStore``, wrapped in a
+    ``PartitionedCoordStore`` when ``kv_partition`` is armed), with the
+    SIGTERM drain installed; or ("net") a ``NetServer`` over a journaled
+    ``SearchServer``. With ``spec["go"]`` it waits for that file before it
+    starts serving (its imports and the card's context paid ahead). Every
+    0.2 s, and once more after a drain, it writes its report: the launches
+    of B1-B4 and B2v since the process started, the libraries it loaded,
+    whether a JAX module was imported, the node's stats, its pod jobs (pod
+    id -> local id) and the host ms of each adoption. Never returns."""
+    import threading
+
+    import torch
+
+    from symbolicregression_jl_tpu_torch.ops import interp_cuda
+    from symbolicregression_jl_tpu_torch.parallel.membership import (
+        FileCoordStore, PartitionedCoordStore, TorchCoordStore,
+    )
+    from symbolicregression_jl_tpu_torch.serve import NetServer, PodNode, SearchServer
+    from symbolicregression_jl_tpu_torch.utils import faults
+
+    torch.zeros(1, device=spec["device"])
+    if spec.get("go"):
+        print("WAITING", flush=True)
+        while not os.path.exists(spec["go"]):
+            time.sleep(0.02)
+    host = spec["host"]
+    path = os.path.join(spec["reports"], f"{host}-{os.getpid()}.json")
+    lock = threading.Lock()
+    state = {"final": False, "adoptions": []}
+    node = None
+
+    def write(final=False):
+        with lock:
+            if state["final"]:
+                return
+            state["final"] = final
+            out = {"host": host, "pid": os.getpid(), "t": time.time(), "final": final,
+                   "import_s": import_s, "launches": list(read_launches()),
+                   "libraries": {k: v["library"] for k, v in interp_cuda.BUILD_INFO.items()},
+                   "jax": _jax_imported(), "adoptions": list(state["adoptions"])}
+            # each armed rule of this process: fired once its site's calls
+            # passed its count
+            inj = faults.active()
+            out["faults"] = [
+                f"{r.site}@{r.at} " + ("fired" if inj._counts.get(r.site, 0) > r.at else "idle")
+                for r in inj._rules]
+            if node is not None and hasattr(node.store, "partition_stats"):
+                out["partition"] = node.store.partition_stats()
+            if node is not None:
+                st = node.stats()
+                out["stats"] = {k: v for k, v in st.items() if k != "server"}
+                out["server"] = {k: st.get("server", {}).get(k) for k in ("jobs", "queued")}
+                with node._lock:
+                    out["jobs"] = dict(node._by_pjid)
+                out["progress"] = {}
+                for pjid, jid in out["jobs"].items():
+                    try:
+                        job = node.server.job(jid)
+                        out["progress"][pjid] = [job.state, job.iterations_done]
+                    except (KeyError, AttributeError):
+                        pass
+            with open(path + ".tmp", "w") as f:
+                json.dump(out, f)
+            os.replace(path + ".tmp", path)
+
+    if mode == "net":
+        srv = SearchServer(max_concurrency=1, journal_dir=spec["journal"],
+                           ckpt_every_s=0.05).start()
+        NetServer(srv, port=spec["port"]).start()
+    else:
+        if spec.get("store"):
+            import datetime
+
+            import torch.distributed as tdist
+
+            addr, port = spec["store"].rsplit(":", 1)
+            store = TorchCoordStore(tdist.TCPStore(
+                addr, int(port), None, False, timeout=datetime.timedelta(seconds=60)))
+        else:
+            store = FileCoordStore(spec["coord"])
+        if faults.active().armed("kv_partition"):
+            store = PartitionedCoordStore(store)
+        node = PodNode(host, store=store, root=spec.get("root"), hb_seconds=spec["hb_s"],
+                       suspect_seconds=spec["suspect_s"], max_concurrency=spec["workers"],
+                       poll_seconds=0.02, ckpt_every_s=spec["ckpt_every_s"])
+        real_adopt, real_drain = node._adopt_host, node.drain
+
+        def adopt(peer, gen, retired):
+            t, wall = time.perf_counter(), time.time()
+            try:
+                return real_adopt(peer, gen, retired=retired)
+            finally:
+                state["adoptions"].append({"host": peer, "gen": gen, "retired": retired,
+                                           "t": wall, "ms": (time.perf_counter() - t) * 1e3})
+
+        def drain(*args, **kwargs):
+            try:
+                return real_drain(*args, **kwargs)
+            finally:
+                write(final=True)
+
+        node._adopt_host, node.drain = adopt, drain
+        node.install_sigterm_drain()
+        node.start()
+    print("READY " + json.dumps({"host": host, "import_s": import_s,
+                                 "gen": None if node is None else node.gen}), flush=True)
+    while True:
+        write()
+        time.sleep(0.2)
+
+
+def _pod_env(**kw):
+    env = {k: v for k, v in _scale_env().items() if not k.startswith(("SR_POD_", "SR_QUEUE"))}
+    env.update({k: str(v) for k, v in kw.items()})
+    return env
+
+
+def _expect_line(proc, prefix, timeout, tag):
+    """The JSON after the first line of ``proc``'s log starting with
+    ``prefix`` (None when nothing follows it); fails the smoke if the child
+    exits or says nothing so in time."""
+    deadline = time.monotonic() + timeout
+    while True:
+        with open(proc.log) as f:
+            for line in f:
+                if line.startswith(prefix):
+                    rest = line[len(prefix):].strip()
+                    return json.loads(rest) if rest else None
+        if proc.poll() is not None or time.monotonic() > deadline:
+            with open(proc.log) as f:
+                tail = f.readlines()[-30:]
+            _fail(f"{tag}: no {prefix.strip()} (exit code {proc.poll()}); its last lines:\n"
+                  + "".join(tail))
+        time.sleep(0.05)
+
+
+def _reports(d, host=None):
+    """Every report file in ``d`` (of ``host`` only, when given)."""
+    out = []
+    for name in sorted(os.listdir(d)):
+        if name.endswith(".json") and (host is None or name.startswith(host + "-")):
+            with open(os.path.join(d, name)) as f:
+                out.append(json.load(f))
+    return out
+
+
+def _report_after(d, host, t, timeout=30, final=False):
+    """``host``'s newest report written after wall time ``t`` (or its final
+    one)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        reps = [r for r in _reports(d, host) if r["t"] > t and (r["final"] or not final)]
+        if reps:
+            return max(reps, key=lambda r: r["t"])
+        if time.monotonic() > deadline:
+            _fail(f"pod: no report of {host} after {t}")
+        time.sleep(0.05)
+
+
+def _members_text(members, options):
+    return ";".join(f"{m.get_complexity(options)}:{m.loss!r}" for m in sorted(
+        members, key=lambda m: m.get_complexity(options)))
+
+
+def _pod_lockstep(device, seed):
+    """The quick start's problem and width on lockstep, POD_LOCKSTEP_CYCLES
+    cycles an iteration."""
+    import dataclasses
+
+    X, y, o = _quick_start_problem(device, seed)
+    return X, y, dataclasses.replace(o, scheduler="lockstep",
+                                     ncycles_per_iteration=POD_LOCKSTEP_CYCLES)
+
+
+def _pod_short(device, seed):
+    """JAX's pod drill's and soak's job: 2 x 64 rows, ``+ - *``, ``cos``,
+    2 populations x 12 members, 8 cycles, lockstep."""
+    import numpy as np
+
+    from symbolicregression_jl_tpu_torch import Options
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(2, 64)).astype(np.float32)
+    y = (2 * np.cos(X[1]) + X[0]).astype(np.float32)
+    return X, y, Options(binary_operators=["+", "-", "*"], unary_operators=["cos"],
+                         populations=2, population_size=12, ncycles_per_iteration=8,
+                         maxsize=12, seed=seed, scheduler="lockstep", save_to_file=False,
+                         progress=False, device=device.type)
+
+
+def _wait_claim(store, key, timeout, tag):
+    import pickle
+
+    deadline = time.monotonic() + timeout
+    while (raw := store.try_get(key)) is None:
+        if time.monotonic() > deadline:
+            _fail(f"{tag}: {key} never claimed")
+        time.sleep(0.01)
+    return pickle.loads(raw)
+
+
+def pod_federation(device, script, d, parent_builds):
+    """Phase 15 (a) and (b), JAX's drill (``scripts/fault_smoke.py``'s
+    ``smoke_pod_federation``) on the card. (a) Two ``PodNode`` children, h0
+    and h1, two workers each, over one ``FileCoordStore``; pinned to h1 and
+    running at once, a lockstep job at the quick start's size writing exact
+    spool snapshots (``ckpt_every_s=0.1``) and a config3-width engine job on
+    the block; three short jobs queued behind them on h1 and two routed
+    freely. Once both running jobs have a spool snapshot, h1 is SIGKILLed:
+    every job must reach DONE in the done ledger with no duplicate result;
+    the migrated lockstep job's frontier equals the uninterrupted run's (in
+    this process) string for string, resumed from an iteration above 0; the
+    config3 job ends on h0 with every member of its last snapshot's
+    frontier matched or beaten, more evaluations, and B1, B2 and B3
+    launched in h0. (b) A third host, h2 (booted beside the others, serving
+    from now), gets two jobs and a SIGTERM: it exits 0 with a retirement
+    marker, h0 claims its generation, both jobs end DONE, no duplicate.
+    Returns ({path: launches}, the times printed)."""
+    import glob
+    import re
+    import signal
+    import threading
+
+    import numpy as np
+
+    from symbolicregression_jl_tpu_torch import equation_search
+    from symbolicregression_jl_tpu_torch.parallel.membership import FileCoordStore
+    from symbolicregression_jl_tpu_torch.serve import DONE, JobSpec, PodClient
+    from symbolicregression_jl_tpu_torch.utils.checkpoint import (
+        load_checkpoint, load_frontier_bytes,
+    )
+
+    coord, reports = os.path.join(d, "coord"), os.path.join(d, "pod_reports")
+    os.makedirs(reports)
+    go = os.path.join(d, "go-h2")
+    common = {"device": device.type, "coord": coord, "reports": reports, "workers": 2,
+              "ckpt_every_s": 0.1, "hb_s": POD_HB_S, "suspect_s": POD_SUSPECT_S}
+    t_spawn = time.perf_counter()
+    procs = {h: _spawn_scale(script, "pod", 0, {**common, "host": h, **kw}, _pod_env(),
+                             log=os.path.join(d, f"{h}.log"))
+             for h, kw in (("h0", {}), ("h1", {}), ("h2", {"go": go}))}
+    try:
+        # the uninterrupted reference of the migrated lockstep job, on a
+        # thread of this process while the drill runs (nothing else here
+        # launches a kernel)
+        Xq, yq, oq = _pod_lockstep(device, 0)
+        ref_out = {}
+
+        def reference():
+            t = time.perf_counter()
+            ref_out["res"], *ref_out["counts"] = _counted(lambda: equation_search(
+                Xq, yq, options=oq, niterations=POD_LOCKSTEP_ITERATIONS, verbosity=0))
+            ref_out["s"] = time.perf_counter() - t
+
+        ref_thread = threading.Thread(target=reference, daemon=True)
+        ref_thread.start()
+        for h in ("h0", "h1"):
+            _expect_line(procs[h], "READY ", 300, f"pod (a): {h}")
+        boot_s = time.perf_counter() - t_spawn
+        _expect_line(procs["h2"], "WAITING", 300, "pod (b): h2")
+        store = FileCoordStore(coord)
+        client = PodClient(store=store, suspect_seconds=POD_SUSPECT_S)
+        deadline = time.monotonic() + 60
+        while {"h0", "h1"} - set(client.live_hosts()):
+            if time.monotonic() > deadline:
+                _fail("pod (a): the hosts never advertised")
+            time.sleep(0.05)
+
+        Xc, yc = config3_data()
+        sent = {}
+
+        def submit(spec, host=None):
+            pjid = client.submit(spec, host=host)
+            sent[pjid] = time.time()
+            return pjid
+
+        # h1's report maps the pod jobs to its local ids. The lockstep job
+        # goes first; once it has a spool snapshot, the config3 job joins it
+        # on h1's second worker (from then on the lockstep job's many syncs
+        # wait behind the engine's work on the card, so it barely advances),
+        # the short jobs queue behind them and two more are routed; h1 is
+        # killed once the engine has a spool snapshot of iteration 2 or
+        # later (its pipelined readback leaves the hall of fame of the first
+        # snapshot empty)
+        spool = os.path.join(coord, "_pod", "h1", "gen-0001", "spool")
+        snap = re.compile(r"\.engine\.(\d+)$")
+
+        def newest(pjid):
+            job = (_reports(reports, "h1") or [{}])[-1].get("jobs", {}).get(pjid)
+            its = [int(m.group(1)) + 1 for p in glob.glob(os.path.join(spool, f"{job}.engine.*"))
+                   if job and (m := snap.search(p))]
+            return max(its, default=0)
+
+        def wait_until(cond, what):
+            deadline = time.monotonic() + 300
+            while not cond():
+                if time.monotonic() > deadline:
+                    _fail(f"pod (a): {what} never came")
+                time.sleep(0.05)
+
+        def alive():
+            if client.done(long_id) is not None or client.done(eng_id) is not None:
+                _fail(f"pod (a): a running job finished on h1 before the kill (lockstep "
+                      f"{client.done(long_id) is not None}, config3 "
+                      f"{client.done(eng_id) is not None}; {time.perf_counter() - t_sub:.2f} s "
+                      f"after the lockstep submit; h1's jobs (state, iterations) "
+                      f"{_reports(reports, 'h1')[-1].get('progress')})")
+            return True
+
+        t_sub, eng_id = time.perf_counter(), None
+        long_id = submit(JobSpec(Xq, yq, options=oq, niterations=POD_LOCKSTEP_ITERATIONS),
+                         host="h1")
+        wait_until(lambda: alive() and newest(long_id) >= 1, "the lockstep job's first snapshot")
+        t_first = time.perf_counter() - t_sub
+        eng_id = submit(JobSpec(Xc, yc, options=_config3_options(device, 0),
+                                niterations=POD_ENGINE_ITERATIONS), host="h1")
+        wait_until(lambda: eng_id in _reports(reports, "h1")[-1].get("jobs", {}),
+                   "h1's admission of the config3 job")
+        pinned = [submit(JobSpec(X, y, options=o, niterations=4), host="h1")
+                  for X, y, o in (_pod_short(device, 10 + s) for s in range(3))]
+        free = [submit(JobSpec(X, y, options=o, niterations=2))
+                for X, y, o in (_pod_short(device, 1 + s) for s in range(2))]
+        all_ids = [long_id, eng_id, *pinned, *free]
+        wait_until(lambda: alive() and newest(eng_id) >= 2, "the config3 job's spool snapshots")
+        t_kill, kill_s = time.time(), time.perf_counter() - t_sub
+        procs["h1"].send_signal(signal.SIGKILL)
+        procs["h1"].wait(timeout=60)
+        h1_rep = _reports(reports, "h1")[-1]
+        ck = load_checkpoint(os.path.join(spool, h1_rep["jobs"][eng_id] + ".engine"))
+        if not ck.pareto_frontier:
+            _fail(f"pod (a): the config3 job's last snapshot (iteration {ck.iteration}) holds "
+                  "no frontier")
+        lease = _wait_claim(store, "srpod/pod0/claim/h1/gen-0001", 120, "pod (a)")
+        recs = client.wait_all(all_ids, timeout=600)
+        ref_thread.join(timeout=600)
+        if "res" not in ref_out:
+            _fail("pod (a): the lockstep reference run did not finish")
+        ref, counts, ref_s = ref_out["res"], ref_out["counts"], ref_out["s"]
+        ref_text = _members_text(ref.pareto_frontier, oq)
+        ledger = client.results()
+        if set(ledger) != set(all_ids):
+            _fail(f"pod (a): done ledger {sorted(ledger)} != submitted {sorted(all_ids)}")
+        bad = {p: r["state"] for p, r in recs.items() if r["state"] != DONE}
+        if bad:
+            _fail(f"pod (a): not DONE after the migration: {bad}")
+        lrec, erec = recs[long_id], recs[eng_id]
+        if lrec["host"] != "h0" or not lrec["resumed_from_iteration"]:
+            _fail(f"pod (a): the lockstep job did not resume on h0: "
+                  f"{ {k: v for k, v in lrec.items() if k != 'final_frame'} }")
+        front = _members_text(load_frontier_bytes(lrec["final_frame"]).members, oq)
+        if front != ref_text:
+            _fail(f"pod (a): the migrated lockstep job's frontier differs from the "
+                  f"uninterrupted run's\n  full:     {ref_text}\n  migrated: {front}")
+        o3 = _config3_options(device, 0)
+        upd = load_frontier_bytes(erec["final_frame"])
+        final = [(m.get_complexity(o3), m.loss) for m in upd.members]
+        lost = [(m.get_complexity(o3), m.loss) for m in ck.pareto_frontier
+                if not any(c <= m.get_complexity(o3) and l <= m.loss + 1e-5 * abs(m.loss) + 1e-7
+                           for c, l in final)]
+        if erec["host"] != "h0" or not erec["resumed_from_iteration"] or lost:
+            _fail(f"pod (a): the config3 job on {erec['host']}, resumed from "
+                  f"{erec['resumed_from_iteration']}, lost {lost} of its snapshot's frontier")
+        if not upd.num_evals > ck.num_evals or not all(np.isfinite(l) for _, l in final):
+            _fail(f"pod (a): the config3 job's evaluations {upd.num_evals} (snapshot "
+                  f"{ck.num_evals}) or a non-finite frontier")
+        if client.hosts()["h0"]["duplicate_results"] != 0:
+            _fail("pod (a): duplicate results after the migration")
+        h0_rep = _report_after(reports, "h0", max(r["t"] for r in recs.values()))
+        b1, b2, b3 = h0_rep["launches"][:3]
+        if device.type == "cuda" and not (b1 and b2 and b3):
+            _fail(f"pod (a): h0 launched B1 {b1}, B2 {b2}, B3 {b3}")
+        adopt = [a for a in h0_rep["adoptions"] if a["host"] == "h1"]
+        times = {"kill_to_claim_ms": (lease["t"] - t_kill) * 1e3,
+                 "adopt_ms": adopt[0]["ms"] if adopt else None,
+                 "done_s": {p: recs[p]["t"] - sent[p] for p in all_ids}}
+        tag = {long_id: "lockstep (migrated)", eng_id: "config3 engine (migrated)",
+               **{p: "short, pinned to h1" for p in pinned},
+               **{p: "short, routed" for p in free}}
+        print(f"pod (a): h0 and h1 READY {boot_s:.2f} s after their spawn; the uninterrupted "
+              f"lockstep reference "
+              f"{POD_LOCKSTEP_ITERATIONS} x {POD_LOCKSTEP_CYCLES} in this process ({ref_s:.2f} "
+              f"s, B1 {counts[0]}); the lockstep job's first snapshot {t_first:.2f} s after its "
+              f"submit; h1 SIGKILLed {kill_s:.2f} s after it, with the lockstep job and the "
+              f"config3 job running "
+              f"(config3 snapshot of iteration {ck.iteration}, {len(ck.pareto_frontier)} "
+              f"frontier members, num_evals {ck.num_evals:.0f}) and "
+              f"{len(h1_rep.get('jobs', {})) - 2} more of its jobs; suspect window "
+              f"{POD_SUSPECT_S} s; kill to h0's claim {times['kill_to_claim_ms']:.1f} ms; "
+              f"adoption {times['adopt_ms']:.3f} ms of host time in h0 "
+              f"({adopt[0] if adopt else None})", flush=True)
+        print(f"pod (a): {len(all_ids)} of {len(all_ids)} jobs DONE, 0 duplicates; the "
+              f"lockstep job resumed on h0 from iteration {lrec['resumed_from_iteration']}, "
+              f"its frontier equal to the uninterrupted run's string for string; the config3 "
+              f"job resumed on h0 from iteration {erec['resumed_from_iteration']}, every "
+              f"snapshot frontier member kept, num_evals {ck.num_evals:.0f} -> "
+              f"{upd.num_evals:.0f}, best {min(l for _, l in final):.6g}; h0 launched B1 "
+              f"{b1}, B2 {b2}, B3 {b3}; submit to DONE, s: "
+              + ", ".join(f"{tag[p]} {times['done_s'][p]:.3f} on {recs[p]['host']}"
+                          for p in all_ids), flush=True)
+
+        # (b): the drain
+        with open(go, "w"):
+            pass
+        _expect_line(procs["h2"], "READY ", 120, "pod (b): h2")
+        deadline = time.monotonic() + 60
+        while "h2" not in client.live_hosts():
+            if time.monotonic() > deadline:
+                _fail("pod (b): h2 never advertised")
+            time.sleep(0.05)
+        drain_ids = [submit(JobSpec(X, y, options=o, niterations=4), host="h2")
+                     for X, y, o in (_pod_short(device, 20 + s) for s in range(2))]
+        deadline = time.monotonic() + 120
+        while True:
+            ad = client.hosts().get("h2", {})
+            owned = ad.get("queue_depth", 0) + ad.get("running", 0)
+            settled = sum(1 for p in drain_ids if client.done(p) is not None)
+            if owned + settled >= len(drain_ids):
+                break
+            if time.monotonic() > deadline:
+                _fail("pod (b): h2 never consumed its inbox")
+            time.sleep(0.02)
+        t_term = time.time()
+        procs["h2"].send_signal(signal.SIGTERM)
+        if procs["h2"].wait(timeout=120) != 0:
+            _fail(f"pod (b): the SIGTERM drain exited {procs['h2'].returncode}")
+        if store.try_get("srpod/pod0/retire/h2/gen-0001") is None:
+            _fail("pod (b): the drained host left no retirement marker")
+        h2_rep = _report_after(reports, "h2", t_term, final=True)
+        lease2 = _wait_claim(store, "srpod/pod0/claim/h2/gen-0001", 60, "pod (b)")
+        drecs = client.wait_all(drain_ids, timeout=600)
+        bad = {p: r["state"] for p, r in drecs.items() if r["state"] != DONE}
+        if bad:
+            _fail(f"pod (b): not DONE after the drain handoff: {bad}")
+        if client.hosts()["h0"]["duplicate_results"] != 0:
+            _fail("pod (b): duplicate results after the drain handoff")
+        if set(client.results()) != set(all_ids + drain_ids):
+            _fail("pod (b): the done ledger drifted after the drain")
+        h0_rep = _report_after(reports, "h0", max(r["t"] for r in drecs.values()))
+        times["handoff_s"] = lease2["t"] - t_term
+        print(f"pod (b): h2 drained on SIGTERM and exited 0 ({h2_rep['stats']['tracked_jobs']} "
+              f"jobs tracked), retirement marker published; SIGTERM to h0's claim "
+              f"{times['handoff_s']:.3f} s; both jobs DONE (on "
+              f"{sorted(r['host'] for r in drecs.values())}, resumed from "
+              f"{[r['resumed_from_iteration'] for r in drecs.values()]}), 0 duplicates; "
+              f"submit to DONE {[round(r['t'] - sent[p], 3) for p, r in drecs.items()]} s",
+              flush=True)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rep, need in ((h0_rep, ("fused_loss", "fused_loss_grad", "evolve_block")),
+                      (h1_rep, ("fused_loss",)), (h2_rep, ("fused_loss",))):
+        if device.type == "cuda":
+            _check_child_builds(rep, parent_builds, tag=f"pod: {rep['host']}", need=need)
+        elif rep["jax"]:
+            _fail(f"pod: {rep['host']} imported a JAX module")
+    pod = [0] * 5
+    for rep in (h0_rep, h1_rep, h2_rep):
+        pod = [a + b for a, b in zip(pod, rep["launches"])]
+    return {"pod": tuple(pod), "pod reference": tuple(counts)}, times
+
+
+def chaos_child(spec, import_s):
+    """Phase 15 (c), in a child of the smoke: one seeded chaos run, the
+    port's counterpart of JAX's soak (``scripts/chaos_soak.py``'s
+    ``run_soak``). The schedule is ``generate_schedule(spec["seed"],
+    spec["duration"], hosts=("h0", "h1"), net=True)``; two pod hosts and one
+    ``NetServer`` host, each a child booted with its ``host_env_spec``
+    slice, over a ``TorchCoordStore`` on a TCPStore this process hosts (the
+    pod's journal root passed as ``root=``); ``kill`` events SIGKILL a child
+    and respawn it. JAX's workload: pinned and routed solo jobs through
+    ``PodClient``, a short and a long job and a subscription through
+    ``SRClient``. Every observation goes to ``InvariantAuditor``, every
+    journal is replayed after the teardown, then ``finalize()``. Returns the
+    breaches, the report, the counts, the children's launches summed and
+    each child's libraries and JAX flag."""
+    import datetime
+    import glob
+    import signal
+
+    import torch
+    import torch.distributed as tdist
+
+    from symbolicregression_jl_tpu_torch.parallel.membership import TorchCoordStore
+    from symbolicregression_jl_tpu_torch.serve import JobSpec, PodClient
+    from symbolicregression_jl_tpu_torch.serve.net import SRClient
+    from symbolicregression_jl_tpu_torch.utils import chaos
+    from symbolicregression_jl_tpu_torch.utils.invariants import InvariantAuditor
+
+    t_start = time.perf_counter()
+    d, duration = spec["dir"], float(spec["duration"])
+    sched = chaos.generate_schedule(spec["seed"], duration, hosts=("h0", "h1"), net=True)
+    master = tdist.TCPStore("127.0.0.1", 0, 1, True, timeout=datetime.timedelta(seconds=60),
+                            wait_for_workers=False)
+    store = TorchCoordStore(master)
+    root, journal = os.path.join(d, "pod"), os.path.join(d, "net_journal")
+    reports = os.path.join(d, "reports")
+    os.makedirs(reports)
+    port = _free_port()
+    procs, spawned, log = {}, [], []
+
+    def say(msg):
+        log.append(f"t+{time.perf_counter() - t_start:.2f}s {msg}")
+
+    def spawn(name):
+        env = _pod_env(SR_QUEUE_MAX_DEPTH=32, SR_POD_ROOT=root)
+        mine = chaos.host_env_spec(sched, name)
+        if mine:
+            env["SR_FAULT_SPEC"] = mine
+        cspec = {"host": name, "device": spec["device"], "reports": reports}
+        if name == chaos.NET_HOST:
+            cspec.update(journal=journal, port=port)
+        else:
+            cspec.update(store=f"127.0.0.1:{master.port}", root=root, workers=1,
+                         ckpt_every_s=0.1, hb_s=0.1, suspect_s=2.0)
+        n = sum(1 for s in spawned if s == name)
+        procs[name] = _spawn_scale(spec["script"], "net" if name == chaos.NET_HOST else "pod",
+                                   0, cspec, env, log=os.path.join(d, f"{name}-{n}.log"))
+        spawned.append(name)
+
+    def kill(name):
+        p = procs.get(name)
+        if p is not None and p.poll() is None:
+            p.send_signal(signal.SIGKILL)
+            p.wait(timeout=60)
+
+    X, y, _ = _pod_short(torch.device(spec["device"]), 0)
+
+    def opts(seed):
+        return _pod_short(torch.device(spec["device"]), seed)[2]
+
+    auditor = InvariantAuditor(queue_max_depth=32)
+    kills = chaos.kill_events(sched)
+    pending, seen, net_ids, cli, stream = [], set(), [], None, None
+    hosts = ("h0", "h1")
+    try:
+        for name in (*hosts, chaos.NET_HOST):
+            spawn(name)
+        client = PodClient(store=store, suspect_seconds=2.0)
+        deadline = time.monotonic() + 300
+        while set(hosts) - set(client.live_hosts()):
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"pod hosts never advertised: {client.live_hosts()}")
+            time.sleep(0.1)
+        while cli is None:
+            try:
+                cli = SRClient("127.0.0.1", port, reconnect_deadline_s=120.0)
+                cli.ping()
+            except Exception:  # noqa: BLE001 — the net child still booting
+                cli = None
+                if time.monotonic() > deadline:
+                    raise RuntimeError("the net child never came up") from None
+                time.sleep(0.2)
+        boot_s = time.perf_counter() - t_start
+        say(f"rig up: hosts {list(hosts)}, net port {port}")
+        seeds = iter(range(1, 10_000))
+        for h in hosts:
+            auditor.note_submit(client.submit(JobSpec(X, y, options=opts(next(seeds)),
+                                                      niterations=3), host=h), niterations=3)
+        for _ in range(3):
+            auditor.note_submit(client.submit(JobSpec(X, y, options=opts(next(seeds)),
+                                                      niterations=2)), niterations=2)
+        net_ids = [cli.submit(JobSpec(X, y, options=opts(0), niterations=2)),
+                   cli.submit(JobSpec(X, y, options=opts(0), niterations=25))]
+        for jid in net_ids:
+            auditor.note_submit(f"net/{jid}")
+        stream = cli.subscribe(net_ids[1])
+
+        t0 = time.time()
+        submit_stop, next_submit, pod_jobs = t0 + 0.6 * duration, t0 + 4.0, 5
+        while time.time() - t0 < duration:
+            now = time.time()
+            while kills and now - t0 >= kills[0]["at_s"]:
+                ev = kills.pop(0)
+                say(f"kill {ev['host']} (down {ev['down_s']:.2f} s)")
+                kill(ev["host"])
+                pending.append((now + ev["down_s"], ev["host"]))
+            for t_up, h in list(pending):
+                if now >= t_up:
+                    pending.remove((t_up, h))
+                    say(f"respawn {h}")
+                    spawn(h)
+            if next_submit <= now < submit_stop and pod_jobs < 14:
+                next_submit, pod_jobs = now + 4.0, pod_jobs + 1
+                auditor.note_submit(client.submit(JobSpec(X, y, options=opts(next(seeds)),
+                                                          niterations=2)), niterations=2)
+            try:
+                for h, ad in client.hosts().items():
+                    auditor.observe_host_stats(h, ad)
+                for pjid, rec in client.results().items():
+                    if pjid not in seen:
+                        seen.add(pjid)
+                        auditor.observe_done(pjid, rec)
+            except Exception:  # noqa: BLE001 — a read racing a writer
+                pass
+            time.sleep(0.25)
+        for _, h in pending:
+            say(f"respawn {h} (after the soak)")
+            spawn(h)
+        pending.clear()
+
+        say("drain: waiting for the done ledger to cover every submit")
+        drain_deadline = time.time() + spec["drain_s"]
+        pod_ids = auditor._submitted - {f"net/{j}" for j in net_ids}
+        while time.time() < drain_deadline:
+            try:
+                results = client.results()
+            except Exception:  # noqa: BLE001 — a read racing a writer
+                time.sleep(0.5)
+                continue
+            for pjid, rec in results.items():
+                if pjid not in seen:
+                    seen.add(pjid)
+                    auditor.observe_done(pjid, rec)
+            if pod_ids <= set(results):
+                break
+            time.sleep(0.5)
+        for h, ad in client.hosts().items():
+            auditor.observe_host_stats(h, ad)
+        net_deadline = time.time() + spec["drain_s"]
+        for jid in net_ids:
+            state = None
+            while time.time() < net_deadline:
+                try:
+                    state = (cli.terminal_summary(jid) or {}).get("state")
+                    if state is None:
+                        st = cli.status(jid)["state"]
+                        state = st if st in ("done", "failed", "expired", "cancelled",
+                                             "quarantined") else None
+                    if state is not None:
+                        break
+                except Exception:  # noqa: BLE001 — a reconnect window
+                    pass
+                time.sleep(0.5)
+            auditor.observe_done(f"net/{jid}", {"state": state or "running"})
+        try:
+            stored = cli.frames(net_ids[1], 0)
+            auditor.check_stream(f"net/{net_ids[1]}", stream.dup_dropped, stream.next_index,
+                                 stored, stream.frames)
+        except Exception as e:  # noqa: BLE001
+            auditor._breach("frame_monotonic", f"stream audit impossible: {e!r}")
+        stream_frames = len(stream.frames)
+        cli.close()
+    finally:
+        for name in list(procs):
+            kill(name)
+    journals = sorted(glob.glob(os.path.join(root, "*", "gen-*")))
+    for jdir in journals:
+        auditor.check_journal(jdir, context="pod gen")
+    if os.path.isdir(journal):
+        auditor.check_journal(journal, context="net journal")
+    auditor.finalize()
+    reps = _reports(reports)
+    launches = [0] * 5
+    for r in reps:
+        launches = [a + b for a, b in zip(launches, r["launches"])]
+    adoptions = [dict(a, by=r["host"]) for r in reps for a in r["adoptions"]]
+    return {
+        "schedule": chaos.schedule_spec(sched), "ok": auditor.ok,
+        "breaches": [[b.invariant, b.detail] for b in auditor.breaches],
+        "report": auditor.report(), "launches": launches, "boot_s": boot_s,
+        "wall_s": time.perf_counter() - t_start, "import_s": import_s,
+        "spawned": spawned, "log": log, "journals": len(journals),
+        "stream_frames": stream_frames, "adoptions": adoptions,
+        "children": [{"host": r["host"], "pid": r["pid"], "libraries": r["libraries"],
+                      "jax": r["jax"], "launches": r["launches"], "faults": r["faults"],
+                      "partition": r.get("partition"),
+                      "skew_suppressed": r.get("stats", {}).get("skew_suspects_suppressed")}
+                     for r in reps],
+        "jax": _jax_imported(),
+    }
+
+
+def pod_chaos(proc, parent_builds, device):
+    """Phase 15 (c)'s checks on ``chaos_child``'s result (the child ran
+    beside (a) and (b)): every invariant held, every child loaded the
+    parent's libraries and imported nothing of JAX. Prints the schedule,
+    the auditor's report, the kills and respawns, the adoptions. Returns the
+    children's launches."""
+    out, = _scale_results("pod (c)", [proc], timeout=900)
+    print(f"pod (c) chaos run: schedule {out['schedule']}; rig booted in "
+          f"{out['boot_s']:.2f} s, wall "
+          f"{out['wall_s']:.2f} s; children spawned {out['spawned']}; "
+          f"{'; '.join(out['log'])}", flush=True)
+    print("pod (c) " + out["report"].replace("\n", "; ") + f"; {out['journals']} pod journal "
+          f"generations and the net journal replayed twice each; {out['stream_frames']} frames "
+          f"on the subscription; adoptions "
+          + json.dumps([{k: (round(v, 3) if isinstance(v, float) else v) for k, v in a.items()}
+                        for a in out["adoptions"]]), flush=True)
+    print("pod (c) children: " + "; ".join(
+        f"{c['host']} ({c['pid']}): launches {c['launches'][:3]}, faults {c['faults']}"
+        + (f", partition {c['partition']}" if c["partition"] else "")
+        + (f", skew suspicions suppressed {c['skew_suppressed']}" if c["skew_suppressed"] else "")
+        for c in out["children"]), flush=True)
+    if not out["ok"]:
+        _fail("pod (c): invariants breached: " + "; ".join(f"[{n}] {t}"
+                                                          for n, t in out["breaches"]))
+    for c in out["children"]:
+        if device.type == "cuda":
+            _check_child_builds(c, parent_builds, tag=f"pod (c): {c['host']} ({c['pid']})",
+                                need=())
+        elif c["jax"]:
+            _fail(f"pod (c): {c['host']} imported a JAX module")
+    if out["jax"]:
+        _fail("pod (c): the chaos orchestrator imported a JAX module")
+    if device.type == "cuda" and not out["launches"][0]:
+        _fail("pod (c): the chaos children launched no B1")
+    return tuple(out["launches"])
+
+
+def pod_path(device):
+    """Phase 15: (c)'s chaos orchestrator is started first, in a child that runs
+    beside (a) and (b) (its rig is three more children); then (a) the kill
+    drill and (b) the drain drill. Returns ({path: launches}, times)."""
+    import tempfile
+
+    from symbolicregression_jl_tpu_torch.ops import interp_cuda
+
+    t0 = time.perf_counter()
+    parent_builds = {k: v["library"] for k, v in interp_cuda.BUILD_INFO.items()}
+    with tempfile.TemporaryDirectory() as d:
+        script = os.path.join(d, "pod_child.py")
+        with open(script, "w") as f:
+            f.write(_POD_CHILD.format(root=os.path.dirname(os.path.abspath(__file__))))
+        cdir = os.path.join(d, "chaos")
+        os.makedirs(cdir)
+        beside = _spawn_scale(script, "chaos", 0, {
+            "device": device.type, "dir": cdir, "script": script, "seed": CHAOS_SEED,
+            "duration": CHAOS_DURATION_S, "drain_s": 240.0}, _pod_env(),
+            log=os.path.join(d, "chaos.log"))
+        try:
+            paths, times = pod_federation(device, script, d, parent_builds)
+            paths["chaos"] = pod_chaos(beside, parent_builds, device)
+        finally:
+            if beside.poll() is None:
+                beside.kill()
+                beside.wait()
+    print(f"phase 15 pod: {time.perf_counter() - t0:.2f} s", flush=True)
+    return paths, times
+
+
 def build_from_two_threads():
     """Phase 1's build, asked for by two threads at once (a server's workers
     reaching the kernels first together): ``build_all`` serializes them, so
@@ -4851,6 +5658,8 @@ def main() -> int:
     paths.update(scale_paths)
     for rec in (b1, b2, b3):
         rec["max_abs_err"] = max(rec["max_abs_err"], scale_errs.get(rec["name"], 0.0))
+    pod_paths, _ = pod_path(device)
+    paths.update(pod_paths)
     for i, rec in enumerate((b1, b2, b3, b4, b2v)):
         rec["launches_by_path"] = {path: counts[i] for path, counts in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())

@@ -1,5 +1,5 @@
 """SR-as-a-service on one card: multi-tenant search serving (the JAX
-package's ``serve/``, without ``pod``, which comes with slice 4).
+package's ``serve/``).
 
 - ``program_cache`` — the unified, thread-safe, capacity-bounded LRU of what
   the port keeps on the card across searches (dataset uploads, operator
@@ -13,6 +13,10 @@ package's ``serve/``, without ``pod``, which comes with slice 4).
 - ``journal`` — ``JobJournal``: the opt-in write-ahead log behind
   ``SearchServer(journal_dir=...)`` crash recovery, retries, and the
   QUARANTINED poison-job state.
+- ``pod`` — ``PodNode``/``PodClient``: pod-scale federation — N servers
+  over a shared CoordStore presenting one logical service, with
+  warmth/load-aware admission, lane migration off dead hosts, and
+  SIGTERM graceful drain.
 - ``net`` — the network front door: ``NetServer`` (CRC-framed wire
   protocol over asyncio, auth-token→tenant, retryable overload shed)
   and the ``SRClient``/``AsyncSRClient`` SDK with reconnect +
@@ -29,6 +33,7 @@ from .net import (
     SRClient,
     WireError,
 )
+from .pod import PodClient, PodNode
 from .program_cache import (
     ProgramCache,
     enable_persistent_compilation_cache,
@@ -65,6 +70,8 @@ __all__ = [
     "JobJournal",
     "SearchServer",
     "ServerOverloaded",
+    "PodNode",
+    "PodClient",
     "NetServer",
     "SRClient",
     "AsyncSRClient",

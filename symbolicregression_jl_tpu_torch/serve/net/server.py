@@ -1,13 +1,14 @@
 """``NetServer``: the asyncio socket front door over a ``SearchServer``.
 
 Counterpart of ``symbolicregression_jl_tpu/serve/net/server.py`` over the
-port's server. A submitted spec is unpickled on the loop thread: the
-port's ``JobSpec`` and ``Options`` unpickle without touching the card
-(``Options.__setstate__`` only reruns ``__post_init__``), and the job runs
-where its ``Options.device`` says. Each package unpickles its own
-``JobSpec`` class: a spec pickled by the other package is refused as
-``'spec' decodes to JobSpec, not JobSpec`` (or as undecodable where that
-package is not installed), as the journal refuses it.
+port's server. A submitted spec is unpickled on the loop thread by
+``queue.decode_spec``: the port's ``JobSpec`` and ``Options`` unpickle
+without touching the card (``Options.__setstate__`` only reruns
+``__post_init__``), and the job runs where its ``Options.device`` says. A
+spec pickled by the JAX package decodes to stand-ins of its classes, so
+the JAX package is never imported, and is refused as ``'spec' decodes to
+JobSpec, not JobSpec`` whether or not that package is installed, as the
+journal and the pod refuse it.
 
 Everything below the wire is the existing serve stack — admission queue,
 per-tenant quotas, fleet coalescing/dedup, journal durability, preemption.
@@ -60,13 +61,12 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import os
-import pickle
 import threading
 import time
 import uuid
 
 from ...utils import faults
-from ..queue import JobSpec, ServerOverloaded
+from ..queue import ServerOverloaded, decode_spec
 from .wire import WIRE_MAGIC, FrameDecoder, WireError, encode_message
 
 __all__ = ["NetServer", "parse_tokens"]
@@ -607,12 +607,7 @@ class NetServer:
         raw = msg.get("spec")
         if not isinstance(raw, (bytes, bytearray)):
             raise ValueError("submit needs pickled JobSpec bytes under 'spec'")
-        try:
-            spec = pickle.loads(bytes(raw))
-        except Exception as exc:  # noqa: BLE001
-            raise ValueError(f"undecodable JobSpec: {exc!r}") from exc
-        if not isinstance(spec, JobSpec):
-            raise ValueError(f"'spec' decodes to {type(spec).__name__}, not JobSpec")
+        spec = decode_spec(raw)
         if self.tokens:
             # the token IS the identity: quotas key off its tenant, not
             # whatever the client stamped into the spec

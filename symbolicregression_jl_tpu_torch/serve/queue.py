@@ -34,7 +34,9 @@ Everything here is host-side: the queue never touches torch or the card.
 from __future__ import annotations
 
 import dataclasses
+import io
 import os
+import pickle
 import threading
 import time
 from typing import Any
@@ -43,7 +45,8 @@ import numpy as np
 
 __all__ = [
     "JobSpec", "Job", "JobQueue", "ServerOverloaded", "shape_bucket",
-    "options_digest", "bucket_digest", "queue_age_seconds",
+    "options_digest", "bucket_digest", "queue_age_seconds", "decode_spec",
+    "safe_loads",
 ]
 
 
@@ -124,6 +127,59 @@ def bucket_digest(bucket: tuple) -> str:
     import hashlib
 
     return hashlib.sha1(repr(bucket).encode()).hexdigest()[:12]
+
+
+# -- decoding specs from clients, journals and pod inboxes ----------------------
+
+# globals of these packages are never imported while decoding: a JobSpec the
+# JAX package pickled names its own classes, and loading them would import
+# the JAX package (and jax) into the port's process
+_FOREIGN_ROOTS = ("symbolicregression_jl_tpu", "jax", "jaxlib")
+
+
+class _Foreign:
+    """Stand-in for a global of a foreign package: it takes any constructor
+    arguments and any pickled state, and keeps the original class's name
+    (``type(obj).__name__``), so a refusal can say what the bytes held."""
+
+    def __new__(cls, *args, **kwargs):
+        return object.__new__(cls)
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __setstate__(self, state):
+        self.__dict__["_state"] = state
+
+
+class _SpecUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module.split(".", 1)[0] in _FOREIGN_ROOTS:
+            return type(name, (_Foreign,), {"__module__": module, "__qualname__": name})
+        return super().find_class(module, name)
+
+
+def safe_loads(raw: bytes):
+    """``pickle.loads`` that imports nothing of the JAX package or jax: each
+    of their globals decodes to a stand-in class of the same name."""
+    return _SpecUnpickler(io.BytesIO(bytes(raw))).load()
+
+
+def decode_spec(raw: bytes) -> "JobSpec":
+    """The port's ``JobSpec`` from pickled bytes (a client's submit, a
+    journal's record, a pod envelope). Raises ``ValueError`` when the bytes
+    do not decode or decode to anything else; a JAX package ``JobSpec`` is
+    refused the same way whether or not JAX is installed
+    (``'spec' decodes to JobSpec, not JobSpec``)."""
+    try:
+        spec = safe_loads(raw)
+    except Exception as exc:  # noqa: BLE001
+        raise ValueError(f"undecodable JobSpec: {exc!r}") from exc
+    if not isinstance(spec, JobSpec):
+        raise ValueError(
+            f"'spec' decodes to {type(spec).__name__}, not JobSpec"
+        )
+    return spec
 
 
 @dataclasses.dataclass

@@ -80,7 +80,6 @@ import copy
 import dataclasses
 import hashlib
 import os
-import pickle
 import shutil
 import tempfile
 import threading
@@ -282,8 +281,8 @@ class SearchServer:
             spec = None
             if st.get("spec") is not None:
                 try:
-                    spec = pickle.loads(st["spec"])
-                except Exception:
+                    spec = q.decode_spec(st["spec"])
+                except ValueError:
                     spec = None
             if spec is None:
                 self._recovered["dropped"] += 1
@@ -488,6 +487,80 @@ class SearchServer:
         with self._lock:
             return not self._running
 
+    # -- federated adoption (pod runtime) --------------------------------------
+    def adopt_external(
+        self,
+        spec: JobSpec,
+        *,
+        attempts: int = 0,
+        iterations_done: int = 0,
+        ckpt: str | None = None,
+        submitted_at: float | None = None,
+        error: str | None = None,
+    ) -> str:
+        """Admit a job recovered from ANOTHER server's journal (the pod
+        runtime's lane migration): re-journal it locally under a fresh id,
+        preserve its attempt counter and original submit time (deadlines
+        keep measuring from the tenant's submit, and the retry budget
+        cannot reset by changing hosts — the same invariant `_recover`
+        enforces), and adopt the dead host's checkpoint so an exact
+        lockstep snapshot resumes bit-identically. Returns the local job
+        id; a job already past the retry budget finalizes QUARANTINED
+        without running."""
+        if self._stopping:
+            raise RuntimeError("server is shutting down")
+        if spec.kind != "search":
+            raise ValueError("only search jobs can be adopted")
+        with self._lock:
+            self._seq += 1
+            job_id = f"job-{self._seq:05d}"
+            job = Job(job_id, spec, seq=self._seq)
+            self._jobs[job_id] = job
+        if submitted_at is not None:
+            job.submitted_at = float(submitted_at)
+            job.deadline_at = (
+                None
+                if spec.deadline_seconds is None
+                else job.submitted_at + spec.deadline_seconds
+            )
+        job.attempts = int(attempts)
+        job.iterations_done = int(iterations_done)
+        job.error = error
+        if self.journal is not None:
+            try:
+                self.journal.append_submit(job)
+            except Exception:
+                try:
+                    self.journal.replay()
+                except Exception:
+                    pass
+        if job.attempts > self.job_retries:
+            job.error = error or (
+                f"quarantined on adoption: {job.attempts} attempt(s) "
+                f"exceed SR_JOB_RETRIES={self.job_retries}"
+            )
+            with self._lock:
+                self._quarantined += 1
+            self._finalize(job, q.QUARANTINED, release=False)
+            return job_id
+        if self._adopt_checkpoint(job, ckpt):
+            # the adopted snapshot lives in the DEAD host's spool; requeue
+            # with its path so a crash here still re-adopts it
+            self._jappend(
+                "requeue", job.id, attempts=job.attempts, not_before=0.0,
+                ckpt=job.resume_path,
+            )
+        self._queue.submit(job)
+        self._queue.wake_all()
+        return job_id
+
+    def warm_digests(self) -> list[str]:
+        """Digests of the shape buckets this server has run (and whose data
+        and operator tables are therefore in the program cache) — the
+        warmth block of a pod host's load advertisement."""
+        with self._lock:
+            return sorted(q.bucket_digest(b) for b in self._warm_buckets)
+
     # -- client surface -------------------------------------------------------
     def submit(self, spec: JobSpec) -> str:
         """Enqueue a job; returns its id. May trigger preemption: when every
@@ -517,6 +590,13 @@ class SearchServer:
                 # refused (the append itself is the probe — the first submit
                 # after space returns re-arms the journal and is accepted).
                 # Running jobs are untouched; the client retries later.
+                if os.environ.get("SR_CHAOS_BREAK") == "shed_silently":
+                    # chaos-demo regression: accept the job id but drop the
+                    # job — the auditor's no_lost_jobs invariant must catch
+                    # this
+                    with self._lock:
+                        self._jobs.pop(job_id, None)
+                    return job_id
                 with self._lock:
                     self._jobs.pop(job_id, None)
                     self._shed += 1

@@ -58,10 +58,8 @@ ROOT = Path(__file__).resolve().parent.parent
 TIMEOUT = 300
 
 # the JAX serve names the port has not ported yet, each with its ROADMAP item
-_UNPORTED = {
-    "PodNode": "slice 4: serve/pod.py",
-    "PodClient": "slice 4: serve/pod.py",
-}
+# (none: serve/pod.py came last)
+_UNPORTED: dict = {}
 
 
 @pytest.fixture(autouse=True, scope="module")
