@@ -738,6 +738,7 @@ def _bfgs_lockstep(x, mask_b, vloss, vgrad, iters: int, g_tol: float, lanes: int
         if g_tol > 0:
             conv = g.abs().reshape(lanes, -1).amax(1) < g_tol
             frozen = conv if frozen is None else frozen | conv
+            # srl: disable=SRL003 -- the g_tol gate; ROADMAP A, const-opt leg without host syncs
             if bool(frozen.all()):
                 break
             if lanes > 1:
@@ -756,6 +757,7 @@ def _bfgs_lockstep(x, mask_b, vloss, vgrad, iters: int, g_tol: float, lanes: int
             armijo = f_new <= f + 1e-4 * alpha * gtd
             if fz is not None:
                 armijo = armijo | fz
+            # srl: disable=SRL003 -- the Armijo stop; ROADMAP A, const-opt leg without host syncs
             if bool(armijo.all()):
                 break
             alpha = torch.where(armijo, alpha, alpha * 0.5)
@@ -1551,6 +1553,7 @@ def device_search_one_output(
             fetch = readback.start(rb)
             if multi_host:
                 with prof.stage("readback_d2h"):
+                    # srl: disable=SRL003 -- leg boundary readback: the exchange payload
                     payload = (fetch(), *(a.cpu().numpy() for a in pool_dev))
             elif async_rb:
                 prev, pending = pending, fetch
