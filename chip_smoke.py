@@ -239,6 +239,30 @@ JAX or of the JAX package. Phases, each of which raises on failure:
    each reports its launches every 0.2 s (a SIGKILLed child's count is its
    last report's): the paths ``pod`` ((a) and (b)) and ``chaos``; the
    lockstep reference run in this process is ``pod reference``.
+16. ``mesh``: the device engine's in-process mesh (``parallel/mesh.py``,
+   the sharded iteration of ``ops/evolve.py``, the mesh decision of
+   ``models/device_search.py``) over every card of the machine. (a) config3
+   at full width (100 x 100, 10,000 rows x 5 features, maxsize 20),
+   MESH_ITERATIONS x MESH_CYCLES cycles, on a pop mesh of four shards: the
+   search's ``Options(mesh_devices=...)`` names the four cards, or cuda:0
+   four times on one card, and the engine's own rule shards the islands;
+   evolve ms per cycle, the const-opt legs,
+   the evolve leg's gathers per cycle and their ms, B1 and B2 launches per
+   card; the first evolve leg under ``set_sync_debug_mode("error")``; after
+   every iteration the replicated leaves of every shard equal shard 0's;
+   every frontier loss its tree's host f64 loss (rel 1e-3, abs 1e-4);
+   num_evals > 0; no B3. (b) ``data_sharding="rows"`` on the same four
+   shards and config3's first 9,998 rows, where the engine's rule picks a
+   (2, 2) mesh (rows 4 does not divide 9,998), MESH_ROWS_ITERATIONS x
+   MESH_ROWS_CYCLES, checked the same way. (d) ``Options(device="cuda")``
+   with no ``mesh_devices`` at (a)'s depth: one card on the evolve block,
+   whatever the machine holds; its evals/s beside (a)'s. (c) with
+   two cards or more: (a) again with the four shards on cuda:0, its
+   frontier and num_evals bit for bit (a)'s; B1 and B2 against their plain
+   versions on every card; phase 14 (d)'s row-sharded B1 at 1M rows over
+   the cards against one B1 call. Paths ``mesh``, ``mesh rows``,
+   ``mesh solo`` and ``mesh rows B1``. The earlier phases run on ``cuda:0`` (their Options
+   name it).
 
 Every launch count in the kernels line is measured: each path sets the
 counts of B1-B4 and B2v to 0 just before it runs and reads all five just
@@ -493,7 +517,7 @@ def kernel_check(device):
         BINARY_OPS, UNARY_OPS, resolve_operators,
     )
 
-    opts = Options(maxsize=20, device=device.type, **CONFIG3_OPS)
+    opts = Options(maxsize=20, device=str(device), **CONFIG3_OPS)
     opset, N = opts.operators, opts.max_nodes
     Xn, yn = config3_data()
     X = torch.from_numpy(Xn).to(device)
@@ -593,7 +617,7 @@ def b1_timing(device, P, plain=False):
         fused_loss, fused_loss_reference, optab_tensor, work_counts,
     )
 
-    opts = Options(maxsize=20, device=device.type, **CONFIG3_OPS)
+    opts = Options(maxsize=20, device=str(device), **CONFIG3_OPS)
     opset, N = opts.operators, opts.max_nodes
     Xn, yn = config3_data()
     X, y = torch.from_numpy(Xn).to(device), torch.from_numpy(yn).to(device)
@@ -641,7 +665,7 @@ def main_path(device, cycles=CONFIG3_CYCLES, rows=CONFIG3_ROWS, populations=100,
     options = Options(
         populations=populations, population_size=population_size, maxsize=20,
         ncycles_per_iteration=cycles, seed=0, save_to_file=False, progress=False,
-        device=device.type, **CONFIG3_OPS,
+        device=str(device), **CONFIG3_OPS,
     )
     spent = {"s_r_cycle_lockstep": 0.0, "optimize_and_simplify_populations": 0.0}
     saved = {name: getattr(search_mod, name) for name in spent}
@@ -715,7 +739,7 @@ def quick_start(device, niterations=QUICKSTART_ITERATIONS):
     model = SRRegressor(
         niterations=niterations, binary_operators=["+", "-", "*"],
         unary_operators=["cos"], seed=0, save_to_file=False, progress=False,
-        device=device.type,
+        device=str(device),
     )
     model.fit(X, y)
     wall = time.perf_counter() - t0
@@ -747,7 +771,7 @@ def grad_kernel_check(device, n_instances=4200):
         BINARY_OPS, UNARY_OPS, resolve_operators,
     )
 
-    opts = Options(maxsize=20, device=device.type, **CONFIG3_OPS)
+    opts = Options(maxsize=20, device=str(device), **CONFIG3_OPS)
     opset, N = opts.operators, opts.max_nodes
     Xn, yn = config3_data()
     X = torch.from_numpy(Xn).to(device)
@@ -891,7 +915,7 @@ def b2_timing(device, P, rows, plain=False):
         fused_loss_grad, fused_loss_grad_reference, grad_work_counts, optab_tensor,
     )
 
-    opts = Options(maxsize=20, device=device.type, **CONFIG3_OPS)
+    opts = Options(maxsize=20, device=str(device), **CONFIG3_OPS)
     opset, N = opts.operators, opts.max_nodes
     Xn, yn = config3_data()
     if rows < CONFIG3_ROWS:
@@ -1024,7 +1048,7 @@ def block_kernel_check(device, islands=100, rows=CONFIG3_ROWS):
     Xn, yn = config3_data(n_rows=rows)
     X = torch.from_numpy(Xn).to(device)
     y = torch.from_numpy(yn).to(device)
-    c3 = Options(maxsize=20, populations=islands, population_size=100, device=device.type,
+    c3 = Options(maxsize=20, populations=islands, population_size=100, device=str(device),
                  **CONFIG3_OPS)
     max_err = 0.0
     n_cases = 0
@@ -1059,12 +1083,12 @@ def block_kernel_check(device, islands=100, rows=CONFIG3_ROWS):
     Xq = torch.from_numpy(rng.normal(size=(2, 200)).astype(np.float32)).to(device)
     yq = 2 * torch.cos(Xq[1]) + Xq[0] ** 2 - 2
     wq = torch.from_numpy(rng.uniform(0.5, 2.0, 200).astype(np.float32)).to(device)
-    qs = Options(binary_operators=["+", "-", "*"], unary_operators=["cos"], device=device.type)
+    qs = Options(binary_operators=["+", "-", "*"], unary_operators=["cos"], device=str(device))
     check("quick start", qs, Xq, yq, None, qs.populations)
     check("quick start weighted", qs, Xq, yq, wq, qs.populations)
     all_ops = Options(binary_operators=list(BINARY_OPS), unary_operators=list(UNARY_OPS),
                       maxsize=20, populations=islands // 5, population_size=100,
-                      device=device.type)
+                      device=str(device))
     check("every operator", all_ops, X, y, None, islands // 5, seed=11)
     Xs = torch.from_numpy(rng.uniform(-1, 1, (3, 257)).astype(np.float32)).to(device)
     ys = torch.from_numpy(np.sign(rng.uniform(-1, 1, 257)).astype(np.float32)).to(device)
@@ -1076,7 +1100,7 @@ def block_kernel_check(device, islands=100, rows=CONFIG3_ROWS):
     for name, loss in zoo.items():
         lo = Options(binary_operators=["add", "sub", "mult"], unary_operators=[],
                      elementwise_loss=loss,
-                     populations=4, population_size=16, maxsize=12, device=device.type)
+                     populations=4, population_size=16, maxsize=12, device=str(device))
         check(f"loss {name}", lo, Xs, ys, ws, 4, cycles=(8,), seed=13)
     print(f"block kernel check: {n_cases} cases equal to the plain version on every integer "
           f"output, max abs err of float outputs {max_err:.3e} (rtol {RTOL}, atol {ATOL}; "
@@ -1166,7 +1190,7 @@ def b3_timing(device, islands=100, sweep=B3_SWEEP_ROWS, plain=True):
     )
 
     Xn, yn = config3_data(n_rows=max(sweep))
-    c3 = Options(maxsize=20, populations=islands, population_size=100, device=device.type,
+    c3 = Options(maxsize=20, populations=islands, population_size=100, device=str(device),
                  **CONFIG3_OPS)
     saved = evolve_block.launches
     points = []
@@ -1230,7 +1254,7 @@ def preds_kernel_check(device, rows=CONFIG3_ROWS):
 
     Xn, _ = config3_data(n_rows=rows)
     X = torch.from_numpy(Xn).to(device)
-    opts = Options(maxsize=20, device=device.type, **CONFIG3_OPS)
+    opts = Options(maxsize=20, device=str(device), **CONFIG3_OPS)
     N = opts.max_nodes
     all_ops = resolve_operators(list(BINARY_OPS), list(UNARY_OPS))
     max_err = 0.0
@@ -1276,7 +1300,7 @@ def b4_timing(device, P, rows=CONFIG3_ROWS, plain=False):
 
     Xn, _ = config3_data(n_rows=rows)
     X = torch.from_numpy(Xn).to(device)
-    opts = Options(maxsize=20, device=device.type, **CONFIG3_OPS)
+    opts = Options(maxsize=20, device=str(device), **CONFIG3_OPS)
     prog, vals = random_programs(opts.operators, P, opts.max_nodes, CONFIG3_FEATURES, seed=P)
     flat = unpack_programs_fused(prog, vals, opts.operators)
     prog_t, vals_t = torch.from_numpy(prog).to(device), torch.from_numpy(vals).to(device)
@@ -1491,7 +1515,7 @@ def engine_path(device, lockstep=None, block=True, iterations=ENGINE_ITERATIONS,
     options = Options(
         populations=populations, population_size=population_size, maxsize=20,
         ncycles_per_iteration=cycles, seed=0, save_to_file=False, progress=False,
-        device=device.type, scheduler="device", **CONFIG3_OPS,
+        device=str(device), scheduler="device", **CONFIG3_OPS,
     )
     legs = []
     checked = []
@@ -1635,7 +1659,7 @@ def quick_start_device(device, niterations=DEVICE_QUICKSTART_ITERATIONS):
         model = SRRegressor(
             niterations=niterations, binary_operators=["+", "-", "*"],
             unary_operators=["cos"], seed=0, save_to_file=False, progress=False,
-            device=device.type, scheduler="device",
+            device=str(device), scheduler="device",
         )
         model.fit(X, y)
         wall = time.perf_counter() - t0
@@ -1686,7 +1710,7 @@ def resume_lockstep(device, tmp):
     def opts(checkpoint_file=base, **kw):
         return Options(binary_operators=["+", "-", "*"], unary_operators=["cos"],
                        ncycles_per_iteration=RESUME_CYCLES, seed=0, save_to_file=False,
-                       progress=False, device=device.type, checkpoint_file=checkpoint_file,
+                       progress=False, device=str(device), checkpoint_file=checkpoint_file,
                        **kw)
 
     n = RESUME_ITERATIONS
@@ -1768,7 +1792,7 @@ def resume_engine(device, tmp, iterations=4, cycles=ENGINE_CYCLES, rows=CONFIG3_
     def opts(checkpoint_file=base, **kw):
         return Options(populations=100, population_size=100, maxsize=20,
                        ncycles_per_iteration=cycles, seed=0, save_to_file=False,
-                       progress=False, device=device.type, scheduler="device",
+                       progress=False, device=str(device), scheduler="device",
                        checkpoint_file=checkpoint_file, **CONFIG3_OPS, **kw)
 
     # a snapshot's host time splits into the decode of the live state (its
@@ -1934,7 +1958,7 @@ def options_profile(device, block_run_s, iterations=ENGINE_ITERATIONS, cycles=EN
     def run(**kw):
         options = Options(populations=100, population_size=100, maxsize=20,
                           ncycles_per_iteration=cycles, seed=0, save_to_file=False,
-                          progress=False, device=device.type, scheduler="device",
+                          progress=False, device=str(device), scheduler="device",
                           **CONFIG3_OPS, **kw)
         return equation_search(X, y, options=options, niterations=iterations, verbosity=0)
 
@@ -1997,7 +2021,7 @@ def options_units(device, iterations=OPTIONS_ITERATIONS, cycles=OPTIONS_CYCLES):
         options = Options(binary_operators=["+", "-", "*", "/"],
                           unary_operators=["sqrt", "cos"], populations=15, population_size=33,
                           ncycles_per_iteration=cycles, seed=0, save_to_file=False,
-                          progress=False, device=device.type, scheduler=scheduler)
+                          progress=False, device=str(device), scheduler=scheduler)
         t0 = time.perf_counter()
         res, b1, b2, b3, b4, b2v = _counted(lambda: equation_search(
             X, y, options=options, niterations=iterations, verbosity=0, X_units=UNITS_X,
@@ -2063,7 +2087,7 @@ def options_recorder(device, tmp, iterations=3, cycles=None):
     path = os.path.join(tmp, "recorder.json")
     readme = {} if cycles is None else {"ncycles_per_iteration": cycles}
     options = Options(binary_operators=["+", "-", "*"], unary_operators=["cos"], seed=0,
-                      save_to_file=False, progress=False, device=device.type,
+                      save_to_file=False, progress=False, device=str(device),
                       scheduler="device", use_recorder=True, recorder_file=path,
                       crossover_probability=0.0, **readme)
     checked, no_sync = [], []
@@ -2143,7 +2167,7 @@ def options_neldermead(device, iterations=3, cycles=None):
     y = 2 * np.cos(X[:, 1]) + X[:, 0] ** 2 - 2
     readme = {} if cycles is None else {"ncycles_per_iteration": cycles}
     options = Options(binary_operators=["+", "-", "*"], unary_operators=["cos"], seed=0,
-                      save_to_file=False, progress=False, device=device.type,
+                      save_to_file=False, progress=False, device=str(device),
                       scheduler="device", optimizer_algorithm="NelderMead", **readme)
     t0 = time.perf_counter()
     with engine_block_env(True):
@@ -2241,7 +2265,7 @@ def fleet_kernel_check(device, lanes=FLEET_CHECK_LANES, P_lane=4200, islands=100
     )
 
     saved = fused_loss.launches, fused_loss_grad.launches, evolve_block.launches
-    opts = Options(maxsize=20, populations=islands, population_size=100, device=device.type,
+    opts = Options(maxsize=20, populations=islands, population_size=100, device=str(device),
                    **CONFIG3_OPS)
     opset, N, l2 = opts.operators, opts.max_nodes, opts.loss
     Xn, _ = config3_data()
@@ -2555,7 +2579,7 @@ def fleet_mixed(device, cycles=ENGINE_CYCLES, seed=0):
     def opts(s):
         return Options(populations=100, population_size=100, maxsize=20,
                        ncycles_per_iteration=cycles, seed=s, save_to_file=False, progress=False,
-                       device=device.type, scheduler="device", **CONFIG3_OPS)
+                       device=str(device), scheduler="device", **CONFIG3_OPS)
 
     short_X, short_y = np.ascontiguousarray(Xn[:, :6000]), np.ascontiguousarray(Y[1][:6000])
     with engine_block_env(True):
@@ -2603,7 +2627,7 @@ def fleet_event_leg(device, iterations=2, cycles=100, seed=0):
     def opts(s):
         return Options(binary_operators=["+", "-", "*"], unary_operators=["cos"],
                        ncycles_per_iteration=cycles, seed=s, save_to_file=False, progress=False,
-                       device=device.type, scheduler="device")
+                       device=str(device), scheduler="device")
 
     with engine_block_env(False):
         t0 = time.perf_counter()
@@ -2828,7 +2852,7 @@ def stream_session_config3(device, cycles=ENGINE_CYCLES, seed=0,
     frames = []
     opts = Options(populations=width, population_size=width, maxsize=20,
                    ncycles_per_iteration=cycles, seed=seed, save_to_file=False, progress=False,
-                   device=device.type, scheduler="device", warmup_maxsize_by=0.0,
+                   device=str(device), scheduler="device", warmup_maxsize_by=0.0,
                    iteration_callback=gate.cb, **CONFIG3_OPS)
     builds = {k: v["library"] for k, v in interp_cuda.BUILD_INFO.items()}
     hook_s, probe_s, rescore_s = [], [], []
@@ -2983,7 +3007,7 @@ def stream_noop(device, seed=0):
         for touch in (False, True):
             gate = _Gate()
             opts = Options(binary_operators=["+", "-", "*"], unary_operators=["cos"], seed=seed,
-                           save_to_file=False, progress=False, device=device.type,
+                           save_to_file=False, progress=False, device=str(device),
                            scheduler="device", iteration_callback=gate.cb)
             sess = StreamSession(X, y, opts, row_bucket=256)
             sess.start()
@@ -3045,7 +3069,7 @@ def _config3_options(device, seed, cycles=ENGINE_CYCLES, **kw):
 
     return Options(populations=100, population_size=100, maxsize=20,
                    ncycles_per_iteration=cycles, seed=seed, save_to_file=False, progress=False,
-                   device=device.type, scheduler="device", **CONFIG3_OPS, **kw)
+                   device=str(device), scheduler="device", **CONFIG3_OPS, **kw)
 
 
 def _quick_start_problem(device, seed):
@@ -3059,7 +3083,7 @@ def _quick_start_problem(device, seed):
     X = rng.normal(size=(2, 200)).astype(np.float32)
     y = (2 * np.cos(X[1]) + X[0] ** 2 - 2).astype(np.float32)
     return X, y, Options(binary_operators=["+", "-", "*"], unary_operators=["cos"], seed=seed,
-                         save_to_file=False, progress=False, device=device.type,
+                         save_to_file=False, progress=False, device=str(device),
                          scheduler="device")
 
 
@@ -3931,7 +3955,7 @@ def objective_kernel_check(device, P=4200):
         preds_vjp_reference, preds_vjp_work_counts, preds_work_counts,
     )
 
-    opts = Options(maxsize=20, device=device.type, **CONFIG3_OPS)
+    opts = Options(maxsize=20, device=str(device), **CONFIG3_OPS)
     opset, N = opts.operators, opts.max_nodes
     Xn, yn = config3_data()
     X, y = torch.from_numpy(Xn).to(device), torch.from_numpy(yn).to(device)
@@ -4087,7 +4111,7 @@ def objective_search(device, lockstep_stats, iterations=ENGINE_ITERATIONS,
     Xn, yn = config3_data()
     X, y = torch.from_numpy(Xn).to(device), torch.from_numpy(yn).to(device)
     kw = dict(populations=100, population_size=100, maxsize=20, seed=0, save_to_file=False,
-              progress=False, device=device.type, loss_function_jit=corr_objective,
+              progress=False, device=str(device), loss_function_jit=corr_objective,
               **CONFIG3_OPS)
     options = Options(ncycles_per_iteration=cycles, scheduler="device", **kw)
     wrap, walls, idle = _leg_timer(iterations)
@@ -4205,7 +4229,7 @@ def graph_lockstep(device, lockstep_stats, cycles=None):
     Xn, yn = config3_data()
     options = Options(populations=100, population_size=100, maxsize=20,
                       ncycles_per_iteration=cycles, seed=0, save_to_file=False, progress=False,
-                      device=device.type, graph_nodes=True, **CONFIG3_OPS)
+                      device=str(device), graph_nodes=True, **CONFIG3_OPS)
     real = scorer_mod.stack_sound_pointers
     seen = {"batches": 0, "rows": 0, "shared": 0, "unsound": 0, "host_s": 0.0, "kept": None}
 
@@ -4299,7 +4323,7 @@ def complex_path(device, iterations=None):
     done = []
     options = Options(populations=15, population_size=33, ncycles_per_iteration=100,
                       seed=COMPLEX_SEED, early_stop_condition=1e-2, save_to_file=False,
-                      progress=False, device=device.type,
+                      progress=False, device=str(device),
                       iteration_callback=lambda report: done.append(report.iteration),
                       **kw)
     t0 = time.perf_counter()
@@ -4329,7 +4353,7 @@ def complex_path(device, iterations=None):
             f.write("Complexity,Loss,Equation\n")
             f.write(f"{best.get_complexity(options)},{best.loss!r},"
                     f"{best.tree.string_tree(options.operators, precision=17)}\n")
-        model = SRRegressor.from_file(path, device=device.type, **kw)
+        model = SRRegressor.from_file(path, device=str(device), **kw)
         pred = model.predict(X.T[:1000])
     want = eval_trees(flatten_trees([best.tree], options.max_nodes, dtype=np.complex64),
                       torch.from_numpy(np.ascontiguousarray(X[:, :1000])).to(device),
@@ -4588,7 +4612,7 @@ def scale_world(device, script, solo, parent_builds, iterations=ENGINE_ITERATION
     (their kernels share the card, so each includes the other's work), the
     payload bytes, evals/s and the card's busy share of its wall; phase 5's
     solo run beside them. Returns the children's launches."""
-    spec = {"device": device.type, "cycles": cycles, "iterations": iterations,
+    spec = {"device": str(device), "cycles": cycles, "iterations": iterations,
             "address": f"127.0.0.1:{_free_port()}", "profile": True, "check": True,
             "rows": CONFIG3_ROWS}
     t0 = time.perf_counter()
@@ -4641,7 +4665,7 @@ def scale_elastic(device, script, parent_builds, iterations=ELASTIC_ITERATIONS,
     import tempfile
     import urllib.parse
 
-    spec = {"device": device.type, "cycles": cycles, "iterations": iterations,
+    spec = {"device": str(device), "cycles": cycles, "iterations": iterations,
             "options": {"on_peer_loss": "rejoin", "heartbeat_every_seconds": 1.0},
             "rows": CONFIG3_ROWS}
     base = dict(SR_ELASTIC_WORLD=2, SR_KV_TIMEOUT_MS=ELASTIC_KV_TIMEOUT_MS,
@@ -4812,7 +4836,7 @@ def scale_rows(device, rows=ROWS_SHARDED, P=1024):
         make_sharded_loss, shard_dataset, shard_population,
     )
 
-    opts = Options(maxsize=20, device=device.type, **CONFIG3_OPS)
+    opts = Options(maxsize=20, device=str(device), **CONFIG3_OPS)
     opset, N, loss = opts.operators, opts.max_nodes, opts.loss
     Xn, yn = config3_data(n_rows=rows, seed=5)
     wn = np.random.default_rng(6).uniform(0.5, 1.5, size=rows).astype(np.float32)
@@ -4870,7 +4894,7 @@ def scale_rows(device, rows=ROWS_SHARDED, P=1024):
     for rows_opt in (None, "rows"):
         o = Options(populations=100, population_size=100, maxsize=20,
                     ncycles_per_iteration=ROWS_LOCKSTEP_CYCLES, seed=0, save_to_file=False,
-                    progress=False, device=device.type, data_sharding=rows_opt, **CONFIG3_OPS)
+                    progress=False, device=str(device), data_sharding=rows_opt, **CONFIG3_OPS)
         zero_launches()
         res = equation_search(X3, y3, options=o, niterations=1, verbosity=0)
         counts = read_launches()
@@ -4910,7 +4934,7 @@ def scale_out(device, solo, lockstep_stats):
         script = os.path.join(d, "scale_child.py")
         with open(script, "w") as f:
             f.write(_SCALE_CHILD.format(root=os.path.dirname(os.path.abspath(__file__))))
-        beside = _spawn_scale(script, "async", 0, {"device": device.type, "cycles": ASYNC_CYCLES},
+        beside = _spawn_scale(script, "async", 0, {"device": str(device), "cycles": ASYNC_CYCLES},
                               _scale_env(), log=os.path.join(d, "async.log"))
         try:
             world = scale_world(device, script, solo, parent_builds)
@@ -5154,7 +5178,7 @@ def _pod_short(device, seed):
     return X, y, Options(binary_operators=["+", "-", "*"], unary_operators=["cos"],
                          populations=2, population_size=12, ncycles_per_iteration=8,
                          maxsize=12, seed=seed, scheduler="lockstep", save_to_file=False,
-                         progress=False, device=device.type)
+                         progress=False, device=str(device))
 
 
 def _wait_claim(store, key, timeout, tag):
@@ -5202,7 +5226,7 @@ def pod_federation(device, script, d, parent_builds):
     coord, reports = os.path.join(d, "coord"), os.path.join(d, "pod_reports")
     os.makedirs(reports)
     go = os.path.join(d, "go-h2")
-    common = {"device": device.type, "coord": coord, "reports": reports, "workers": 2,
+    common = {"device": str(device), "coord": coord, "reports": reports, "workers": 2,
               "ckpt_every_s": 0.1, "hb_s": POD_HB_S, "suspect_s": POD_SUSPECT_S}
     t_spawn = time.perf_counter()
     procs = {h: _spawn_scale(script, "pod", 0, {**common, "host": h, **kw}, _pod_env(),
@@ -5521,6 +5545,7 @@ def pod_path(device):
         cdir = os.path.join(d, "chaos")
         os.makedirs(cdir)
         beside = _spawn_scale(script, "chaos", 0, {
+            # the soak's jobs are lockstep jobs of two islands: never sharded
             "device": device.type, "dir": cdir, "seed": CHAOS_SEED,
             "duration": CHAOS_DURATION_S}, _pod_env(), log=os.path.join(d, "chaos.log"))
         try:
@@ -5532,6 +5557,395 @@ def pod_path(device):
                 beside.wait()
     print(f"phase 15 pod: {time.perf_counter() - t0:.2f} s", flush=True)
     return paths, times
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the engine's in-process mesh (parallel/mesh.py, ops/evolve.py's
+# sharded iteration, models/device_search.py's mesh decision)
+# ---------------------------------------------------------------------------
+
+# phase 16, cut in depth only (a mesh cycle of config3 is host work, ~80-140
+# ms): (a) config3 at full width on a pop mesh of MESH_SHARDS shards,
+# MESH_ITERATIONS x MESH_CYCLES; (b) a (2, 2) mesh under
+# data_sharding="rows" on MESH_ROWS_ROWS rows, MESH_ROWS_ITERATIONS x
+# MESH_ROWS_CYCLES
+MESH_SHARDS, MESH_ITERATIONS, MESH_CYCLES = 4, 3, 30
+MESH_ROWS_ITERATIONS, MESH_ROWS_CYCLES, MESH_ROWS_ROWS = 2, 10, 9998
+# the check of B1 and B2 on every card: programs per call
+MESH_CHECK_P = 512
+
+
+def cards():
+    """Every visible card, in index order."""
+    import torch
+
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _launches_by_card():
+    """{wrapper name: {card: launches}} of B1 and B2 since the last reset."""
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import fused_loss, fused_loss_grad
+
+    return {w.__name__: dict(getattr(w, "launches_by_device", {}))
+            for w in (fused_loss, fused_loss_grad)}
+
+
+def _reset_by_card():
+    for w in _kernel_wrappers():
+        w.launches_by_device = {}
+
+
+def _frontier_honest(tag, res, X, y, options):
+    """Every frontier loss is its tree's mean squared error, evaluated on
+    the host in f64 (rel 1e-3, abs 1e-4: the JAX package's bar in its
+    sharded-engine tests)."""
+    import numpy as np
+
+    front = res.pareto_frontier
+    if not front:
+        _fail(f"{tag}: empty frontier")
+    for m in front:
+        pred = m.tree.eval_np(X.astype(np.float64), options.operators)
+        true = float(np.mean((pred - y.astype(np.float64)) ** 2))
+        if not abs(true - m.loss) <= max(1e-3 * abs(true), 1e-4):
+            _fail(f"{tag}: frontier loss {m.loss!r} of "
+                  f"{m.tree.string_tree(options.operators)} is {true!r} on the host")
+    return len(front)
+
+
+def mesh_search(tag, devices, iterations, cycles, rows=False, layout=None):
+    """One config3 search on the engine's mesh: ``Options(mesh_devices=
+    devices)`` (``layout``: how the search sees them, for the print); with
+    ``rows``, ``data_sharding="rows"`` on the first MESH_ROWS_ROWS rows,
+    where the engine's rule picks (2, 2) over four devices, else islands
+    over every device. Every evolve and const-opt leg is timed between synchronizations
+    of every card; the first evolve leg runs with host syncs made errors;
+    after every iteration the replicated leaves of every shard are held
+    against shard 0's on the card (read once, at the end). Checks the mesh
+    the engine chose, the frontier's honesty, num_evals, the launches
+    against the scorers' calls and no B3. Returns (result, options,
+    launches, launches by card, stats)."""
+    import numpy as np
+    import torch
+
+    import symbolicregression_jl_tpu_torch.models.device_search as ds
+    from symbolicregression_jl_tpu_torch import Options, equation_search
+
+    X, y = config3_data()
+    if rows:
+        X, y = X[:, :MESH_ROWS_ROWS].copy(), y[:MESH_ROWS_ROWS].copy()
+    options = Options(
+        populations=100, population_size=100, maxsize=20, ncycles_per_iteration=cycles,
+        seed=0, save_to_file=False, progress=False, device=str(devices[0]),
+        mesh_devices=[str(d) for d in devices], scheduler="device",
+        data_sharding="rows" if rows else None, **CONFIG3_OPS,
+    )
+    on = sorted({d.index for d in devices})
+    walls, seen, diffs = {}, {}, []
+
+    def sync_all():
+        for i in on:
+            torch.cuda.synchronize(i)
+
+    def leg_wrap(name):
+        seen[name] = nth = seen.get(name, 0) + 1
+        if name not in ("evolve", "const_opt", "finalize"):
+            return contextlib.nullcontext()
+
+        @contextlib.contextmanager
+        def timed():
+            sync_all()
+            t0 = time.perf_counter()
+            guard = name == "evolve" and nth == 1
+            if guard:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                yield
+            finally:
+                if guard:
+                    torch.cuda.set_sync_debug_mode(0)
+            sync_all()
+            walls.setdefault(name, []).append(time.perf_counter() - t0)
+        return timed()
+
+    def state_hook(states):
+        dev0 = states[0].freq.device
+        ref = states[0]
+
+        def leaves(st):
+            return [st.freq, st.bs_loss, *st.bs_tree, st.bs_exists, st.step, st.num_evals,
+                    st.iteration]
+
+        flags = [(a.to(dev0) != b).any()
+                 for st in states[1:] for a, b in zip(leaves(st), leaves(ref))]
+        if flags:
+            diffs.append(torch.stack(flags).any())
+
+    saved = ds._LEG_WRAP, ds._STATE_HOOK
+    ds._LEG_WRAP, ds._STATE_HOOK = leg_wrap, state_hook
+    try:
+        _reset_by_card()
+        zero_launches()
+        t0 = time.perf_counter()
+        res = equation_search(X, y, options=options, niterations=iterations, verbosity=0)
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+        by_card = _launches_by_card()
+    finally:
+        ds._LEG_WRAP, ds._STATE_HOOK = saved
+    st = res.engine_stats
+    mesh = st.get("mesh")
+    want = (2, 2) if rows else (len(devices), 1)
+    if mesh is None or tuple(mesh["shape"]) != tuple(want):
+        _fail(f"mesh {tag}: the engine ran on {mesh and mesh['shape']}, not a {want} mesh")
+    if mesh["devices"] != [str(d) for d in devices]:
+        _fail(f"mesh {tag}: the shards ran on {mesh['devices']}")
+    if len(diffs) != iterations or bool(torch.stack(diffs).any()):
+        _fail(f"mesh {tag}: the replicated leaves differ between shards")
+    if st["block"] is not None or counts[2]:
+        _fail(f"mesh {tag}: the evolve block ran under a mesh ({counts[2]} B3 launches)")
+    if counts[0] != st["score_calls"] or counts[0] == 0:
+        _fail(f"mesh {tag}: {counts[0]} B1 launches for {st['score_calls']} scoring calls")
+    if counts[1] != st["grad_calls"]:
+        _fail(f"mesh {tag}: {counts[1]} B2 launches for {st['grad_calls']} gradient calls")
+    if not res.num_evals > 0:
+        _fail(f"mesh {tag}: num_evals {res.num_evals}")
+    n_front = _frontier_honest(f"mesh {tag}", res, X, y, options)
+    n_cycles = iterations * cycles
+    # the evolve leg's collectives (the const-opt leg's are per line search)
+    coll = mesh["collectives_by_leg"].get("evolve", {})
+    pop = coll.get("pop", {})
+    rows_c = coll.get("rows", {})
+    stats = {
+        "evolve_ms_per_cycle": sum(walls["evolve"]) / n_cycles * 1e3,
+        "evolve_device_ms_per_cycle": st["device_seconds"].get("evolve", 0.0) / n_cycles * 1e3,
+        "const_opt_ms": [w * 1e3 for w in walls.get("const_opt", [])],
+        "wall_s": wall, "main_loop_s": res.iteration_seconds,
+        "evals_per_s": res.num_evals / res.iteration_seconds,
+        "pop_gathers_per_cycle": pop.get("gathers", 0) / max(pop.get("groups", 1), 1) / n_cycles,
+        "rows_gathers_per_cycle": (rows_c.get("gathers", 0) / max(rows_c.get("groups", 1), 1)
+                                   / n_cycles),
+        "gather_ms": {ax: (c["gather_seconds"] / c["gathers"] * 1e3 if c["gathers"] else 0.0,
+                           c["wait_seconds"] / (c["gathers"] * len(devices) / c["groups"]) * 1e3
+                           if c["gathers"] else 0.0, c["transport"])
+                      for ax, c in coll.items()},
+    }
+    print(f"mesh {tag}: config3 100x100, {y.shape[0]} rows x {CONFIG3_FEATURES} features, "
+          f"{iterations} x {cycles} cycles on a {tuple(mesh['shape'])} mesh over "
+          f"{layout or mesh['devices']}: wall {wall:.3f} s (set-up {res.setup_seconds:.3f} s, "
+          f"main loop {res.iteration_seconds:.3f} s); evolve "
+          f"{stats['evolve_ms_per_cycle']:.4f} ms/cycle between syncs (CUDA events "
+          f"{stats['evolve_device_ms_per_cycle']:.4f}; evolve leg ms per iteration "
+          + ", ".join(f"{w * 1e3:.1f}" for w in walls["evolve"])
+          + "); const-opt leg ms "
+          + ", ".join(f"{v:.1f}" for v in stats["const_opt_ms"])
+          + (f"; finalize leg ms " + ", ".join(f"{w * 1e3:.1f}" for w in walls["finalize"])
+             if "finalize" in walls else "")
+          + f"; evolve leg's gathers per group per cycle: pop "
+          f"{stats['pop_gathers_per_cycle']:.3f}, rows {stats['rows_gathers_per_cycle']:.3f}; "
+          f"per gather (launch ms, mean wait ms per shard, transport): "
+          + ", ".join(f"{ax} {a:.4f} / {b:.4f} / {t}"
+                      for ax, (a, b, t) in stats["gather_ms"].items())
+          + f"; {stats['evals_per_s']:.4g} evals/s; B1 {counts[0]} = {st['score_calls']} "
+          f"scoring calls, B2 {counts[1]} = {st['grad_calls']} gradient calls, B3 0; by card "
+          f"B1 {by_card['fused_loss']}, B2 {by_card['fused_loss_grad']}; first evolve leg made "
+          f"no host sync; replicated leaves equal on every shard after each iteration; "
+          f"{n_front} frontier losses equal their host f64 losses; num_evals "
+          f"{res.num_evals:.0f}; best {min(m.loss for m in res.pareto_frontier):.6g}",
+          flush=True)
+    return res, options, counts, by_card, stats
+
+
+def mesh_solo(mesh_stats, iterations, cycles):
+    """(d) What the default asks for on this machine: ``Options(device=
+    "cuda")`` with no ``mesh_devices`` runs config3 on one card on the
+    evolve block, however many cards there are, at (a)'s depth; its evals/s
+    beside (a)'s. Returns its launches."""
+    import torch
+
+    from symbolicregression_jl_tpu_torch import Options, equation_search
+
+    X, y = config3_data()
+    options = Options(
+        populations=100, population_size=100, maxsize=20, ncycles_per_iteration=cycles,
+        seed=0, save_to_file=False, progress=False, device="cuda", scheduler="device",
+        **CONFIG3_OPS,
+    )
+    _reset_by_card()
+    zero_launches()
+    res = equation_search(X, y, options=options, niterations=iterations, verbosity=0)
+    counts = read_launches()
+    by_card = _launches_by_card()
+    st = res.engine_stats
+    if "mesh" in st or st["block"] != "kernel" or counts[2] != st["iterations"]:
+        _fail(f"mesh (d): Options(device='cuda') ran mesh {st.get('mesh')}, block "
+              f"{st['block']}, {counts[2]} B3 launches in {st['iterations']} iterations")
+    if set(by_card["fused_loss"]) != {f"cuda:{torch.cuda.current_device()}"}:
+        _fail(f"mesh (d): B1 launched on {by_card['fused_loss']}")
+    n_front = _frontier_honest("mesh (d)", res, X, y, options)
+    eps = res.num_evals / res.iteration_seconds
+    print(f"mesh (d) solo: Options(device='cuda') on {torch.cuda.device_count()} card(s), "
+          f"{iterations} x {cycles} cycles: no mesh, on {list(by_card['fused_loss'])} on the "
+          f"block (B3 {counts[2]}, B1 {counts[0]}, B2 {counts[1]}); main loop "
+          f"{res.iteration_seconds:.3f} s, {eps:.4g} evals/s against (a)'s "
+          f"{mesh_stats['evals_per_s']:.4g} ({eps / mesh_stats['evals_per_s']:.1f}x); "
+          f"{n_front} frontier losses equal their host f64 losses", flush=True)
+    return counts
+
+
+def _frontier_bits(res, options):
+    """The hall of fame's frontier: complexity, loss and tree, per member."""
+    return [(m.get_complexity(options), repr(m.loss), m.tree.string_tree(options.operators))
+            for m in sorted(res.hall_of_fame.pareto_frontier(),
+                            key=lambda m: m.get_complexity(options))]
+
+
+def mesh_kernels_every_card(devs, P=MESH_CHECK_P):
+    """B1 and B2 on each card held against their plain versions on the same
+    card, at config3's width and rows. Returns {kernel: worst error}."""
+    import numpy as np
+    import torch
+
+    from symbolicregression_jl_tpu_torch import Options
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import (
+        fused_loss, fused_loss_grad, fused_loss_grad_reference, fused_loss_reference,
+    )
+
+    opts = Options(maxsize=20, device="cuda:0", **CONFIG3_OPS)
+    opset, N, loss = opts.operators, opts.max_nodes, opts.loss
+    Xn, yn = config3_data()
+    prog_np, vals_np = random_programs(opset, P, N, CONFIG3_FEATURES, seed=1601)
+    errs = {"fused_loss": Err(0.0), "fused_loss_grad": Err(0.0)}
+    for d in devs:
+        X, y = torch.from_numpy(Xn).to(d), torch.from_numpy(yn).to(d)
+        prog, vals = torch.from_numpy(prog_np).to(d), torch.from_numpy(vals_np).to(d)
+        got = fused_loss(prog, vals, X, y, None, opset, loss)
+        ref = fused_loss_reference(prog, vals, X, y, None, opset, loss)
+        gl, gg = fused_loss_grad(prog, vals, X, y, None, opset, loss)
+        rl, rg = fused_loss_grad_reference(prog, vals, X, y, None, opset, loss)
+        torch.cuda.synchronize(d)
+        for t in (got, gl, gg):
+            if t.device != d:
+                _fail(f"mesh (c): a kernel's output landed on {t.device}, not {d}")
+        errs["fused_loss"] = worst_err(errs["fused_loss"],
+                                       compare(f"mesh (c) B1 on {d}", got, ref),
+                                       compare(f"mesh (c) B2 losses on {d}", gl, rl))
+        errs["fused_loss_grad"] = worst_err(errs["fused_loss_grad"],
+                                            compare_grads(f"mesh (c) B2 on {d}", gg, rg))
+    print(f"mesh (c): B1 and B2 at {P} programs x {CONFIG3_ROWS} rows on each of "
+          f"{[str(d) for d in devs]} within tolerance of their plain versions on the same card "
+          f"(worst abs error B1 {float(errs['fused_loss']):.3e}, B2 "
+          f"{float(errs['fused_loss_grad']):.3e})", flush=True)
+    return errs
+
+
+def mesh_rows_b1(devs, rows=ROWS_SHARDED, P=1024):
+    """Phase 14 (d)'s row-sharded B1 over the real cards: ``make_sharded_loss``
+    over a 1 x len(devs) mesh at ``rows`` rows, held against one B1 call over
+    all rows on the first card, both timed. Returns the B1 launches of the
+    sharded call."""
+    import numpy as np
+    import torch
+
+    from symbolicregression_jl_tpu_torch import Options
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import (
+        fused_loss, optab_tensor, unpack_programs_fused, work_counts,
+    )
+    from symbolicregression_jl_tpu_torch.parallel.mesh import make_mesh
+    from symbolicregression_jl_tpu_torch.parallel.sharding import (
+        make_sharded_loss, shard_dataset, shard_population,
+    )
+
+    opts = Options(maxsize=20, device="cuda:0", **CONFIG3_OPS)
+    opset, N, loss = opts.operators, opts.max_nodes, opts.loss
+    Xn, yn = config3_data(n_rows=rows, seed=5)
+    prog_np, vals_np = random_programs(opset, P, N, CONFIG3_FEATURES, seed=P + 1)
+    flat = unpack_programs_fused(prog_np, vals_np, opset)
+    d0 = devs[0]
+    X, y = torch.from_numpy(Xn).to(d0), torch.from_numpy(yn).to(d0)
+    prog, vals = torch.from_numpy(prog_np).to(d0), torch.from_numpy(vals_np).to(d0)
+    tab = optab_tensor(opset, d0)
+    mesh = make_mesh(1, len(devs), devices=devs)
+    fs = shard_population(mesh, flat)
+    loss_fn = make_sharded_loss(mesh, opset, loss)
+    Xs, ys, ws = shard_dataset(mesh, X, y, None)
+    _reset_by_card()
+    zero_launches()
+    got = loss_fn(fs, Xs, ys, ws)
+    for d in devs:
+        torch.cuda.synchronize(d)
+    counts = read_launches()
+    by_card = _launches_by_card()["fused_loss"]
+    if counts[0] != len(devs) or sorted(by_card) != sorted(str(d) for d in devs):
+        _fail(f"mesh (c) rows: B1 launches {counts[0]} by card {by_card} over {devs}")
+    one = fused_loss(prog, vals, X, y, None, opset, loss, tab)
+    torch.cuda.synchronize(d0)
+    err = compare("mesh (c) rows: the sharded loss over the cards against one B1 call",
+                  got, one)
+
+    def sharded():
+        loss_fn(fs, Xs, ys, ws)
+        for d in devs:
+            torch.cuda.synchronize(d)
+
+    ms = time_ms(sharded, warmup=1, reps=10)
+    one_ms = time_ms(lambda: fused_loss(prog, vals, X, y, None, opset, loss, tab), warmup=1,
+                     reps=10)
+    work = work_counts(prog_np, rows, CONFIG3_FEATURES, weighted=False)
+    bound = max(work["operations"] / PEAK_F32_FLOPS, work["bytes"] / PEAK_BYTES) * 1e3
+    print(f"mesh (c) rows: make_sharded_loss over {[str(d) for d in devs]} at {rows} rows x "
+          f"{CONFIG3_FEATURES} features x {P} programs: {ms:.3f} ms (one launch per card, "
+          f"{by_card}) against one B1 call over all rows on {d0} {one_ms:.3f} ms (bound "
+          f"{bound:.4f} ms for the whole work on one card); within phase 14 (d)'s tolerance "
+          f"of the one call (worst abs error {float(err):.3e})", flush=True)
+    return counts, err
+
+
+def mesh_path(device):
+    """Phase 16: the engine's in-process mesh over every card of the
+    machine. (a) config3 at full width on a pop mesh of four shards: one
+    per card with four cards, else all four on cuda:0, named by
+    ``Options.mesh_devices``; (b) the same shards under
+    data_sharding="rows", a (2, 2) mesh by the engine's rule; (d)
+    ``Options(device="cuda")`` alone, one card on the block; (c) with two
+    cards or more: (a) again with the four shards on cuda:0,
+    bit for bit (a)'s frontier and num_evals; B1 and B2 against their
+    plain versions on every card; the row-sharded B1 at 1M rows over the
+    cards against one B1 call. Returns ({path: launches}, {kernel: worst
+    error})."""
+    t0 = time.perf_counter()
+    devs = cards()
+    multi = len(devs) >= 2
+    if multi and len(devs) != MESH_SHARDS:
+        _fail(f"mesh: {len(devs)} cards; the phase lays {MESH_SHARDS} shards over one card or "
+              f"{MESH_SHARDS}")
+    one_card = [device] * MESH_SHARDS
+    layout = devs if multi else one_card
+    paths, errs = {}, {}
+    res_a, opts_a, counts, _, stats_a = mesh_search(
+        "(a)", layout, MESH_ITERATIONS, MESH_CYCLES,
+        layout=("one shard per card" if multi else f"{MESH_SHARDS} shards on {device}"))
+    paths["mesh"] = counts
+    _, _, counts_b, _, _ = mesh_search(
+        "(b) rows", layout, MESH_ROWS_ITERATIONS, MESH_ROWS_CYCLES, rows=True)
+    paths["mesh rows"] = counts_b
+    paths["mesh solo"] = mesh_solo(stats_a, MESH_ITERATIONS, MESH_CYCLES)
+    if multi:
+        res_c, _, _, _, _ = mesh_search("(c) one card", one_card, MESH_ITERATIONS,
+                                        MESH_CYCLES, layout=f"{MESH_SHARDS} shards on {device}")
+        if (_frontier_bits(res_a, opts_a) != _frontier_bits(res_c, opts_a)
+                or res_a.num_evals != res_c.num_evals):
+            _fail(f"mesh (c): four cards and one card differ:\n"
+                  f"{_frontier_bits(res_a, opts_a)} {res_a.num_evals}\n"
+                  f"{_frontier_bits(res_c, opts_a)} {res_c.num_evals}")
+        print(f"mesh (c): the four-card and the one-card layouts give the same frontier and "
+              f"num_evals ({res_a.num_evals:.0f}) bit for bit", flush=True)
+        errs = mesh_kernels_every_card(devs)
+        paths["mesh rows B1"], err = mesh_rows_b1(devs)
+        errs["fused_loss"] = worst_err(errs["fused_loss"], err)
+    print(f"phase 16 mesh: {time.perf_counter() - t0:.2f} s over {len(devs)} card(s)",
+          flush=True)
+    return paths, errs
 
 
 def build_from_two_threads():
@@ -5638,6 +6052,10 @@ def main() -> int:
         rec["max_abs_err"] = worst_err(rec["max_abs_err"], scale_errs.get(rec["name"], 0.0))
     pod_paths, _ = pod_path(device)
     paths.update(pod_paths)
+    mesh_paths, mesh_errs = mesh_path(device)
+    paths.update(mesh_paths)
+    for rec in (b1, b2):
+        rec["max_abs_err"] = worst_err(rec["max_abs_err"], mesh_errs.get(rec["name"], 0.0))
     for i, rec in enumerate((b1, b2, b3, b4, b2v)):
         rec["launches_by_path"] = {path: counts[i] for path, counts in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())

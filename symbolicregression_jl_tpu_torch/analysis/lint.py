@@ -116,16 +116,21 @@ RULES = {
 
 #: the engine's legs: a sync anywhere in these bodies (nested defs included)
 #: stalls the card once per iteration or per cycle. Evolve leg
-#: (ops/evolve.py, ops/evolve_block.py) and const-opt leg
-#: (models/device_search.py, ops/constant_opt._neldermead).
+#: (ops/evolve.py, ops/evolve_block.py), const-opt leg
+#: (models/device_search.py, ops/constant_opt._neldermead), and under a
+#: mesh the sharded legs, the frontier merge and the rows combine
+#: (ops/evolve.py, models/device_search.py) and the collectives
+#: (parallel/mesh.py).
 LEG_FUNCTIONS = {
     "run_iteration", "run_iteration_fused", "run_fleet_iteration_fused", "_event",
     "run_block_iteration", "run_block_iteration_fleet",
     "make_const_opt_fn", "make_fleet_const_opt_fn", "_select_and_jitter",
     "_accept_and_scatter", "_bfgs_lockstep", "_neldermead",
+    "run_finalize", "_merge_best_seen", "make_sharded_iteration", "make_sharded_finalize",
+    "iterate", "_combine_rows", "all_gather", "psum", "pmin", "_gather",
 }
 #: leg functions that run once per cycle: their whole body is a hot loop
-PER_CYCLE_FUNCTIONS = {"_event"}
+PER_CYCLE_FUNCTIONS = {"_event", "_merge_best_seen", "_combine_rows"}
 #: engine-driver functions whose loops are latency-critical. Extend when a
 #: new scheduler loop lands.
 DRIVER_FUNCTIONS = {

@@ -1,7 +1,7 @@
 """Driver for the device-resident evolution engine (scheduler="device").
 
-Counterpart of ``symbolicregression_jl_tpu/models/device_search.py``,
-single process and single card. The host builds the configuration, uploads
+Counterpart of ``symbolicregression_jl_tpu/models/device_search.py``. The
+host builds the configuration, uploads
 the dataset and the initial populations once, runs each iteration's legs on
 the device, reads back ONE packed tensor per iteration for the hall of fame
 and the stop conditions, and decodes the final populations at the end.
@@ -83,6 +83,27 @@ keeps one lane alive and swaps its rows between iterations through
 tensors in place (``LaneDataUpdate``), so every kernel reads the new rows
 through the same pointers.
 
+The in-process mesh (the JAX package's ``device_search.py:1912-1960``):
+over the devices ``Options.mesh_devices`` names (the JAX engine takes every
+local device; here the caller names them, because a mesh turns the block
+off and one card on the block runs a search faster) and with no recorder,
+the islands shard over 'pop' when they divide over the devices; under
+``data_sharding="rows"`` the largest rows axis dividing both the row count
+and the device count takes the rows, the pop axis what is left
+(``_mesh_shape``). Each shard keeps its islands, its row block, its
+generator and its scorer on its device (``_EngineLane``), and every leg
+runs in all shards at once (``parallel.mesh.shard_map``): the frontier,
+the frequency histogram and the counters stay equal on every shard by the
+island axis's collectives (``ops/evolve.py``), and under a rows axis every
+loss and gradient is combined over the row blocks (``EngineScorer``). The
+block, the recorder and the fleet stay off under a mesh, as in the JAX
+package. The host reads the frontier from shard 0 and decodes the global
+islands in island order, so a snapshot does not depend on the mesh. In a
+world of processes each one shards its own islands over its devices and
+merges its shards' migration pools on the mesh before the exchange
+(``parallel.mesh.intra_host_pool_merge``). The whole search runs with its
+first device as the CUDA runtime's current one.
+
 What outlives a search goes through the process's program cache
 (``serve/program_cache.py``, ``PROGRAM_CACHE``): the dataset's ``ScoreData``
 upload, keyed on its digest, norm, dtype and device (``_cached_score_data``;
@@ -101,6 +122,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import os
 import time
@@ -127,10 +149,14 @@ from ..ops.evolve import (
     extract_topn_pool,
     fleet_migrate_from_pool,
     init_state,
+    make_sharded_finalize,
+    make_sharded_iteration,
     merge_best_seen,
     migrate_from_pool,
     run_fleet_iteration_fused,
     run_iteration_fused,
+    shard_evo_state,
+    unshard_evo_state,
 )
 from ..ops.flat import (
     KIND_BINARY, KIND_CONST, KIND_UNARY, KIND_VAR, FlatTrees, flatten_trees,
@@ -149,6 +175,8 @@ from ..utils.profiling import NULL_PROFILER, StageProfiler
 from .hall_of_fame import HallOfFame
 from .pop_member import PopMember
 from .population import Population
+from ..parallel import mesh as mesh_mod
+from ..parallel.mesh import indexed_device, shard_map
 from .scorer import cached_optab
 
 __all__ = [
@@ -160,10 +188,9 @@ __all__ = [
 
 def device_mode_supported(options: Options) -> str | None:
     """None if the device engine can honor this configuration; else a reason
-    (the JAX package's ``device_mode_supported``, reason for reason; its
-    row-sharding case stays unreachable while Options refuses
-    ``data_sharding``). Complex dtypes and graph-node DAGs run on the
-    lockstep scheduler, on the card."""
+    (the JAX package's ``device_mode_supported``, reason for reason).
+    Complex dtypes and graph-node DAGs run on the lockstep scheduler, on the
+    card."""
     if options.loss_function is not None:
         return (
             "custom full-objective loss_function (host-callable per-tree "
@@ -371,10 +398,11 @@ def _cached_score_data(dataset: Dataset, dtype, device, norm: float) -> ScoreDat
     charged by its bytes), uploaded on a miss. Keyed as the JAX package keys
     it (``models/device_search.py:389-415``): the rows' digest, the norm (it
     depends on the loss, not only on the rows), the engine dtype and the
-    device. The tensors are shared by every search of the dataset: nothing
+    indexed card ("cuda" and "cuda:0" share an entry). The tensors are
+    shared by every search of the dataset: nothing
     writes them in place (``_FleetData`` stacks copies; a stream swap's data
     is built by ``_FleetLane.rebuild_score_data``, outside the cache)."""
-    key = (_dataset_key(dataset), float(norm), np.dtype(dtype).name, str(torch.device(device)))
+    key = (_dataset_key(dataset), float(norm), np.dtype(dtype).name, str(indexed_device(device)))
     data = PROGRAM_CACHE.get("score_data", key)
     if data is None:
         # uploaded outside the cache's lock; a racing upload of the same key
@@ -383,6 +411,45 @@ def _cached_score_data(dataset: Dataset, dtype, device, norm: float) -> ScoreDat
         data = PROGRAM_CACHE.put("score_data", key, data, nbytes=sum(
             t.numel() * t.element_size() for t in data if t is not None))
     return data
+
+
+def _make_score_data_rows(dataset: Dataset, dtype, mesh, norm: float) -> list:
+    """Rows-sharded ScoreData over ``mesh``'s 'rows' axis (the JAX
+    package's ``_make_score_data_rows``): one per shard in flat order, shard
+    (i, j) holding row block j of X, y and w on its device (shards on one
+    device share the block's tensors), ``norm`` replicated. The row count
+    must divide over the axis (the mesh decision chooses the axis so)."""
+    n_rows = mesh.devices.shape[1]
+    X, y, w = (None if a is None else np.ascontiguousarray(np.asarray(a, dtype))
+               for a in (dataset.X, dataset.y, dataset.weights))
+    R = X.shape[1]
+    if R % n_rows:
+        raise ValueError(f"{R} rows do not divide over a rows axis of {n_rows}")
+    k = R // n_rows
+    placed, out = {}, []
+    for s_ in range(mesh.size):
+        i, j = mesh.coords(s_)
+        dev = mesh.devices[i, j]
+        key = (str(dev), j)
+        if key not in placed:
+            sl = slice(j * k, (j + 1) * k)
+            Xd = torch.from_numpy(np.ascontiguousarray(X[:, sl])).to(dev)
+            placed[key] = ScoreData(
+                Xd, torch.from_numpy(np.ascontiguousarray(y[sl])).to(dev),
+                None if w is None else torch.from_numpy(np.ascontiguousarray(w[sl])).to(dev),
+                torch.tensor(norm, dtype=Xd.dtype, device=dev),
+            )
+        out.append(placed[key])
+    return out
+
+
+def score_data_specs(data: ScoreData | None = None) -> ScoreData:
+    """Which axis of each ScoreData leaf splits over the mesh (the JAX
+    package's ``score_data_specs``, as tuples): X's rows, y's and w's over
+    'rows', ``norm`` replicated (``()``); a ScoreData without weights has
+    None for w."""
+    has_w = data is None or data.w is not None
+    return ScoreData((None, "rows"), ("rows",), ("rows",) if has_w else None, ())
 
 
 def pack_batch(batch: Tree, opset) -> tuple[torch.Tensor, torch.Tensor]:
@@ -420,15 +487,24 @@ class EngineScorer:
     lane axis (``over_lanes``: B4 and the seeded sweep take no lane axis);
     otherwise their plain versions, the interpreter and its autograd. A
     tree whose predictions are not all finite scores inf with zero
-    gradients on both."""
+    gradients on both.
 
-    def __init__(self, options: Options, use_kernel: bool, device=None):
+    ``rows_axis``: the rows axis of a mesh (``parallel.mesh.Axis``), whose
+    shard holds one row block. Every loss and gradient is then its block's,
+    combined over the axis in one gather (the JAX package's
+    ``psum(local * wsum) / psum(wsum)``), in f64 and in shard order, with
+    ``parallel/sharding.make_sharded_loss``'s rule: a tree not finite on a
+    block with weight scores inf (zero gradients), a block whose weights
+    sum to 0 adds nothing. Every shard of the axis gets the same bits."""
+
+    def __init__(self, options: Options, use_kernel: bool, device=None, rows_axis=None):
         self.opset = options.operators
         self.loss_elem = options.loss
         self.objective = options.loss_function_jit
         self.use_kernel = use_kernel
         device = options.device if device is None else device
         self.table = cached_optab(self.opset, device) if use_kernel else None
+        self.rows_axis = rows_axis
         self.score_calls = 0
         self.grad_calls = 0
 
@@ -442,12 +518,14 @@ class EngineScorer:
         if self.objective is not None:
             return over_lanes(self._objective_losses, prog, vals, X, y, w)
         if self.use_kernel:
-            return fused_loss(prog, vals, X, y, w, self.opset, self.loss_elem, self.table)
-        return over_lanes(
-            lambda p, v, Xl, yl, wl: plain_losses(self._unpacked(p), v, Xl, yl, wl, self.opset,
-                                                  self.loss_elem),
-            prog, vals, X, y, w,
-        )
+            f = fused_loss(prog, vals, X, y, w, self.opset, self.loss_elem, self.table)
+        else:
+            f = over_lanes(
+                lambda p, v, Xl, yl, wl: plain_losses(self._unpacked(p), v, Xl, yl, wl,
+                                                      self.opset, self.loss_elem),
+                prog, vals, X, y, w,
+            )
+        return f if self.rows_axis is None else self._combine_rows(f, y, w)
 
     def packed_loss_grad(self, prog, vals, X, y, w):
         """(losses, d losses / d vals) of a packed batch; X may carry a lane
@@ -460,12 +538,44 @@ class EngineScorer:
                 v = vals.detach().requires_grad_(True)
                 f = DiffLoss.apply(v, prog, X, y, w, self.opset, self.loss_elem, self.table)
                 (g,) = torch.autograd.grad(f.sum(), v)
-            return f.detach(), g
-        return over_lanes(
-            lambda p, v, Xl, yl, wl: plain_losses(self._unpacked(p), v, Xl, yl, wl, self.opset,
-                                                  self.loss_elem, with_grad=True),
-            prog, vals, X, y, w,
-        )
+            f = f.detach()
+        else:
+            f, g = over_lanes(
+                lambda p, v, Xl, yl, wl: plain_losses(self._unpacked(p), v, Xl, yl, wl,
+                                                      self.opset, self.loss_elem,
+                                                      with_grad=True),
+                prog, vals, X, y, w,
+            )
+        return (f, g) if self.rows_axis is None else self._combine_rows(f, y, w, g)
+
+    def _combine_rows(self, f, y, w, g=None):
+        """The global losses (and gradients) from this row block's: one
+        gather of [losses, weight sum (, gradients)] over the rows axis."""
+        ax = self.rows_axis
+        B = f.shape[0]
+        den = (w.double().sum().reshape(1) if w is not None
+               else torch.full((1,), float(y.shape[-1]), dtype=torch.float64, device=f.device))
+        parts = [f.double(), den]
+        if g is not None:
+            parts.append(g.double().reshape(-1))
+        G = ax.all_gather(torch.cat(parts))
+        num = gsum = tot = ok = None
+        for j in range(ax.size):
+            lj, dj = G[j, :B], G[j, B]
+            fine = torch.isfinite(lj) | (dj == 0)
+            part = torch.where(dj == 0, 0.0, lj * dj)
+            num = part if num is None else num + part
+            tot = dj if tot is None else tot + dj
+            ok = fine if ok is None else ok & fine
+            if g is not None:
+                gj = torch.where(dj == 0, 0.0, G[j, B + 1:].reshape(B, -1) * dj)
+                gsum = gj if gsum is None else gsum + gj
+        ok = ok & (tot > 0)
+        loss = torch.where(ok, (num / tot).to(f.dtype), torch.inf)
+        if g is None:
+            return loss
+        fin = torch.isfinite(loss)[:, None]
+        return loss, torch.where(fin, (gsum / tot).to(g.dtype), 0.0)
 
     def _objective_losses(self, prog, vals, X, y, w) -> torch.Tensor:
         if self.use_kernel:
@@ -519,14 +629,16 @@ def _select_and_jitter(state: EvoState, K: int, S: int, I: int, P: int, ctx: Evo
 
 def _accept_and_scatter(state: EvoState, cfg: EvoConfig, ii, pp, mask_k, val0, vals,
                         fbest, n_evals: float, norm=None, base_loss=None,
-                        ctx: EvoContext | None = None) -> EvoState:
+                        ctx: EvoContext | None = None, axis=None) -> EvoState:
     """Accept only improvements, scatter the new constants, losses and scores
     back, reset the birth of improved members (SymbolicRegression.jl
     src/ConstantOptimization.jl:70-78); fold the tuned members into the
     best-seen frontier unless batching (there ``fbest`` and ``base_loss``
     are losses on one minibatch, and finalize rescores on full data). Under
     ``record_events`` the tuning log (the reference's "tuning" events,
-    src/SingleIteration.jl:140-171) goes to ``ctx``."""
+    src/SingleIteration.jl:140-171) goes to ``ctx``. ``axis``: the island
+    axis of a mesh: every shard tuned as many members, so the evaluations
+    count ``axis.size`` times, and the frontier merge is global."""
     old_loss = state.loss[ii, pp]
     base = old_loss if base_loss is None else base_loss
     improved = (fbest < base) & mask_k.any(1)
@@ -540,7 +652,7 @@ def _accept_and_scatter(state: EvoState, cfg: EvoConfig, ii, pp, mask_k, val0, v
                   state.rhs[ii, pp], state.feat[ii, pp], new_val]
         state = merge_best_seen(
             state, cfg, new_loss, torch.isfinite(new_loss) & (lengths >= 1), fields,
-            lengths, comps=comp_m,
+            lengths, comps=comp_m, axis=axis,
         )
     if ctx is not None:
         ctx.log("tuning", {"ii": ii, "pp": pp, "improved": improved, "new_loss": new_loss,
@@ -552,7 +664,7 @@ def _accept_and_scatter(state: EvoState, cfg: EvoConfig, ii, pp, mask_k, val0, v
         birth=torch.index_put(
             state.birth, (ii, pp), torch.where(improved, state.step, state.birth[ii, pp])
         ),
-        num_evals=state.num_evals + n_evals,
+        num_evals=state.num_evals + n_evals * (1 if axis is None else axis.size),
     )
 
 
@@ -592,10 +704,13 @@ def make_const_opt_fn(options: Options, cfg: EvoConfig, scorer: EngineScorer,
     convergence gate (``optimizer_g_tol``) syncs once per BFGS iteration, and
     not at all when the gate is 0. Under batching the whole BFGS runs on one
     fresh row draw, accepts batch against batch and counts evaluations
-    fractionally. Returns ``(state, data) -> state``: the one-lane case of
-    ``make_fleet_const_opt_fn``."""
+    fractionally. Returns ``(state, data, axis=None) -> state``: the
+    one-lane case of ``make_fleet_const_opt_fn``. ``axis``: the island axis
+    of a mesh (the JAX package's ``_shard_const_opt``): ``cfg`` is then the
+    shard's, each shard tunes its own K members, and a rows axis combines
+    every loss and gradient in ``scorer``."""
     fleet = make_fleet_const_opt_fn(options, cfg, scorer, None)
-    return lambda state, data: fleet([state], [data], [ctx], [0])[0]
+    return lambda state, data, axis=None: fleet([state], [data], [ctx], [0], axis=axis)[0]
 
 
 def make_fleet_const_opt_fn(options: Options, cfg: EvoConfig, scorer: EngineScorer,
@@ -625,7 +740,7 @@ def make_fleet_const_opt_fn(options: Options, cfg: EvoConfig, scorer: EngineScor
         restart starts, in its solo run's draw order."""
         X, y, w = data.X, data.y, data.w
         if cfg.batching:
-            idx = torch.randint(0, X.shape[1], (ctx.batch_rows,), generator=ctx.gen,
+            idx = torch.randint(0, X.shape[1], (ctx.batch_rows,), generator=ctx.batch_gen,
                                 device=ctx.device)
             X, y = X[:, idx].contiguous(), y[idx].contiguous()
             w = None if w is None else w[idx].contiguous()
@@ -639,7 +754,8 @@ def make_fleet_const_opt_fn(options: Options, cfg: EvoConfig, scorer: EngineScor
                     mask_b=torch.repeat_interleave(mask_k, S, dim=0),
                     x=starts.reshape(B, N).contiguous())
 
-    def finish(state: EvoState, data: ScoreData, ctx: EvoContext, pre: dict, x, f, f0):
+    def finish(state: EvoState, data: ScoreData, ctx: EvoContext, pre: dict, x, f, f0,
+               axis=None):
         """One lane's best restart per member, accepted and scattered."""
         val0, mask_k = pre["val0"], pre["mask_k"]
         fs = torch.where(torch.isfinite(f), f, torch.inf).reshape(K, S)
@@ -662,10 +778,10 @@ def make_fleet_const_opt_fn(options: Options, cfg: EvoConfig, scorer: EngineScor
                 base = base + pen_k
         return _accept_and_scatter(
             state, cfg, pre["ii"], pre["pp"], mask_k, val0, vals, fbest,
-            n_ev, norm=data.norm, base_loss=base, ctx=ctx,
+            n_ev, norm=data.norm, base_loss=base, ctx=ctx, axis=axis,
         )
 
-    def const_opt(states, datas, ctxs, lanes) -> list:
+    def const_opt(states, datas, ctxs, lanes, axis=None) -> list:
         L = len(states)
         pres = [prepare(st, d, ctx) for st, d, ctx in zip(states, datas, ctxs)]
         if L == 1:
@@ -696,7 +812,7 @@ def make_fleet_const_opt_fn(options: Options, cfg: EvoConfig, scorer: EngineScor
             x, f, f0 = _bfgs_lockstep(x, mask_b, vloss, vgrad, iters, g_tol, lanes=L)
         return [
             finish(st, d, ctx, pre, x[l * B:(l + 1) * B], f[l * B:(l + 1) * B],
-                   None if f0 is None else f0[l * B:(l + 1) * B])
+                   None if f0 is None else f0[l * B:(l + 1) * B], axis=axis)
             for l, (st, d, ctx, pre) in enumerate(zip(states, datas, ctxs, pres))
         ]
 
@@ -738,9 +854,11 @@ def _bfgs_lockstep(x, mask_b, vloss, vgrad, iters: int, g_tol: float, lanes: int
         if g_tol > 0:
             conv = g.abs().reshape(lanes, -1).amax(1) < g_tol
             frozen = conv if frozen is None else frozen | conv
-            # srl: disable=SRL003 -- the g_tol gate; ROADMAP A, const-opt leg without host syncs
-            if bool(frozen.all()):
-                break
+            # under a mesh the other shards run while this one waits
+            with mesh_mod.host_wait():
+                # srl: disable=SRL003 -- the g_tol gate; ROADMAP A, const-opt leg without host syncs
+                if bool(frozen.all()):
+                    break
             if lanes > 1:
                 fz = torch.repeat_interleave(frozen, B // lanes)
         d = -_lane_bmm(H, g[:, :, None], lanes)[:, :, 0]
@@ -757,9 +875,10 @@ def _bfgs_lockstep(x, mask_b, vloss, vgrad, iters: int, g_tol: float, lanes: int
             armijo = f_new <= f + 1e-4 * alpha * gtd
             if fz is not None:
                 armijo = armijo | fz
-            # srl: disable=SRL003 -- the Armijo stop; ROADMAP A, const-opt leg without host syncs
-            if bool(armijo.all()):
-                break
+            with mesh_mod.host_wait():
+                # srl: disable=SRL003 -- the Armijo stop; ROADMAP A, const-opt leg without host syncs
+                if bool(armijo.all()):
+                    break
             alpha = torch.where(armijo, alpha, alpha * 0.5)
             f_new = torch.where(armijo, f_new, vloss(x + alpha[:, None] * d))
         ok = torch.isfinite(f_new) & (f_new < f)
@@ -798,6 +917,10 @@ _DISPATCH_HOOK = None
 # around the leg (chip_smoke.py checks the evolve leg makes no host sync);
 # process-wide like _DISPATCH_HOOK
 _LEG_WRAP = None
+# test seam: when set, a callable handed each iteration's state just after
+# its legs (one EvoState per shard under a mesh); process-wide like the two
+# above
+_STATE_HOOK = None
 
 
 def _count_dispatch(name: str):
@@ -808,12 +931,16 @@ def _count_dispatch(name: str):
 
 class _LegTimer:
     """Host seconds per leg, and device milliseconds per leg from CUDA events
-    recorded around it (summed once, at the end of the search); with a
-    profiler, the leg is also its stage of the same name, fenced at its
-    end (``stage=False`` for a leg whose parts are stages of their own)."""
+    recorded around it on each of ``devices``' current streams (the longest
+    card counts; summed once, at the end of the search); with a profiler,
+    the leg is also its stage of the same name, fenced at its end
+    (``stage=False`` for a leg whose parts are stages of their own)."""
 
-    def __init__(self, device: torch.device, prof: StageProfiler = NULL_PROFILER):
-        self.cuda = device.type == "cuda"
+    def __init__(self, devices, prof: StageProfiler = NULL_PROFILER):
+        devices = [torch.device(d) for d in (devices if isinstance(devices, (list, tuple))
+                                              else [devices])]
+        self.devices = [d for d in dict.fromkeys(devices) if d.type == "cuda"]
+        self.cuda = bool(self.devices)
         self.prof = prof
         self.host: dict = {}
         self.events: dict = {}
@@ -824,28 +951,30 @@ class _LegTimer:
         wrap = _LEG_WRAP(name) if _LEG_WRAP is not None else contextlib.nullcontext()
         # timed inside the wrap: what the wrap itself does is not the leg's
         with wrap:
-            start = end = None
-            if self.cuda:
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
-                    enable_timing=True
-                )
-                start.record()
+            marks = []
+            for d in self.devices:
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                start.record(torch.cuda.current_stream(d))
+                marks.append((d, start, end))
             t0 = time.perf_counter()
             with self.prof.stage(name) if stage else contextlib.nullcontext():
                 yield
                 if stage:
                     self.prof.fence()
             self.host[name] = self.host.get(name, 0.0) + time.perf_counter() - t0
-            if self.cuda:
-                end.record()
-                self.events.setdefault(name, []).append((start, end))
+            for d, start, end in marks:
+                end.record(torch.cuda.current_stream(d))
+            if marks:
+                self.events.setdefault(name, []).append([(s_, e) for _, s_, e in marks])
 
     def device_seconds(self) -> dict:
         if not self.cuda:
             return {}
-        torch.cuda.synchronize()
+        for d in self.devices:
+            torch.cuda.synchronize(d)
         return {
-            name: sum(a.elapsed_time(b) for a, b in ev) * 1e-3
+            name: sum(max(a.elapsed_time(b) for a, b in marks) for marks in ev) * 1e-3
             for name, ev in self.events.items()
         }
 
@@ -899,7 +1028,7 @@ class _Readback:
         self.turn += 1
         host.copy_(rb, non_blocking=True)
         done = torch.cuda.Event()
-        done.record()
+        done.record(torch.cuda.current_stream(rb.device))
 
         def fetch() -> np.ndarray:
             done.synchronize()
@@ -1122,6 +1251,43 @@ def _baseline_norm(dataset: Dataset, options: Options, eng_dt) -> float:
     return bl if (use_baseline and bl >= 0.01) else 0.01
 
 
+def _mesh_shape(options: Options, n_rows: int, n_islands: int, n_dev: int) -> tuple:
+    """(pop shards, rows shards) of the engine's mesh over ``n_dev`` local
+    devices (the JAX package's decision, its ``device_search.py:1912-1960``):
+    islands over 'pop' when they divide over every device; under
+    ``data_sharding="rows"`` the largest rows axis dividing both the row
+    count and the device count whose leftover pop axis divides the islands.
+    (1, 1): no mesh. A recorder session stays on one device."""
+    if n_dev <= 1 or options.use_recorder:
+        return 1, 1
+    if options.data_sharding == "rows":
+        for r in sorted((d for d in range(1, n_dev + 1) if n_dev % d == 0), reverse=True):
+            if n_rows % r == 0 and n_islands % (n_dev // r) == 0:
+                return n_dev // r, r
+        return 1, 1
+    return (n_dev, 1) if n_islands % n_dev == 0 else (1, 1)
+
+
+def engine_devices(options: Options) -> list:
+    """The devices the device engine may shard one search over:
+    ``Options.mesh_devices``, else ``Options.device`` alone."""
+    return [torch.device(d) for d in (options.mesh_devices or (options.device,))]
+
+
+def _engine_mesh(options: Options, n_rows: int, n_islands: int):
+    """The engine's mesh over ``engine_devices(options)``: one shard on the
+    first device where the rule gives no mesh."""
+    devices = engine_devices(options)
+    n_pop, n_rows_sh = _mesh_shape(options, n_rows, n_islands, len(devices))
+    return mesh_mod.make_mesh(n_pop, n_rows_sh, devices=devices[:n_pop * n_rows_sh])
+
+
+def _shard_seed(seed: int, *where) -> int:
+    """A shard's generator seed from the engine's seed and the shard's
+    coordinates (the counterpart of ``fold_in(key, axis_index)``)."""
+    return int(np.random.SeedSequence([seed, *where]).generate_state(1, np.uint32)[0])
+
+
 class _EngineLane:
     """One search's engine set-up, the solo search's prelude, which each
     lane of a fleet runs too: the baseline loss, the configs, the dataset
@@ -1136,13 +1302,26 @@ class _EngineLane:
     ``islands``: this process's share of the islands in a multi-process
     world (default ``options.populations``); ``local_migration=False`` turns
     the in-program migration off, where the cross-process pools take its
-    place."""
+    place.
+
+    ``mesh``: the in-process mesh (``_engine_mesh``; default one shard on
+    the first of ``engine_devices``). Each shard has its own ScoreData (the
+    dataset, or its row block under a rows axis), its scorer (combining over
+    the rows axis), its generator (on a pop axis seeded from the engine's
+    seed and the shard's pop index; a rows axis's minibatch draws from one
+    seeded with the rows index too) and its context over ``ecfg_local`` (the
+    shard's islands); ``states`` is one EvoState per shard
+    (``ops.evolve.shard_evo_state``). ``cfg`` and ``ecfg`` stay global: the
+    host decodes the global arrays in island order. ``data``, ``scorer``
+    and ``ctx`` are shard 0's."""
 
     def __init__(self, dataset: Dataset, options: Options, niterations: int,
                  rng: np.random.Generator, init_trees=None, fleet: bool = False,
-                 islands: int | None = None, local_migration: bool = True):
-        self.dataset, self.options = dataset, options
-        device = self.device = torch.device(options.device)
+                 islands: int | None = None, local_migration: bool = True, mesh=None):
+        if mesh is None:
+            mesh = mesh_mod.make_mesh(1, 1, devices=engine_devices(options)[:1])
+        self.dataset, self.options, self.mesh = dataset, options, mesh
+        device = self.device = mesh.devices[0, 0]
         I = options.populations if islands is None else islands
         P = options.population_size
         eng_dt = self.eng_dt = np.dtype(options.dtype)
@@ -1158,45 +1337,158 @@ class _EngineLane:
             cfg = dataclasses.replace(cfg, niterations=0)
         if not local_migration:
             cfg = dataclasses.replace(cfg, migration=False, hof_migration=False)
+        n_pop, n_rows = mesh.devices.shape
+        batch_rows = min(int(options.batch_size), dataset.n) if options.batching else 0
+        if n_rows > 1 and options.batching:
+            # each rows shard draws batch_size / rows_shards of its rows:
+            # count the effective global draw exactly (the JAX package's
+            # eval_fraction under a rows axis)
+            batch_rows = max(1, batch_rows // n_rows)
+            cfg = dataclasses.replace(
+                cfg, eval_fraction=min(batch_rows * n_rows, dataset.n) / dataset.n)
         self.cfg = cfg
         # engine config: the score normalization travels as data.norm
         self.ecfg = ecfg = dataclasses.replace(cfg, baseline_loss=1.0, use_baseline=True)
-        self.data = _cached_score_data(dataset, eng_dt, device, norm_val)
+        self.ecfg_local = ecfg if n_pop == 1 else dataclasses.replace(ecfg, n_islands=I // n_pop)
         self.use_kernel = engine_kernel_eligible(options, eng_dt)
-        self.scorer = EngineScorer(options, self.use_kernel, device)
+        self.datas = (
+            _make_score_data_rows(dataset, eng_dt, mesh, norm_val) if n_rows > 1
+            else [_cached_score_data(dataset, eng_dt, d, norm_val) for d in mesh.device_list()])
+        self.scorers = [
+            EngineScorer(options, self.use_kernel, d,
+                         rows_axis=mesh_mod.mesh_axis(mesh, "rows", k) if n_rows > 1 else None)
+            for k, d in enumerate(mesh.device_list())]
+        self.data, self.scorer = self.datas[0], self.scorers[0]
 
         # --- initial populations (host trees -> device state) ---------------
         if init_trees is None:
             init_trees = Population.random_trees(I * P, options, dataset.n_features, rng)
-        gen = torch.Generator(device=device)
-        gen.manual_seed(int(rng.integers(0, 2**31 - 1)))
-        batch_rows = min(int(options.batch_size), dataset.n) if options.batching else 0
-        self.ctx = EvoContext(ecfg, device, gen, self.scorer.losses, batch_rows=batch_rows)
+        seed = int(rng.integers(0, 2**31 - 1))
+        self.ctxs = []
+        for k, d in enumerate(mesh.device_list()):
+            i, j = mesh.coords(k)
+            gen = torch.Generator(device=d)
+            gen.manual_seed(seed if n_pop == 1 else _shard_seed(seed, i))
+            bgen = None
+            if n_rows > 1:
+                bgen = torch.Generator(device=d)
+                bgen.manual_seed(_shard_seed(seed, i, 1 + j))
+            self.ctxs.append(EvoContext(self.ecfg_local, d, gen, self.scorers[k].losses,
+                                        batch_rows=batch_rows, batch_gen=bgen))
+        self.ctx = self.ctxs[0]
+        # the collectives of each leg ({leg: {axis: counts}})
+        self.collectives: dict = {}
+        mesh_mod.warm_up(mesh)
         self.build_state(init_trees)
 
-    def build_state(self, trees) -> EvoState:
-        """Host trees -> the scored state on the device (``self.state``). Runs
-        at set-up and again when an elastic joiner adopts a checkpoint
-        shard (the shard's trees replace the random ones)."""
+    def build_state(self, trees) -> list:
+        """Host trees -> the scored states on the devices (``self.states``,
+        one per shard). Runs at set-up and again when an elastic joiner
+        adopts a checkpoint shard (the shard's trees replace the random
+        ones)."""
         ecfg, vdt = self.ecfg, self.vdt
         self.bflat = flatten_trees(trees, self.options.max_nodes, dtype=self.eng_dt)
         losses0 = self.score_call(_flat_to_tree(self.bflat, self.device, vdt))
         state = init_state(self.bflat, losses0, ecfg, self.device)
         comp = _complexity_members(state, ecfg, self.ctx).to(vdt)
-        self.state = state._replace(score=_score_of(state.loss, comp, self.cfg))  # real baseline
-        return self.state
+        state = state._replace(score=_score_of(state.loss, comp, self.cfg))  # real baseline
+        self.states = shard_evo_state(state, self.mesh)
+        return self.states
+
+    @property
+    def state(self) -> EvoState:
+        """Shard 0's state: a one-shard lane's whole state."""
+        return self.states[0]
 
     def score_call(self, batch: Tree) -> torch.Tensor:
         """Losses of a batch the host hands the engine (initial members, the
         warm start's hall of fame, the simplify pool), with the same
-        structure-only dimensional penalty the legs add."""
-        data = self.data
-        losses = self.scorer.losses(batch, data.X, data.y, data.w)
+        structure-only dimensional penalty the legs add, on the lane's first
+        device. Under a rows axis the batch is scored on every row block of
+        pop shard 0 and combined (the JAX package's replicated-batch
+        shard_map)."""
+        if self.mesh.devices.shape[1] > 1:
+            n_rows = self.mesh.devices.shape[1]
+
+            def one(sh, scorer, data):
+                b = Tree(*(t.to(sh.device) for t in batch))
+                return scorer.losses(b, data.X, data.y, data.w)
+
+            losses = shard_map(one, self.mesh, zip(self.scorers[:n_rows], self.datas[:n_rows]),
+                               shards=range(n_rows))[0]
+        else:
+            data = self.data
+            losses = self.scorer.losses(batch, data.X, data.y, data.w)
         if self.ecfg.units_check:
             losses = losses.to(self.vdt) + dim_penalty_batch(batch, self.ecfg, self.ctx)
         return losses
 
+    # -- the legs and host steps over the shards -----------------------------
 
+    def iterate(self, states, leg, copts, block=None) -> list:
+        """One iteration, ``leg(name)`` entered around each leg on the
+        calling thread. One shard runs ``run_iteration_fused`` (the block
+        where ``block`` is given); a mesh runs leg by leg, every shard at
+        once (the block and the fused iteration are off under a mesh, as in
+        the JAX package)."""
+        mesh = self.mesh
+        if mesh.size == 1:
+            return [run_iteration_fused(states[0], self.data, self.ctx,
+                                        copt=None if copts is None else copts[0],
+                                        leg=leg, block=block)]
+        with self._leg(leg, "evolve"):
+            states = make_sharded_iteration(mesh, self.ctxs)(states, self.datas)
+        if copts is not None:
+            with self._leg(leg, "const_opt"):
+                states = shard_map(lambda sh, st, d, fn: fn(st, d, axis=sh.axis("pop")),
+                                   mesh, zip(states, self.datas, copts))
+        if self.ecfg.batching:
+            with self._leg(leg, "finalize"):
+                states = make_sharded_finalize(mesh, self.ctxs)(states, self.datas)
+        return states
+
+    @contextlib.contextmanager
+    def _leg(self, leg, name: str):
+        """``leg(name)``, and the collectives the leg made added to
+        ``collectives[name]`` ({axis: counts}, ``mesh.collective_stats``)."""
+        before = mesh_mod.collective_stats(self.mesh)
+        with leg(name):
+            yield
+        after = mesh_mod.collective_stats(self.mesh)
+        acc = self.collectives.setdefault(name, {})
+        for ax, c in after.items():
+            tot = acc.setdefault(ax, {"gathers": 0, "bytes": 0, "gather_seconds": 0.0,
+                                      "wait_seconds": 0.0, "groups": c["groups"],
+                                      "transport": c["transport"]})
+            for k in ("gathers", "bytes", "gather_seconds", "wait_seconds"):
+                tot[k] += c[k] - before.get(ax, {}).get(k, 0)
+
+    def migrate(self, states, pool, frac: float) -> list:
+        """``migrate_from_pool`` of one pool (on any device) in every shard,
+        each on its islands with its generator (one shard: on the calling
+        thread)."""
+        return shard_map(
+            lambda sh, st, ctx, d: migrate_from_pool(
+                st, ctx, tuple(t.to(sh.device) for t in pool), frac, d.norm),
+            self.mesh, zip(states, self.ctxs, self.datas))
+
+    def flood(self, states, n_bad: int) -> list:
+        """``nan_flood``: NaN into the losses of the leading ``n_bad``
+        islands (global island order)."""
+        out = []
+        for k, st in enumerate(states):
+            i, _ = self.mesh.coords(k)
+            I_l = st.loss.shape[0]
+            bad = ((torch.arange(I_l, device=st.loss.device) + i * I_l) < n_bad)[:, None]
+            out.append(st._replace(loss=torch.where(bad, torch.nan, st.loss)))
+        return out
+
+    def topn_pool(self, states):
+        """This process's topn migration pool, every shard's islands merged
+        in island order on the first device (``intra_host_pool_merge``; one
+        shard's pool as it is)."""
+        merge = mesh_mod.intra_host_pool_merge(self.mesh)
+        return merge([extract_topn_pool(st, self.ecfg_local) for st in states])[0]
 
 
 def _hof_pool_np(decoded_rows, cfg: EvoConfig):
@@ -1220,6 +1512,20 @@ def _hof_pool_np(decoded_rows, cfg: EvoConfig):
 _STOP_CODES = {1: "early_stop", 2: "timeout", 3: "max_evals", 4: "user_quit", 5: "callback"}
 
 
+def _on_first_device(fn):
+    """Run ``fn(dataset, options, ...)`` with the first of the search's
+    devices (``engine_devices``) as the CUDA runtime's current one: the leg
+    timer's events, the pipelined readback's event and every implicit
+    stream are then that card's, whichever card it is."""
+    @functools.wraps(fn)
+    def run(dataset, options, *args, **kwargs):
+        with mesh_mod.device_scope(engine_devices(options)[0]):
+            return fn(dataset, options, *args, **kwargs)
+
+    return run
+
+
+@_on_first_device
 def device_search_one_output(
     dataset: Dataset,
     options: Options,
@@ -1244,7 +1550,9 @@ def device_search_one_output(
 
     In a world of more than one process (``parallel/distributed.py``) every
     process runs this function on its own slice of the islands, on
-    ``Options.device`` (processes may share one card). The in-program
+    ``Options.device`` (processes may share one card; each shards its
+    slice over its own devices where the mesh decision says so). The
+    in-program
     migration is off; instead, once per iteration, each process's packed
     readback and topn migration pool are exchanged through an
     ``ExchangeGroup`` (``parallel/membership.py``, the one host step of the
@@ -1254,7 +1562,10 @@ def device_search_one_output(
     process's best members per complexity gives every process the same hall
     of fame. Snapshots go to ``{checkpoint_base}.p{rank}``.
     ``engine_stats["exchange_bytes"]`` is the payload this process posted
-    per iteration."""
+    per iteration.
+
+    On a mesh (``_engine_mesh``) ``engine_stats["mesh"]`` holds its shape,
+    its devices and the collectives it made, in all and per leg."""
     from ..parallel import distributed as dist
     from ..parallel import membership
     from ..search import SearchResult  # late import (module cycle)
@@ -1312,22 +1623,26 @@ def device_search_one_output(
         if len(init_trees) < I * P:
             init_trees.extend(Population.random_trees(
                 I * P - len(init_trees), options, dataset.n_features, rng))
+    # the in-process mesh over the named devices (islands over 'pop', rows
+    # over 'rows'); one shard on one device where there is none
+    mesh = _engine_mesh(options, dataset.n, I)
     # cross-process pools (injected once per iteration below) subsume the
     # in-program migration: the pool is then GLOBAL across all processes'
     # islands, as the reference's head-mediated migration
     lane = _EngineLane(dataset, options, niterations, rng, init_trees, islands=I,
-                       local_migration=not multi_host)
+                       local_migration=not multi_host, mesh=mesh)
     device, eng_dt, vdt = lane.device, lane.eng_dt, lane.vdt
     cfg, ecfg, data, ctx = lane.cfg, lane.ecfg, lane.data, lane.ctx
-    use_kernel, scorer, score_call, bflat, state = (
-        lane.use_kernel, lane.scorer, lane.score_call, lane.bflat, lane.state)
+    use_kernel, score_call, bflat, states = (
+        lane.use_kernel, lane.score_call, lane.bflat, lane.states)
     N = options.max_nodes
-    const_opt = (
-        make_const_opt_fn(options, ecfg, scorer, ctx)
-        if options.should_optimize_constants else None
-    )
-    block_mode = _block_mode(ecfg, device, use_kernel, dataset.n,
-                             objective=options.loss_function_jit is not None)
+    copts = None
+    if options.should_optimize_constants:
+        copts = [make_const_opt_fn(options, lane.ecfg_local, sc, c)
+                 for sc, c in zip(lane.scorers, lane.ctxs)]
+    # the evolve block stays off under a mesh, as in the JAX package
+    block_mode = None if mesh.size > 1 else _block_mode(
+        ecfg, device, use_kernel, dataset.n, objective=options.loss_function_jit is not None)
     block_fn = _make_block_fn(block_mode, options, ecfg, data, ctx)
 
     replay = None
@@ -1340,8 +1655,8 @@ def device_search_one_output(
                       np.asarray(bflat.val, eng_dt), bflat.length)
         )
         replay = EngineLineageReplay(state0, options, recorder, out_j=out_j, cfg=cfg,
-                                     loss0=state.loss.cpu().numpy(),
-                                     score0=state.score.cpu().numpy())
+                                     loss0=states[0].loss.cpu().numpy(),
+                                     score0=states[0].score.cpu().numpy())
 
     hof = HallOfFame(options.maxsize)
     if saved_state is not None:
@@ -1366,14 +1681,14 @@ def device_search_one_output(
         # one-slot pipelined exchange would straddle an epoch bump (the
         # stashed payload was posted under the pre-join epoch's keys)
         async_rb = False
-    prof = StageProfiler(device=device) if options.profile else NULL_PROFILER
+    prof = StageProfiler(device=mesh.device_list()) if options.profile else NULL_PROFILER
     early_stop = options.early_stop_fn()
     own_stdin = stdin_reader is None
     if own_stdin:
         stdin_reader = StdinReader()
     reporter = ProgressReporter(niterations, options, use_bar=bool(options.progress),
                                 verbosity=verbosity)
-    timer = _LegTimer(device, prof)
+    timer = _LegTimer(mesh.device_list(), prof)
     readback = _Readback(device)
     base_evals = float(getattr(saved_state, "num_evals", 0.0) or 0.0) if saved_state else 0.0
     num_evals = base_evals
@@ -1403,7 +1718,8 @@ def device_search_one_output(
             # on-disk snapshots use, verified on load
             from ..utils.checkpoint import dump_checkpoint_bytes
 
-            ck_pops, _, _ = _decode_state_populations(state, I, P, cfg, options)
+            ck_pops, _, _ = _decode_state_populations(unshard_evo_state(states, mesh), I, P,
+                                                      cfg, options)
             return dump_checkpoint_bytes(SearchCheckpoint(
                 iteration=int(cur_it[0]), niterations=niterations, scheduler="device",
                 exact=False, populations=ck_pops, hall_of_fame=hof.copy(),
@@ -1433,7 +1749,7 @@ def device_search_one_output(
                     if len(strees) < I * P:
                         strees.extend(Population.random_trees(
                             I * P - len(strees), options, dataset.n_features, rng))
-                    state = lane.build_state(strees)
+                    states = lane.build_state(strees)
                     for m in ck.hall_of_fame.members:
                         if m is not None:
                             hof.update(m.copy(), options)
@@ -1469,7 +1785,7 @@ def device_search_one_output(
         )
 
     def simplify_inject(members):
-        nonlocal state, host_evals
+        nonlocal states, host_evals
         if options.should_simplify:
             with prof.stage("simplify"):
                 pool, n_scored = _simplified_frontier_pool(
@@ -1478,9 +1794,7 @@ def device_search_one_output(
             host_evals += n_scored
             if pool is not None:
                 with prof.stage("migrate"):
-                    state = migrate_from_pool(
-                        state, ctx, pool, float(options.fraction_replaced_hof), data.norm
-                    )
+                    states = lane.migrate(states, pool, float(options.fraction_replaced_hof))
                     prof.fence()
 
     def consume(buf: np.ndarray):
@@ -1501,7 +1815,7 @@ def device_search_one_output(
         fraction_replaced_hof (reference migrate! semantics), then the
         simplify pool. Every process does the same deterministic host work
         on the same rows."""
-        nonlocal state, device_evals
+        nonlocal states, device_evals
         with prof.stage("decode_hof"):
             g0 = np.asarray(gathered[0])
             decoded = [_decode_readback(np.asarray(g0[pi]), cfg) for pi in range(g0.shape[0])]
@@ -1512,16 +1826,17 @@ def device_search_one_output(
             for m in members:
                 hof.update(m, options)
         with prof.stage("migrate"):
+            pools = []
             if options.migration:
-                topn_pool = tuple(torch.from_numpy(np.ascontiguousarray(
-                    g.reshape((-1,) + g.shape[2:]))).to(device) for g in gathered[1:])
-                state = migrate_from_pool(state, ctx, topn_pool,
-                                          float(options.fraction_replaced), data.norm)
+                pools.append((tuple(torch.from_numpy(np.ascontiguousarray(
+                    g.reshape((-1,) + g.shape[2:]))).to(device) for g in gathered[1:]),
+                    float(options.fraction_replaced)))
             if options.hof_migration:
-                hof_pool = tuple(torch.from_numpy(a).to(device)
-                                 for a in _hof_pool_np(decoded, cfg))
-                state = migrate_from_pool(state, ctx, hof_pool,
-                                          float(options.fraction_replaced_hof), data.norm)
+                pools.append((tuple(torch.from_numpy(a).to(device)
+                                    for a in _hof_pool_np(decoded, cfg)),
+                               float(options.fraction_replaced_hof)))
+            for pool, frac in pools:
+                states = lane.migrate(states, pool, frac)
             prof.fence()
         simplify_inject(members)
 
@@ -1536,19 +1851,21 @@ def device_search_one_output(
                 # poison the leading islands' losses on the device: the NaN
                 # storm selection and the pool injections must wash out
                 flooded_islands = max(1, int(round(I * float(hit.get("frac", 0.75)))))
-                bad = (torch.arange(I, device=device) < flooded_islands)[:, None]
-                state = state._replace(loss=torch.where(bad, torch.nan, state.loss))
-        state = run_iteration_fused(state, data, ctx, copt=const_opt, leg=timer.leg,
-                                    block=block_fn)
+                states = lane.flood(states, flooded_islands)
+        states = lane.iterate(states, timer.leg, copts, block=block_fn)
+        if _STATE_HOOK is not None:
+            _STATE_HOOK(states)
         with timer.leg("readback", stage=False):
             with prof.stage("readback_pack"):
-                rb = _readback_pack(state)
+                # the frontier and the counters are replicated: shard 0's
+                rb = _readback_pack(states[0])
                 pool_dev = ()
                 if multi_host and options.migration:
                     # this process's topn pool rides the same exchange as
                     # the readback (options are equal on every process, so
-                    # the exchange stays uniform)
-                    pool_dev = extract_topn_pool(state, ecfg)
+                    # the exchange stays uniform); a mesh merges its shards'
+                    # pools on the device first (the exchange's local stage)
+                    pool_dev = lane.topn_pool(states)
                 prof.fence()
             fetch = readback.start(rb)
             if multi_host:
@@ -1570,7 +1887,7 @@ def device_search_one_output(
                     # the simplify pool's migration, then the authoritative
                     # populations (out{j}_pop{i} entries, as the host engines)
                     _replay_logs(replay, ctx)
-                    replay.snapshot_populations(_state_arrays(state), it + 1)
+                    replay.snapshot_populations(_state_arrays(states[0]), it + 1)
         if multi_host:
             # the iteration's one cross-process step: flat (every live row)
             # or ring ([self, pred] rows); pipelined, the previous
@@ -1592,7 +1909,8 @@ def device_search_one_output(
             # pipelined loop the hall of fame and num_evals lag one iteration
             t_ck = time.perf_counter()
             with prof.stage("checkpoint"):
-                ck_pops, _, _ = _decode_state_populations(state, I, P, cfg, options)
+                ck_pops, _, _ = _decode_state_populations(unshard_evo_state(states, mesh),
+                                                          I, P, cfg, options)
                 ckptr.save(SearchCheckpoint(
                     iteration=it + 1, niterations=niterations, scheduler="device", exact=False,
                     populations=ck_pops, hall_of_fame=hof.copy(), num_evals=float(num_evals),
@@ -1667,7 +1985,7 @@ def device_search_one_output(
     # final population readback: folds the last constant optimization's
     # improvements (absent from the frontier readbacks) into the hall of fame
     pops, final_slots, (kind, opa, lhs, rhs, feat, val, length, loss, _) = (
-        _decode_state_populations(state, I, P, cfg, options))
+        _decode_state_populations(unshard_evo_state(states, mesh), I, P, cfg, options))
     if not multi_host:
         for pop in pops:
             hof.update_many(pop.members, options)
@@ -1714,13 +2032,20 @@ def device_search_one_output(
     result.engine_stats = {
         "iterations": iterations_run,
         "block": block_mode,
-        "score_calls": scorer.score_calls,
-        "grad_calls": scorer.grad_calls,
+        "score_calls": sum(sc.score_calls for sc in lane.scorers),
+        "grad_calls": sum(sc.grad_calls for sc in lane.scorers),
         "host_seconds": dict(timer.host),
         "device_seconds": timer.device_seconds(),
         "checkpoint_seconds": checkpoint_seconds,
         "nan_flooded_islands": flooded_islands,
     }
+    if mesh.size > 1:
+        result.engine_stats["mesh"] = {
+            "shape": tuple(int(v) for v in mesh.devices.shape),
+            "devices": [str(d) for d in mesh.device_list()],
+            "collectives": mesh_mod.collective_stats(mesh),
+            "collectives_by_leg": lane.collectives,
+        }
     if multi_host:
         result.engine_stats.update(
             world=n_proc, rank=proc_id, islands=(isl_start, isl_stop),
@@ -1795,8 +2120,8 @@ class FleetLaneSpec:
 
 def fleet_eligibility(options: Options) -> str | None:
     """None when a search with these Options can run as a fleet lane, else
-    the reason it must run solo (the JAX package's reasons that apply to one
-    card)."""
+    the reason it must run solo (the JAX package's reasons, the two mesh
+    reasons judged over ``engine_devices(options)``)."""
     reason = device_mode_supported(options)
     if reason is not None:
         return reason
@@ -1814,6 +2139,23 @@ def fleet_eligibility(options: Options) -> str | None:
 
     if world_shape()[0] > 1:
         return "multi-host (the per-iteration cross-host exchange is per-search)"
+    n_dev = len(engine_devices(options))
+    if n_dev > 1:
+        # the solo run's mesh decision: a lane is ineligible only where the
+        # solo run of these options would shard (the lane axis is one
+        # device's)
+        if options.data_sharding == "rows":
+            return (
+                "data_sharding='rows' on a multi-device host (a solo search "
+                "would shard rows over the mesh; the fleet axis is "
+                "single-device)"
+            )
+        if int(options.populations) % n_dev == 0:
+            return (
+                "multi-device host with populations divisible by the device "
+                "count (a solo search would shard islands over the mesh; "
+                "the fleet axis is single-device)"
+            )
     return None
 
 
@@ -2066,9 +2408,9 @@ def fleet_search(
     stacked = _FleetData(lanes)
     datas = [lane.data for lane in lanes]
     ctxs = [lane.ctx for lane in lanes]
-    states = [lane.state for lane in lanes]
+    states = [lane.states[0] for lane in lanes]
     for lane in lanes:
-        lane.state = None  # the fleet's list is the state from here on
+        lane.states = None  # the fleet's list is the state from here on
     if on_lanes_ready is not None:
         on_lanes_ready(lanes)
     scorer = EngineScorer(options, lead.use_kernel, device)

@@ -48,15 +48,18 @@ __all__ = ["BatchScorer", "cached_optab"]
 def cached_optab(opset, device) -> torch.Tensor | None:
     """The kernels' operator table of ``opset`` on ``device``
     (``interp_cuda.optab_tensor``), held for the process in the program
-    cache (kind "optab", keyed on the table and the device). A scorer looks
-    it up once per search and hands it to every B1 and B2 launch it makes.
-    None for an operator set the kernels do not take."""
+    cache (kind "optab", keyed on the table and the indexed card, so "cuda"
+    and "cuda:0" share an entry and "cuda:1" has its own). A scorer looks it
+    up once per search and hands it to every B1 and B2 launch it makes. None
+    for an operator set the kernels do not take."""
+    from ..parallel.mesh import indexed_device
+
     table = kernel_op_table(opset)
     if table is None:
         return None
+    device = indexed_device(device)
     return global_program_cache().get_or_build(
-        "optab", (table.tobytes(), str(torch.device(device))),
-        lambda: optab_tensor(opset, device))
+        "optab", (table.tobytes(), str(device)), lambda: optab_tensor(opset, device))
 
 
 class BatchScorer:
@@ -107,13 +110,15 @@ class BatchScorer:
             self._setup_row_sharding()
 
     def _setup_row_sharding(self) -> None:
-        """Shard the dataset rows across every device of ``Options.device``'s
-        kind and route full-data scoring through the row-sharded loss
-        (``parallel/sharding.py``: only per-tree partials cross devices).
-        With one device it returns at once, and the search is unchanged."""
+        """Shard the dataset rows across the devices of ``Options.device``
+        (``parallel.mesh.local_devices``: every card for "cuda", the one card
+        for "cuda:N") and route full-data scoring through the row-sharded
+        loss (``parallel/sharding.py``: only per-tree partials cross
+        devices). With one device it returns at once, and the search is
+        unchanged."""
         import warnings
 
-        from ..parallel.mesh import make_mesh
+        from ..parallel import mesh as mesh_mod
         from ..parallel.sharding import make_sharded_loss, shard_dataset
 
         devices = _row_devices(self.device)
@@ -126,7 +131,7 @@ class BatchScorer:
                 f"device count ({n_dev}); falling back to single-device scoring"
             )
             return
-        mesh = make_mesh(1, n_dev, devices=devices)
+        mesh = mesh_mod.make_mesh(1, n_dev, devices=devices)
         self._mesh = mesh
         self._sharded = make_sharded_loss(
             mesh, self.opset, self.loss_elem, has_weights=self.w is not None
@@ -273,11 +278,12 @@ class BatchScorer:
 
 
 def _row_devices(device: torch.device) -> list:
-    """The devices ``data_sharding="rows"`` splits rows over: every CUDA
-    device for a CUDA search, the one CPU otherwise."""
-    if device.type == "cuda":
-        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    return [device]
+    """The devices ``data_sharding="rows"`` splits rows over: the search's
+    ``parallel.mesh.local_devices``, as the device engine's mesh takes
+    them."""
+    from ..parallel.mesh import local_devices
+
+    return local_devices(device)
 
 
 def _readback(dev: torch.Tensor):

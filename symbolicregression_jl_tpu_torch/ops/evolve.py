@@ -81,6 +81,11 @@ __all__ = [
     "state_tree",
     "dim_violates_batch",
     "dim_penalty_batch",
+    "evo_state_specs",
+    "shard_evo_state",
+    "unshard_evo_state",
+    "make_sharded_iteration",
+    "make_sharded_finalize",
 ]
 
 # Mutation kind indices (subset of the reference's 12; see the JAX module).
@@ -190,16 +195,22 @@ class EvoContext:
     the device, the random generator, the scoring function
     ``score_rows(batch: Tree, X, y, w) -> losses [B]`` and the minibatch
     size, and the config's constant tables, uploaded once here (so the
-    evolve leg makes no host-to-device copy). Under ``cfg.record_events``,
+    evolve leg makes no host-to-device copy). On a mesh each shard has its
+    own context: its device, its generator, its scorer. Under
+    ``cfg.record_events``,
     ``logs`` collects the legs' event logs as ``(kind, tensors)`` entries,
     kind one of "iteration", "migration" and "tuning", in the order the
     legs make them, until the engine loop takes them (``take_logs``)."""
 
     def __init__(self, cfg: EvoConfig, device, gen: torch.Generator, score_rows: Callable,
-                 batch_rows: int = 0):
+                 batch_rows: int = 0, batch_gen: torch.Generator | None = None):
         self.cfg = cfg
         self.device = torch.device(device)
         self.gen = gen
+        # the minibatch row draws' generator: ``gen`` itself, except on a
+        # rows axis, where each row shard draws its own local rows (the JAX
+        # package folds the rows index into the draw's key)
+        self.batch_gen = gen if batch_gen is None else batch_gen
         self.score_rows = score_rows
         self.batch_rows = batch_rows
         self.vdt = getattr(torch, cfg.val_dtype)
@@ -245,7 +256,7 @@ class EvoContext:
         (SymbolicRegression.jl src/LossFunctions.jl:114-127)."""
         X, y, w = data.X, data.y, data.w
         if minibatch:
-            idx = torch.randint(0, X.shape[1], (self.batch_rows,), generator=self.gen,
+            idx = torch.randint(0, X.shape[1], (self.batch_rows,), generator=self.batch_gen,
                                 device=self.device)
             X, y = X[:, idx].contiguous(), y[idx].contiguous()
             w = None if w is None else w[idx].contiguous()
@@ -834,11 +845,27 @@ def _choose_kinds(ctx: EvoContext, t: Tree, curmaxsize) -> torch.Tensor:
 
 
 def merge_best_seen(state: EvoState, cfg: EvoConfig, losses, valid, fields, lengths,
-                    comps=None) -> EvoState:
+                    comps=None, axis=None) -> EvoState:
     """Fold a batch of scored trees into the best-seen frontier (the per-size
     mini hall of fame, SymbolicRegression.jl src/SingleIteration.jl:64-100):
     per size the first lowest valid loss, taken where it beats the stored
-    one. ``fields``: 6 tensors [B, N]."""
+    one. ``fields``: 6 tensors [B, N].
+
+    ``axis``: the island axis of a mesh (``parallel.mesh.Axis``): the
+    shards' candidates merge to the global lowest loss per size, the lowest
+    shard index winning ties (the JAX package's ``pmin`` of the loss and of
+    the owner shard, then the owner's tree broadcast by a masked ``psum``),
+    in one gather of the losses, lengths and six fields, so the frontier
+    stays equal on every shard."""
+    return _merge_best_seen(state, cfg, losses, valid, fields, lengths, comps, axis)[0]
+
+
+def _merge_best_seen(state: EvoState, cfg: EvoConfig, losses, valid, fields, lengths,
+                     comps=None, axis=None, extra=None):
+    """``merge_best_seen``; under ``axis`` the f64 columns ``extra`` [S+1, k]
+    ride the same gather and come back summed over the shards in shard
+    order (the event's frequency delta and scored count). Returns (state,
+    summed extra or None)."""
     S1 = cfg.maxsize + 1
     sizes = torch.clamp(lengths if comps is None else comps, 0, cfg.maxsize)
     size_mask = sizes[None, :] == torch.arange(S1, device=sizes.device, dtype=sizes.dtype)[:, None]
@@ -847,6 +874,27 @@ def merge_best_seen(state: EvoState, cfg: EvoConfig, losses, valid, fields, leng
     best_idx = torch.argmin(cand_loss, dim=1)  # the first minimum, as jnp.argmin
     cand_fields = [f[best_idx] for f in fields]
     cand_len = lengths[best_idx]
+    summed = None
+    if axis is not None:
+        # every column is exact in f64 (int32 fields, f32 or f64 values)
+        cols = [best_loss_s.double()[:, None], cand_len.double()[:, None]]
+        cols += [f.double() for f in cand_fields]
+        if extra is not None:
+            cols.append(extra.double())
+        g = axis.all_gather(torch.cat(cols, 1))  # [shards, S1, 2 + 6N (+k)]
+        N = cand_fields[0].shape[1]
+        g_loss = torch.amin(g[:, :, 0], dim=0)
+        win = (g[:, :, 0] <= g_loss[None, :]) & torch.isfinite(g_loss)[None, :]
+        owner = torch.argmax(win.to(torch.int8), dim=0)  # the first winning shard
+        row = g[owner, torch.arange(S1, device=g.device)]  # [S1, cols]
+        best_loss_s = g_loss.to(losses.dtype)
+        cand_len = row[:, 1].to(lengths.dtype)
+        cand_fields = [row[:, 2 + q * N: 2 + (q + 1) * N].to(f.dtype)
+                       for q, f in enumerate(cand_fields)]
+        if extra is not None:
+            summed = g[0, :, 2 + 6 * N:]
+            for k in range(1, g.shape[0]):
+                summed = summed + g[k, :, 2 + 6 * N:]
     better = best_loss_s < state.bs_loss
     bs_loss = torch.where(better, best_loss_s.to(state.bs_loss.dtype), state.bs_loss)
     bt_new = [torch.where(better[:, None], f.to(cur.dtype), cur)
@@ -854,7 +902,7 @@ def merge_best_seen(state: EvoState, cfg: EvoConfig, losses, valid, fields, leng
     bs_len = torch.where(better, cand_len.to(torch.int32), state.bs_tree[6])
     return state._replace(
         bs_loss=bs_loss, bs_tree=(*bt_new, bs_len), bs_exists=state.bs_exists | better
-    )
+    ), summed
 
 
 def _put(cur: torch.Tensor, isl, idx, new, mask):
@@ -869,14 +917,16 @@ def _put(cur: torch.Tensor, isl, idx, new, mask):
 
 
 def _event(state: EvoState, data, ctx: EvoContext, temperature: float, curmaxsize,
-           log: dict | None = None, cycle: int = 0) -> EvoState:
+           log: dict | None = None, cycle: int = 0, axis=None) -> EvoState:
     """One evolve pass: all of a cycle's events for all islands in one
     batched step (the JAX package's ``_event``): tournament -> mutate or
     crossover -> score -> Metropolis accept -> replace. Lane e of island i
     replaces the (2e)-th oldest member and its crossover child the
     (2e+1)-th, so the scatter never collides. ``log``: the iteration's
     event-log buffers (``_event_log``), whose row ``cycle`` this pass
-    fills."""
+    fills. ``axis``: the island axis of a mesh; the frequency delta and the
+    scored count are summed over the shards and the frontier merged, in the
+    one gather of the merge (the JAX package's ``psum``s and merge)."""
     cfg = ctx.cfg
     I, P, N = state.kind.shape
     E = min(cfg.events_per_cycle, P)
@@ -1020,12 +1070,21 @@ def _event(state: EvoState, data, ctx: EvoContext, temperature: float, curmaxsiz
     fd.index_add_(0, torch.clamp(comp_b2, 0, cfg.maxsize).long(), accept2.to(fd.dtype))
 
     all_valid = torch.cat([torch.isfinite(loss1) & ok1, torch.isfinite(loss2) & ok2 & do_xover])
-    st = merge_best_seen(
+    n_scored = (L + do_xover.sum()).to(torch.float64) * cfg.eval_fraction
+    extra = None
+    if axis is not None:
+        # column 0 the frequency delta, column 1 the scored count (row 0)
+        extra = torch.zeros((cfg.maxsize + 1, 2), dtype=torch.float64, device=dev)
+        extra[:, 0] = fd
+        extra[0, 1] = n_scored
+    st, summed = _merge_best_seen(
         st, cfg, losses.to(st.bs_loss.dtype), all_valid,
         [batch.kind, batch.op, batch.lhs, batch.rhs, batch.feat, batch.val],
-        batch.length, comps=torch.cat([comp1, comp2]),
+        batch.length, comps=torch.cat([comp1, comp2]), axis=axis, extra=extra,
     )
-    n_scored = (L + do_xover.sum()).to(torch.float64) * cfg.eval_fraction
+    if summed is not None:
+        fd = summed[:, 0].to(fd.dtype)
+        n_scored = summed[0, 1]
     if log is not None:
         # index writes into the preallocated row: no host sync. Recorder
         # runs are mutation-only and single-attempt, so ``kinds`` is the
@@ -1069,18 +1128,20 @@ def _curmaxsize(state: EvoState, cfg: EvoConfig):
     return cfg.maxsize
 
 
-def run_iteration(state: EvoState, data, ctx: EvoContext) -> EvoState:
+def run_iteration(state: EvoState, data, ctx: EvoContext, axis=None) -> EvoState:
     """Advance every island through one iteration (the reference's
     _dispatch_s_r_cycle, SymbolicRegression.jl src/SymbolicRegression.jl:1088-1129):
     ncycles evolve passes at annealed temperature, the frequency-window
-    decay, then migration (moved to finalize under batching)."""
+    decay, then migration (moved to finalize under batching). ``axis``: the
+    island axis of a mesh (``_event``); migration stays within the shard's
+    islands, as in the JAX package's sharded iteration."""
     cfg = ctx.cfg
     curmaxsize = _curmaxsize(state, cfg)
     log = _event_log(cfg, ctx.device) if cfg.record_events else None
     for cycle in range(cfg.ncycles):
         # linspace(1, 0, ncycles): the final cycle runs at exactly T=0
         temp = 1.0 - cycle / max(cfg.ncycles - 1, 1) if cfg.annealing else 1.0
-        state = _event(state, data, ctx, temp, curmaxsize, log=log, cycle=cycle)
+        state = _event(state, data, ctx, temp, curmaxsize, log=log, cycle=cycle, axis=axis)
     ctx.log("iteration", {"events": log})
     state = state._replace(iteration=state.iteration + 1)
     # frequency-window decay (proportional variant of move_window!,
@@ -1098,11 +1159,14 @@ def run_iteration(state: EvoState, data, ctx: EvoContext) -> EvoState:
     return state
 
 
-def run_finalize(state: EvoState, data, ctx: EvoContext) -> EvoState:
+def run_finalize(state: EvoState, data, ctx: EvoContext, axis=None) -> EvoState:
     """Full-data finalize under cfg.batching, after the batch constant
     optimization (SymbolicRegression.jl src/SingleIteration.jl:107-132):
     exact member losses, the best-seen frontier rescored and re-merged,
-    then migration on the exact scores."""
+    then migration on the exact scores. ``axis``: the island axis of a
+    mesh: the members' evaluations count on every shard (each shard holds
+    the same number of islands), the replicated frontier is rescored on
+    every shard and counted once, and the merge is global."""
     cfg = ctx.cfg
     I, P, N = state.kind.shape
     members = state_tree(state)
@@ -1114,7 +1178,7 @@ def run_finalize(state: EvoState, data, ctx: EvoContext) -> EvoState:
     state = state._replace(
         loss=full_loss,
         score=_score_of(full_loss, comp_m.to(full_loss.dtype), cfg, data.norm),
-        num_evals=state.num_evals + float(I * P),
+        num_evals=state.num_evals + float(I * P * (1 if axis is None else axis.size)),
     )
     bs_len = state.bs_tree[6]
     bs_batch = Tree(*state.bs_tree[:6], bs_len)
@@ -1131,7 +1195,7 @@ def run_finalize(state: EvoState, data, ctx: EvoContext) -> EvoState:
     state = merge_best_seen(
         state, cfg, flat_loss, torch.isfinite(flat_loss) & (members.length >= 1),
         [members.kind, members.op, members.lhs, members.rhs, members.feat, members.val],
-        members.length, comps=comp_m.reshape(I * P),
+        members.length, comps=comp_m.reshape(I * P), axis=axis,
     )
     if cfg.migration:
         state = _migrate(state, ctx, use_hof=False, norm=data.norm)
@@ -1291,3 +1355,105 @@ def fleet_migrate_from_pool(states, ctxs, pools, apply, frac: float, norms) -> l
         migrate_from_pool(st, ctx, pool, frac, nm) if ap else st
         for st, ctx, pool, ap, nm in zip(states, ctxs, pools, apply, norms)
     ]
+
+
+# ---------------------------------------------------------------------------
+# Multi-device: islands shard across the 'pop' mesh axis (the JAX package's
+# evo_state_specs, shard_evo_state, make_sharded_iteration and
+# make_sharded_finalize). A sharded state is one EvoState per shard of the
+# mesh, in flat (pop, rows) order, on that shard's device: the per-member
+# leaves hold the shard's islands, in island order; the frequency
+# histogram, the best-seen frontier and the counters are replicated, and
+# the collectives of _event, run_finalize and the constant optimization
+# keep them equal on every shard. Shards of one pop index hold the same
+# islands (the rows axis replicates the state).
+# ---------------------------------------------------------------------------
+
+def evo_state_specs() -> EvoState:
+    """Which leaves split over 'pop' (the JAX package's PartitionSpecs, as
+    tuples): per-member leaves on their leading island axis, everything else
+    replicated (``()``)."""
+    isl3, isl2, rep = ("pop", None, None), ("pop", None), ()
+    return EvoState(
+        kind=isl3, op=isl3, lhs=isl3, rhs=isl3, feat=isl3, val=isl3,
+        length=isl2, loss=isl2, score=isl2, birth=isl2,
+        freq=rep, bs_loss=rep, bs_tree=(rep,) * 7, bs_exists=rep,
+        step=rep, num_evals=rep, iteration=rep,
+    )
+
+
+def _leaves(state: EvoState) -> list:
+    """(spec, tensor) per leaf of ``state``, ``bs_tree``'s seven included."""
+    out = []
+    for spec, v in zip(evo_state_specs(), state):
+        out.extend(zip(spec, v) if isinstance(v, tuple) else [(spec, v)])
+    return out
+
+
+def _rebuild(leaves: list) -> EvoState:
+    """An EvoState from its leaves in ``_leaves``' order."""
+    head, tail = leaves[:12], leaves[12:]
+    return EvoState(*head, tuple(tail[:7]), *tail[7:])
+
+
+def shard_evo_state(state: EvoState, mesh) -> list:
+    """One EvoState per shard of ``mesh`` (flat order) on its device: pop
+    shard i takes islands [i*I/n_pop, (i+1)*I/n_pop); replicated leaves are
+    copied. The island count must divide over the 'pop' axis. One shard
+    takes ``state`` as it is."""
+    if mesh.size == 1:
+        return [state]
+    n_pop = mesh.devices.shape[0]
+    I = state.kind.shape[0]
+    if I % n_pop:
+        raise ValueError(f"{I} islands do not divide over a pop axis of {n_pop}")
+    k = I // n_pop
+    out = []
+    for s in range(mesh.size):
+        i, j = mesh.coords(s)
+        dev = mesh.devices[i, j]
+        out.append(_rebuild([(v[i * k:(i + 1) * k] if spec else v).to(dev, copy=True)
+                             for spec, v in _leaves(state)]))
+    return out
+
+
+def unshard_evo_state(states: list, mesh, device=None) -> EvoState:
+    """The global EvoState of a sharded one on ``device`` (default: shard
+    0's): the islands of the pop shards (rows index 0) concatenated in
+    island order, the replicated leaves from shard 0. One shard's state as
+    it is."""
+    if mesh.size == 1 and device is None:
+        return states[0]
+    device = states[0].loss.device if device is None else device
+    heads = [_leaves(st) for st in states[::mesh.devices.shape[1]]]
+    return _rebuild([torch.cat([h[q][1].to(device) for h in heads]) if spec else v.to(device)
+                     for q, (spec, v) in enumerate(heads[0])])
+
+
+def make_sharded_iteration(mesh, ctxs) -> Callable:
+    """``step(states, datas) -> states``: ``run_iteration`` in every shard of
+    ``mesh`` at once (``parallel.mesh.shard_map``), each shard on its own
+    islands with its own context (``ctxs``: one per shard; each context's
+    ``cfg.n_islands`` is the shard's island count), the frontier, the
+    frequency histogram and the counters kept equal by the island axis's
+    collectives. ``datas``: one ScoreData per shard (a rows axis gives each
+    shard its row block, and its scorer combines the losses over the
+    axis)."""
+    from ..parallel.mesh import shard_map
+
+    def step(states, datas):
+        return shard_map(lambda sh, st, d, c: run_iteration(st, d, c, axis=sh.axis("pop")),
+                         mesh, zip(states, datas, ctxs))
+
+    return step
+
+
+def make_sharded_finalize(mesh, ctxs) -> Callable:
+    """``make_sharded_iteration``'s twin for ``run_finalize``."""
+    from ..parallel.mesh import shard_map
+
+    def step(states, datas):
+        return shard_map(lambda sh, st, d, c: run_finalize(st, d, c, axis=sh.axis("pop")),
+                         mesh, zip(states, datas, ctxs))
+
+    return step

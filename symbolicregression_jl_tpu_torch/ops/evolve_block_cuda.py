@@ -270,17 +270,20 @@ def evolve_block(words, consts, length, loss, score, birth, fnorm, seed, step0, 
         torch.empty((I, S1, N), dtype=torch.float32, device=dev),
         torch.empty((I, S1), dtype=torch.int32, device=dev),
     )
-    err = lib.sr_evolve_block(
-        c, threads, smem, words.data_ptr(), consts.data_ptr(), length.data_ptr(), loss.data_ptr(),
-        score.data_ptr(), birth.data_ptr(), fnorm.data_ptr(), iscal.data_ptr(),
-        fscal.data_ptr(), X.data_ptr(), y.data_ptr(), None if w is None else w.data_ptr(),
-        *(o.data_ptr() for o in out), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    # the library launches on the runtime's current device (per thread)
+    with torch.cuda.device(dev):
+        err = lib.sr_evolve_block(
+            c, threads, smem, words.data_ptr(), consts.data_ptr(), length.data_ptr(),
+            loss.data_ptr(), score.data_ptr(), birth.data_ptr(), fnorm.data_ptr(),
+            iscal.data_ptr(), fscal.data_ptr(), X.data_ptr(), y.data_ptr(),
+            None if w is None else w.data_ptr(), *(o.data_ptr() for o in out),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(
             f"evolve_block kernel launch failed: {lib.sr_cuda_error_string(err).decode()}"
         )
-    count_launch(evolve_block)
+    count_launch(evolve_block, dev)
     return out
 
 

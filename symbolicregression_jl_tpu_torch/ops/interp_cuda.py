@@ -144,10 +144,15 @@ _BUILD_LOCK = threading.Lock()
 _LAUNCH_LOCK = threading.Lock()
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``, exactly under concurrent callers."""
+def count_launch(wrapper, device=None) -> None:
+    """Add one to ``wrapper.launches`` and, given the launch's ``device``, to
+    its card's entry of ``wrapper.launches_by_device`` (keyed "cuda:N"),
+    exactly under concurrent callers."""
     with _LAUNCH_LOCK:
         wrapper.launches += 1
+        if device is not None:
+            by = wrapper.__dict__.setdefault("launches_by_device", {})
+            by[str(device)] = by.get(str(device), 0) + 1
 
 
 _SMEM_LIMIT = 227 * 1024
@@ -605,7 +610,8 @@ def _device_table(kernel: str, optab: np.ndarray, table, dev) -> torch.Tensor:
 
 def _launch(kernel: str, prog, vals, X, y, w, optab, table, spec, P, P_lane, N, R, prog_ld,
             geometry, partials_shape, outs) -> None:
-    """One launch of B1 or B2 on the current stream: ``geometry`` holds the
+    """One launch of B1 or B2 on the current stream of X's card (made the
+    runtime's current device for the call): ``geometry`` holds the
     launch-shape arguments the kernel takes after R, ``partials_shape`` the
     shape of its f64 scratch, ``outs`` its outputs. Raises if it fails."""
     lib = build(kernel, _SIGNATURES[kernel])
@@ -613,14 +619,17 @@ def _launch(kernel: str, prog, vals, X, y, w, optab, table, spec, P, P_lane, N, 
     partials = torch.empty(partials_shape, dtype=torch.float64, device=dev)
     q = list(spec[1]) + [0.0] * (4 - len(spec[1]))
     lane_axis = X.dim() == 3
-    err = getattr(lib, f"sr_{kernel}")(
-        prog.data_ptr(), prog_ld, vals.data_ptr(), table.data_ptr(),
-        len(optab), X.data_ptr(), X.stride(-2), X.stride(0) if lane_axis else 0, y.data_ptr(),
-        None if w is None else w.data_ptr(), y.stride(0) if lane_axis else 0, P, P_lane, N, R,
-        *geometry, spec[0], *q,
-        partials.data_ptr(), *(o.data_ptr() for o in outs),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    # the library launches on the CUDA runtime's current device, which is
+    # per thread: make it the tensors' card for the call
+    with torch.cuda.device(dev):
+        err = getattr(lib, f"sr_{kernel}")(
+            prog.data_ptr(), prog_ld, vals.data_ptr(), table.data_ptr(),
+            len(optab), X.data_ptr(), X.stride(-2), X.stride(0) if lane_axis else 0,
+            y.data_ptr(), None if w is None else w.data_ptr(), y.stride(0) if lane_axis else 0,
+            P, P_lane, N, R, *geometry, spec[0], *q,
+            partials.data_ptr(), *(o.data_ptr() for o in outs),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(
             f"{kernel} kernel launch failed: {lib.sr_cuda_error_string(err).decode()}"
@@ -683,16 +692,17 @@ def eval_preds(prog, vals, X, opset: OperatorSet, table=None) -> torch.Tensor:
         return preds
     lib = build("eval_preds", _SIGNATURES["eval_preds"])
     threads, rpt, tpb, rows_per_chunk, n_chunks = preds_geometry(P, N, R, len(optab))
-    err = lib.sr_eval_preds(
-        prog.data_ptr(), prog_ld, vals.data_ptr(), table.data_ptr(),
-        len(optab), X.data_ptr(), X.stride(0), P, N, R, threads, rpt, tpb, rows_per_chunk,
-        n_chunks, preds_smem(N, threads, tpb, rpt, len(optab)), preds.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        err = lib.sr_eval_preds(
+            prog.data_ptr(), prog_ld, vals.data_ptr(), table.data_ptr(),
+            len(optab), X.data_ptr(), X.stride(0), P, N, R, threads, rpt, tpb, rows_per_chunk,
+            n_chunks, preds_smem(N, threads, tpb, rpt, len(optab)), preds.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"eval_preds kernel launch failed: "
                            f"{lib.sr_cuda_error_string(err).decode()}")
-    count_launch(eval_trees_kernel)
+    count_launch(eval_trees_kernel, dev)
     return preds
 
 
@@ -740,16 +750,17 @@ def preds_vjp(prog, vals, X, seed, opset: OperatorSet, table=None) -> torch.Tens
     threads, rpt, tpb, rows_per_chunk, n_chunks = grad_geometry(P, N, R, len(optab))
     partials = torch.empty((P, n_chunks, 3 + N) if n_chunks > 1 else (1,),
                            dtype=torch.float64, device=dev)
-    err = entry(
-        prog.data_ptr(), prog_ld, vals.data_ptr(), table.data_ptr(), len(optab),
-        X.data_ptr(), X.stride(0), seed.data_ptr(), P, N, R, threads, rpt, tpb,
-        rows_per_chunk, n_chunks, grad_smem(N, threads, tpb, rpt, len(optab)),
-        partials.data_ptr(), grads.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        err = entry(
+            prog.data_ptr(), prog_ld, vals.data_ptr(), table.data_ptr(), len(optab),
+            X.data_ptr(), X.stride(0), seed.data_ptr(), P, N, R, threads, rpt, tpb,
+            rows_per_chunk, n_chunks, grad_smem(N, threads, tpb, rpt, len(optab)),
+            partials.data_ptr(), grads.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"preds_vjp kernel launch failed: "
                            f"{lib.sr_cuda_error_string(err).decode()}")
-    count_launch(preds_vjp)
+    count_launch(preds_vjp, dev)
     return grads
 
 
@@ -828,7 +839,7 @@ def fused_loss(prog, vals, X, y, w, opset: OperatorSet, loss_elem, table=None) -
     _launch("fused_loss", prog, vals, X, y, w, optab, table, spec, P, P_lane, N, R, prog_ld,
             (threads, rpt, tpb, rows_per_chunk, n_chunks, smem),
             (P, n_chunks, 3) if n_chunks > 1 else (1,), (out,))
-    count_launch(fused_loss)
+    count_launch(fused_loss, X.device)
     return out
 
 
@@ -861,7 +872,7 @@ def fused_loss_grad(prog, vals, X, y, w, opset: OperatorSet, loss_elem, table=No
     _launch("fused_loss_grad", prog, vals, X, y, w, optab, table, spec, P, P_lane, N, R,
             prog_ld, (threads, rpt, tpb, rows_per_chunk, n_chunks, smem),
             (P, n_chunks, 3 + N) if n_chunks > 1 else (1,), (out, grads))
-    count_launch(fused_loss_grad)
+    count_launch(fused_loss_grad, X.device)
     return out, grads
 
 

@@ -7,12 +7,13 @@ SymbolicRegression.jl/src/OptionsStruct.jl:123-195 for the struct,
 SymbolicRegression.jl/src/MutationWeights.jl:30-43 for mutation weights). Defaults
 mirror the reference so search dynamics are comparable out of the box.
 
-``Options`` resolves operators and losses to torch callables. One field is
-the port's own: ``device`` ("cuda" by default; tests pass "cpu"). Every
-field of the JAX package's Options is taken. What the port leaves out is
-the JAX engine's in-process mesh: on a machine with several cards the
-device engine runs on ``device`` alone, where the JAX engine shards its
-islands over every local device (ROADMAP.md, A and C).
+``Options`` resolves operators and losses to torch callables. Two fields
+are the port's own: ``device`` ("cuda" by default, the current card; tests
+pass "cpu") and ``mesh_devices``. Every field of the JAX package's Options
+is taken. The JAX engine shards one search over every local device; the
+port's device engine does so only over the cards ``mesh_devices`` names
+(``parallel/mesh.py``, ``models/device_search.py``), because a mesh turns
+the evolve block off and a search on one card with the block runs faster.
 """
 
 from __future__ import annotations
@@ -202,8 +203,10 @@ class Options:
     # the CUDA context (models/warmup.py; the reference precompiles its
     # workload, SymbolicRegression.jl/src/precompile.jl:36-93)
     jit_warmup: bool = True
-    # "rows": shard dataset rows over every device of ``device``'s kind
-    # (models/scorer.py; with one device the scorer is unchanged)
+    # "rows": shard dataset rows over several devices: the lockstep scorer
+    # over those of ``device`` (every card for "cuda"; models/scorer.py),
+    # the device engine over a rows axis of ``mesh_devices``
+    # (models/device_search.py); with one device nothing changes
     data_sharding: str | None = None
     # multi-output fits: run the per-output searches on a host thread pool
     # (None = auto: concurrent; False = serial). Concurrent and serial runs
@@ -248,6 +251,13 @@ class Options:
     # torch device every tensor of the search lives on; the CPU only when the
     # caller asks for it
     device: str = "cuda"
+    # the devices the device engine shards one search over, e.g.
+    # ("cuda:0", "cuda:1", "cuda:2", "cuda:3"); a device may be named more
+    # than once. The JAX package's rule picks the mesh: the islands over
+    # all of them when they divide, under data_sharding="rows" rows first;
+    # where it gives none, the search runs on the first. None: ``device``
+    # alone (models/device_search.py)
+    mesh_devices: tuple | None = None
 
     # -- derived (filled in __post_init__) -----------------------------------
     operators: OperatorSet = dataclasses.field(init=False)
@@ -298,6 +308,12 @@ class Options:
             raise ValueError("iteration_callback must be callable (or None)")
         if self.device_mutation_attempts < 1:
             raise ValueError("device_mutation_attempts must be >= 1")
+        if self.mesh_devices is not None:
+            if isinstance(self.mesh_devices, str):
+                raise ValueError("mesh_devices is a sequence of device names, not one name")
+            self.mesh_devices = tuple(str(d) for d in self.mesh_devices)
+            if not self.mesh_devices:
+                raise ValueError("mesh_devices must name at least one device (or be None)")
         if not (self.optimizer_g_tol >= 0.0):
             raise ValueError("optimizer_g_tol must be >= 0 (0 disables the gate)")
         if self.optimizer_algorithm not in ("BFGS", "NelderMead"):

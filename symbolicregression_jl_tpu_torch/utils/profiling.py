@@ -92,11 +92,11 @@ class StageProfiler:
 
     def __init__(self, enabled: bool = True, capacity: int = 512, device=None):
         self.enabled = enabled
-        # the CUDA device ``fence`` synchronizes, or None (nothing to wait for)
-        self._cuda = (
-            torch.device(device) if device is not None
-            and torch.device(device).type == "cuda" else None
-        )
+        # the CUDA devices ``fence`` synchronizes (none: nothing to wait for);
+        # ``device`` is one device or a list (a mesh's)
+        devices = device if isinstance(device, (list, tuple)) else [device]
+        self._cuda = [torch.device(d) for d in devices
+                      if d is not None and torch.device(d).type == "cuda"]
         self._ring: deque = deque(maxlen=capacity)
         self._current: dict = {}
         self._iter_t0: float | None = None
@@ -111,12 +111,13 @@ class StageProfiler:
         return _StageCtx(self, name)
 
     def fence(self, x=None):
-        """``torch.cuda.synchronize`` of the profiler's device when enabled
+        """``torch.cuda.synchronize`` of the profiler's devices when enabled
         (the engine runs one stream, so this waits for ``x`` and everything
         enqueued before it); nothing when disabled or on the CPU. Returns
         ``x`` either way."""
-        if self.enabled and self._cuda is not None:
-            torch.cuda.synchronize(self._cuda)
+        if self.enabled:
+            for d in self._cuda:
+                torch.cuda.synchronize(d)
         return x
 
     def add_time(self, name: str, seconds: float):

@@ -386,7 +386,8 @@ def test_port_imports_with_jax_blocked(jax_snapshot):
         for info in pkgutil.walk_packages(T.__path__, T.__name__ + "."):
             importlib.import_module(info.name)
             n += 1
-        for name in ("serve.pod", "utils.chaos", "utils.invariants", "serve.queue"):
+        for name in ("serve.pod", "utils.chaos", "utils.invariants", "serve.queue",
+                     "parallel.mesh", "ops.evolve"):
             assert T.__name__ + "." + name in sys.modules, name
         ck = T.load_checkpoint({jax_snapshot!r})
         assert ck.iteration == 2 and not ck.exact and ck.populations
