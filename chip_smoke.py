@@ -263,6 +263,27 @@ JAX or of the JAX package. Phases, each of which raises on failure:
    the cards against one B1 call. Paths ``mesh``, ``mesh rows``,
    ``mesh solo`` and ``mesh rows B1``. The earlier phases run on ``cuda:0`` (their Options
    name it).
+17. ``drills``: the port's drill CLIs (``symbolicregression_jl_tpu_torch/
+   scripts/``), their functions called in this process on cuda:0, at the
+   JAX smokes' sizes. (a) ``debug_checks_smoke`` on both schedulers with
+   ``SR_DEBUG_CHECKS=1`` for this step only: the verifier
+   (``analysis.ir_verify.verify_flat_trees``, counted through the module
+   attribute every gated site calls) runs at the lockstep scorer and at
+   both engine decode sites and raises nothing; then a checkpoint and a
+   resume. (b) ``serve_smoke`` whole: two tenants at ``default_quota=4``,
+   a deadline that expires in the queue, a preemption and resume (the
+   low job held at its first iteration boundary until the preempting one
+   is queued), the warm-hit ratio. (c) ``fleet_smoke``'s cancel mid-fleet:
+   four lanes, lane 1 cancelled while the fleet is held at a boundary,
+   the survivors bit for bit their solo runs. (d) ``fault_smoke``'s
+   ``serve`` cycle: a journaled server child under ``worker_crash@0``
+   (the supervisor restarts its worker), SIGKILLed mid-batch and recovered
+   on the same journal with no job lost or duplicated and the running job
+   resumed bit-exactly; ``job_exception`` retried to DONE and escalated
+   to QUARANTINED. (e) ``fault_smoke``'s ``exchange`` cycle: two children
+   joined by ``initialize`` on the one card, each recording the other dead
+   under ``exchange_timeout@1`` and finishing solo. Path ``drills`` (this
+   process's launches; the children of (d) and (e) are not counted).
 
 Every launch count in the kernels line is measured: each path sets the
 counts of B1-B4 and B2v to 0 just before it runs and reads all five just
@@ -5948,6 +5969,97 @@ def mesh_path(device):
     return paths, errs
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the drills
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _verify_sites():
+    """Count the flat-IR verifier's calls by site (its ``where`` prefix),
+    through the module attribute every gated site calls; yields the counts
+    and puts the verifier back."""
+    from symbolicregression_jl_tpu_torch.analysis import ir_verify
+
+    calls, real = {}, ir_verify.verify_flat_trees
+
+    def counting(*a, **kw):
+        site = kw.get("where", "").split(":")[0]
+        calls[site] = calls.get(site, 0) + 1
+        return real(*a, **kw)
+
+    ir_verify.verify_flat_trees = counting
+    try:
+        yield calls
+    finally:
+        ir_verify.verify_flat_trees = real
+
+
+def drills_path(device):
+    """Phase 17: the drill CLIs' functions on the card, steps (a)-(e), each
+    of which raises on failure. Returns its (B1, B2, B3, B4, B2v) launches,
+    the path "drills"."""
+    from symbolicregression_jl_tpu_torch.scripts import (
+        debug_checks_smoke, fault_smoke, fleet_smoke, serve_smoke,
+    )
+    from symbolicregression_jl_tpu_torch.utils import faults
+
+    dev = str(device)
+    faults.install(None)  # no fault of an earlier phase reaches the drills
+    faults.reset_env_injector()
+    walls = {}
+    t0 = time.perf_counter()
+    zero_launches()
+
+    t = time.perf_counter()
+    before = os.environ.get("SR_DEBUG_CHECKS")
+    with _verify_sites() as calls:
+        debug_checks_smoke.run(dev)
+    if os.environ.get("SR_DEBUG_CHECKS") != before:
+        _fail("drills (a): SR_DEBUG_CHECKS outlived the drill")
+    sites = ("scorer.loss_many_async", "device_search._bs_to_members",
+             "device_search._decode_state_populations")
+    if not all(calls.get(site, 0) > 0 for site in sites):
+        _fail(f"drills (a): verifier calls by site {calls}")
+    walls["a"] = time.perf_counter() - t
+    print(f"drills (a) debug checks: both schedulers, checkpoint and resume; verifier calls "
+          f"by site {calls}; none raised; {walls['a']:.2f} s", flush=True)
+
+    t = time.perf_counter()
+    st = serve_smoke.run(dev)
+    walls["b"] = time.perf_counter() - t
+    cache = st["program_cache"]
+    print(f"drills (b) serve: jobs {st['jobs']}, default_quota 4 over two tenants, program "
+          f"cache {cache['hits']} hits / {cache['misses']} misses (warm-hit ratio "
+          f"{st['warm_hit_ratio']:.3f}); {walls['b']:.2f} s", flush=True)
+
+    t = time.perf_counter()
+    jobs = fleet_smoke.cancel_mid_fleet(dev)
+    walls["c"] = time.perf_counter() - t
+    print(f"drills (c) cancel mid-fleet: lane 1 {jobs[1].state} after "
+          f"{jobs[1].iterations_done} of 12 iterations, 3 survivors DONE bit for bit their "
+          f"solo runs; {walls['c']:.2f} s", flush=True)
+
+    t = time.perf_counter()
+    fault_smoke.smoke_serve_durability(dev)
+    walls["d"] = time.perf_counter() - t
+    print(f"drills (d) serve cycle: {walls['d']:.2f} s", flush=True)
+
+    t = time.perf_counter()
+    fault_smoke.smoke_degraded_exchange(dev)
+    walls["e"] = time.perf_counter() - t
+    print(f"drills (e) exchange cycle: {walls['e']:.2f} s", flush=True)
+
+    counts = read_launches()
+    if not (counts[0] and counts[1] and counts[2]) or counts[3] or counts[4]:
+        _fail(f"drills: launches B1, B2, B3, B4, B2v {counts} (B1, B2, B3 above 0; B4 and "
+              f"B2v 0)")
+    print(f"phase 17 drills: {time.perf_counter() - t0:.2f} s ("
+          + ", ".join(f"({k}) {v:.2f}" for k, v in walls.items())
+          + f"); launches B1 {counts[0]}, B2 {counts[1]}, B3 {counts[2]}, B4 {counts[3]}, "
+          f"B2v {counts[4]} (the children of (d) and (e) not counted)", flush=True)
+    return counts
+
+
 def build_from_two_threads():
     """Phase 1's build, asked for by two threads at once (a server's workers
     reaching the kernels first together): ``build_all`` serializes them, so
@@ -6056,6 +6168,7 @@ def main() -> int:
     paths.update(mesh_paths)
     for rec in (b1, b2):
         rec["max_abs_err"] = worst_err(rec["max_abs_err"], mesh_errs.get(rec["name"], 0.0))
+    paths["drills"] = drills_path(device)
     for i, rec in enumerate((b1, b2, b3, b4, b2v)):
         rec["launches_by_path"] = {path: counts[i] for path, counts in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
