@@ -284,6 +284,27 @@ JAX or of the JAX package. Phases, each of which raises on failure:
    joined by ``initialize`` on the one card, each recording the other dead
    under ``exchange_timeout@1`` and finishing solo. Path ``drills`` (this
    process's launches; the children of (d) and (e) are not counted).
+18. ``native``, the port's C tree flattening (``native/srcore.c``, taken
+   by ``ops/flat.flatten_trees`` for f32 and by ``FlatSlab.set_trees``) on
+   the card's host. (a) The compiler, flags and include directory (Python.h
+   must be there), the library the run's first flatten built or loaded and
+   a fresh build of the same source into a temporary directory, timed. (e)
+   config3 lockstep, 1 x NATIVE_LOCKSTEP_CYCLES cycles with constant
+   optimization off, seed 0, four times: with the C flatten, the plain one
+   (``flatten_trees_plain``), the plain one, the C one, patched into the
+   scorer and const-opt modules; per run ms per cycle and the flatten's
+   host ms per cycle and at set-up; the four halls of fame (strings, loss
+   bits) and num_evals identical. (b) C against plain, every array as
+   bytes, and ``FlatSlab.set_trees`` against its ``set_tree`` loop and
+   ``pack_programs_fused``, on a config3 population of 10,000 trees, the
+   largest batch (e)'s first run flattened in a cycle, and graph-node DAGs
+   with constants of +-1e39, +-inf, NaN, -0.0 and 1e-45. (c)
+   ``interp_cuda.make_packed_loss_fn`` on the population's slab x 10,000
+   rows, one B1 launch, bit for bit ``fused_loss`` on the packed batch. (d)
+   host ms per call, median and range of 20, C and plain, at the cycle's
+   batch and at 10,000 trees, and the slab's ``set_trees`` against its
+   ``set_tree`` loop. Paths ``native`` ((c)) and ``native lockstep``
+   ((e)'s four runs).
 
 Every launch count in the kernels line is measured: each path sets the
 counts of B1-B4 and B2v to 0 just before it runs and reads all five just
@@ -357,6 +378,10 @@ ELASTIC_ITERATIONS, ELASTIC_CYCLES, ELASTIC_KILL_AT = 20, 20, 2
 ELASTIC_PACE_MS, ELASTIC_KV_TIMEOUT_MS = 300, 5000
 ASYNC_CYCLES = 10
 ROWS_SHARDED, ROWS_LOCKSTEP_CYCLES = 1_000_000, 3
+# phase 18 (native): config3 lockstep, 1 x NATIVE_LOCKSTEP_CYCLES (of 550),
+# run four times with constant optimization off (its ~16 s a run does not
+# depend on the cycles), to keep the phase under 60 s
+NATIVE_LOCKSTEP_CYCLES = 20
 
 # H100 SXM peaks (NVIDIA data sheet; at the 700 W power limit)
 PEAK_F32_FLOPS = 67e12
@@ -6060,6 +6085,272 @@ def drills_path(device):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: native tree flattening
+# ---------------------------------------------------------------------------
+
+def native_build():
+    """(a): the srcore extension the run loaded at its first flatten (the
+    checkout holds no build), and a fresh build of the same source into a
+    temporary directory, timed; fails without Python.h."""
+    import tempfile
+    from pathlib import Path
+
+    from symbolicregression_jl_tpu_torch import native
+
+    if native.get_srcore() is None:
+        _fail("native (a): SR_NO_NATIVE=1 is set")
+    first = dict(native.BUILD_INFO)
+    saved = native.BUILD_DIR
+    with tempfile.TemporaryDirectory() as d:
+        native.BUILD_DIR = Path(d)
+        try:
+            native.build()
+            fresh = dict(native.BUILD_INFO)
+        finally:
+            native.BUILD_DIR = saved
+    if not fresh["python_h"]:
+        _fail(f"native (a): no Python.h under {fresh['include']}")
+    print(f"native (a) build: {fresh['compiler']} {fresh['flags']} -I{fresh['include']} "
+          f"(Python.h found); the run's first flatten {'built' if first['built'] else 'loaded'} "
+          f"{first['library']} in {first['seconds']:.3f} s; a fresh build of the same source "
+          f"{fresh['seconds']:.3f} s", flush=True)
+
+
+def native_special_dags(opset, n_features, seed=0, n=400):
+    """Graph-node DAGs (shared subtrees) at config3's operators, with the
+    constants that test the f32 cast: beyond its range, non-finite, signed
+    zero, the smallest subnormal."""
+    import numpy as np
+
+    from symbolicregression_jl_tpu_torch.models.mutation_functions import (
+        form_random_connection, gen_random_tree_fixed_size,
+    )
+
+    special = [1e39, -1e39, float("inf"), float("-inf"), float("nan"), -0.0, 1e-45]
+    rng = np.random.default_rng(seed)
+    out = []
+    while len(out) < n:
+        t = gen_random_tree_fixed_size(int(rng.integers(5, 16)), opset, n_features, rng)
+        for _ in range(3):
+            t = form_random_connection(t, rng)
+        consts = [m for m in t.iter_unique() if m.degree == 0 and m.is_const]
+        for k, m in enumerate(consts):
+            m.val = special[(len(out) + k) % len(special)]
+        if len(t.postorder()) <= 24:
+            out.append(t)
+    return out
+
+
+def _same_flat(tag, got, want):
+    for name, a, b in zip(got._fields, got, want):
+        if a.dtype != b.dtype or a.shape != b.shape or a.tobytes() != b.tobytes():
+            _fail(f"native (b) {tag}: {name} differs between C and plain")
+
+
+def native_bits(tag, trees, options):
+    """(b) on one set: ``flatten_trees`` (C) against ``flatten_trees_plain``,
+    every array as bytes (val as uint32 bits); ``FlatSlab.set_trees`` (C)
+    against its ``set_tree`` loop and ``pack_programs_fused`` of the flatten.
+    Returns the slab."""
+    import warnings
+
+    from symbolicregression_jl_tpu_torch.ops.flat import (
+        FlatSlab, flatten_trees, flatten_trees_plain,
+    )
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import pack_programs_fused
+
+    N, opset = options.max_nodes, options.operators
+    got = flatten_trees(trees, N)
+    with warnings.catch_warnings():  # numpy warns where a cast overflows to inf
+        warnings.simplefilter("ignore", RuntimeWarning)
+        want = flatten_trees_plain(trees, N)
+        loop = FlatSlab(len(trees), N, opset)
+        for k, t in enumerate(trees):
+            loop.set_tree(k, t)
+    _same_flat(tag, got, want)
+    slab = FlatSlab(len(trees), N, opset)
+    slab.set_trees(trees)
+    prog, vals = pack_programs_fused(got, opset)
+    for what, (a, b) in (("set_tree loop", (loop.ints, loop.vals)),
+                         ("pack_programs_fused", (prog, vals))):
+        if slab.ints.tobytes() != a.tobytes() or slab.vals.tobytes() != b.tobytes():
+            _fail(f"native (b) {tag}: the slab differs from its {what}")
+    print(f"native (b) {tag}: {len(trees)} trees (lengths {int(got.length.min())}-"
+          f"{int(got.length.max())}), C and plain flatten equal in every array, val as uint32 "
+          f"bits; slab equal to its set_tree loop and to pack_programs_fused", flush=True)
+    return slab
+
+
+def native_host_ms(fn, reps=20):
+    """Median and spread (min-max) of ``reps`` host-clock calls of fn, ms."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"median": statistics.median(times), "min": min(times), "max": max(times)}
+
+
+def native_lockstep(device, flatten, cycles=NATIVE_LOCKSTEP_CYCLES, seed=0):
+    """(e), one run: config3 lockstep, 1 iteration x ``cycles``, every
+    flatten of the scorer and of const-opt through ``flatten`` (patched into
+    the modules, as ``main_path`` patches ``fused_loss``), timed on the host
+    clock inside the cycles and outside them. Returns the result, its
+    stats, and the largest batch the scorer flattened inside a cycle."""
+    import symbolicregression_jl_tpu_torch.models.scorer as scorer_mod
+    import symbolicregression_jl_tpu_torch.ops.constant_opt as copt_mod
+    import symbolicregression_jl_tpu_torch.search as search_mod
+    from symbolicregression_jl_tpu_torch import Options, equation_search
+
+    X, y = config3_data()
+    options = Options(
+        populations=100, population_size=100, maxsize=20, ncycles_per_iteration=cycles,
+        seed=seed, save_to_file=False, progress=False, device=str(device),
+        should_optimize_constants=False, **CONFIG3_OPS,
+    )
+    st = {"cycle_s": 0.0, "flatten_cycle_s": 0.0, "flatten_other_s": 0.0, "calls": 0,
+          "biggest": []}
+    in_cycle = [False]
+    saved = {"cycle": search_mod.s_r_cycle_lockstep, "scorer": scorer_mod.flatten_trees,
+             "copt": copt_mod.flatten_trees}
+
+    def cycle(*args, **kwargs):
+        t0 = time.perf_counter()
+        in_cycle[0] = True
+        try:
+            return saved["cycle"](*args, **kwargs)
+        finally:
+            in_cycle[0] = False
+            st["cycle_s"] += time.perf_counter() - t0
+
+    def timed(trees, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = flatten(trees, *args, **kwargs)
+        st["flatten_cycle_s" if in_cycle[0] else "flatten_other_s"] += time.perf_counter() - t0
+        st["calls"] += 1
+        if in_cycle[0] and len(trees) > len(st["biggest"]):
+            st["biggest"] = list(trees)
+        return out
+
+    search_mod.s_r_cycle_lockstep = cycle
+    scorer_mod.flatten_trees = copt_mod.flatten_trees = timed
+    try:
+        zero_launches()
+        t0 = time.perf_counter()
+        res = equation_search(X, y, options=options, niterations=1, verbosity=0)
+        st["wall_s"] = time.perf_counter() - t0
+        st["launches"] = read_launches()
+    finally:
+        search_mod.s_r_cycle_lockstep = saved["cycle"]
+        scorer_mod.flatten_trees, copt_mod.flatten_trees = saved["scorer"], saved["copt"]
+    if not res.use_kernel or st["launches"][0] != res.scoring_dispatches:
+        _fail(f"native (e): B1 launches {st['launches'][0]} for {res.scoring_dispatches} "
+              f"scoring dispatches")
+    return res, options, st
+
+
+def native_path(device):
+    """Phase 18: the port's C tree flattening (``native/srcore.c`` through
+    ``ops/flat.py``) on the card's host, steps (a)-(e), each of which raises
+    on failure. Returns the (B1, B2, B3, B4, B2v) launches of (c), the path
+    "native", those of (e)'s four runs, "native lockstep", and (c)'s
+    error."""
+    import numpy as np
+    import torch
+
+    from symbolicregression_jl_tpu_torch import Options
+    from symbolicregression_jl_tpu_torch.models.population import Population
+    from symbolicregression_jl_tpu_torch.ops.flat import flatten_trees, flatten_trees_plain
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import (
+        fused_loss, make_packed_loss_fn, pack_programs_fused,
+    )
+
+    t0 = time.perf_counter()
+    native_build()
+    options = Options(maxsize=20, device=str(device), **CONFIG3_OPS)
+    N, opset = options.max_nodes, options.operators
+
+    # (e) first: its first run gives (b) a lockstep cycle's candidates
+    runs = []
+    for tag, fn in (("C", flatten_trees), ("plain", flatten_trees_plain),
+                    ("plain", flatten_trees_plain), ("C", flatten_trees)):
+        res, run_opts, st = native_lockstep(device, fn)
+        runs.append((tag, res, run_opts, st))
+    fronts = [(_frontier_bits(res, o), res.num_evals) for _, res, o, _ in runs]
+    if any(f != fronts[0] for f in fronts[1:]):
+        _fail("native (e): the four runs' halls of fame differ:\n"
+              + "\n".join(f"{f}" for f in fronts))
+    cycles = NATIVE_LOCKSTEP_CYCLES
+    for tag, res, _, st in runs:
+        print(f"native (e) lockstep {tag}: config3 1 x {cycles} cycles (const-opt off), wall "
+              f"{st['wall_s']:.3f} s, {st['cycle_s'] / cycles * 1e3:.2f} ms/cycle, flatten "
+              f"{st['flatten_cycle_s'] / cycles * 1e3:.3f} ms/cycle "
+              f"({st['flatten_cycle_s'] / st['cycle_s']:.2%} of the cycles), set-up flatten "
+              f"{st['flatten_other_s'] * 1e3:.2f} ms, {st['calls']} calls, B1 launches "
+              f"{st['launches'][0]}", flush=True)
+    print(f"native (e): C, plain, plain, C: the same hall of fame ({len(fronts[0][0])} members, "
+          f"equation strings and loss bits) and num_evals ({fronts[0][1]:.0f}) in all four",
+          flush=True)
+    lock_counts = tuple(sum(st["launches"][i] for *_, st in runs) for i in range(5))
+
+    # (b) bit for bit on three sets
+    rng = np.random.default_rng(0)
+    population = Population.random_trees(10_000, options, CONFIG3_FEATURES, rng)
+    candidates = runs[0][3]["biggest"]
+    slab = native_bits("config3 population", population, options)
+    native_bits("a lockstep cycle's candidates", candidates, options)
+    native_bits("graph-node DAGs, special constants",
+                native_special_dags(opset, CONFIG3_FEATURES), options)
+
+    # (c) B1 on the population's slab against B1 on the packed batch
+    Xn, yn = config3_data()
+    fn = make_packed_loss_fn(Xn, yn, None, opset, options.loss, N, device=device)
+    zero_launches()
+    got = fn(slab.ints, slab.vals)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    prog, vals = pack_programs_fused(flatten_trees(population, N), opset)
+    saved = fused_loss.launches
+    want = fused_loss(torch.from_numpy(prog).to(device), torch.from_numpy(vals).to(device),
+                      torch.from_numpy(Xn).to(device), torch.from_numpy(yn).to(device), None,
+                      opset, options.loss)
+    torch.cuda.synchronize()
+    fused_loss.launches = saved  # the comparison's launch is not the path's
+    if counts[0] != 1 or any(counts[1:]):
+        _fail(f"native (c): launches B1, B2, B3, B4, B2v {counts} (one B1)")
+    if got.cpu().numpy().tobytes() != want.cpu().numpy().tobytes():
+        _fail("native (c): B1 on the slab differs from B1 on the packed batch")
+    print(f"native (c): make_packed_loss_fn on the {len(population)}-tree slab x "
+          f"{CONFIG3_ROWS} rows equals fused_loss on pack_programs_fused bit for bit "
+          f"({int(torch.isfinite(got).sum())} finite losses), one B1 launch", flush=True)
+
+    # (d) host ms per call
+    for tag, trees in (("cycle", candidates), ("population", population)):
+        c = native_host_ms(lambda: flatten_trees(trees, N))
+        p = native_host_ms(lambda: flatten_trees_plain(trees, N))
+        print(f"native (d) flatten {len(trees)} trees ({tag}): C {c['median']:.4f} ms "
+              f"({c['min']:.4f}-{c['max']:.4f}), plain {p['median']:.4f} ms "
+              f"({p['min']:.4f}-{p['max']:.4f}), plain / C {p['median'] / c['median']:.2f}x; "
+              f"medians of 20, host clock", flush=True)
+    from symbolicregression_jl_tpu_torch.ops.flat import FlatSlab
+
+    s = FlatSlab(len(population), N, opset)
+
+    def loop():
+        for k, t in enumerate(population):
+            s.set_tree(k, t)
+
+    c = native_host_ms(lambda: s.set_trees(population))
+    p = native_host_ms(loop)
+    print(f"native (d) slab {len(population)} trees: set_trees (C) {c['median']:.4f} ms "
+          f"({c['min']:.4f}-{c['max']:.4f}), set_tree loop {p['median']:.4f} ms "
+          f"({p['min']:.4f}-{p['max']:.4f})", flush=True)
+    print(f"phase 18 native: {time.perf_counter() - t0:.2f} s; launches B1 {counts[0]} (native), "
+          f"{lock_counts[0]} (native lockstep)", flush=True)
+    return counts, lock_counts, Err(0.0)
+
+
 def build_from_two_threads():
     """Phase 1's build, asked for by two threads at once (a server's workers
     reaching the kernels first together): ``build_all`` serializes them, so
@@ -6169,6 +6460,8 @@ def main() -> int:
     for rec in (b1, b2):
         rec["max_abs_err"] = worst_err(rec["max_abs_err"], mesh_errs.get(rec["name"], 0.0))
     paths["drills"] = drills_path(device)
+    paths["native"], paths["native lockstep"], native_err = native_path(device)
+    b1["max_abs_err"] = worst_err(b1["max_abs_err"], native_err)
     for i, rec in enumerate((b1, b2, b3, b4, b2v)):
         rec["launches_by_path"] = {path: counts[i] for path, counts in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())

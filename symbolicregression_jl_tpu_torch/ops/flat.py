@@ -1,6 +1,7 @@
 """Flat (device) representation of expression-tree populations.
 
-Copy of ``symbolicregression_jl_tpu/ops/flat.py`` (numpy only). The device
+Copy of ``symbolicregression_jl_tpu/ops/flat.py`` (numpy; an f32 batch is
+flattened in C, ``native/srcore.c``, as there). The device
 never sees pointer trees. A batch of trees is a struct-of-arrays of
 padded postorder tensors — the design called for by SURVEY.md §7.1 and the
 driver north star: host<->device traffic is only these tensors plus loss
@@ -18,6 +19,7 @@ from typing import NamedTuple
 
 import numpy as np
 
+from .. import native
 from ..tree import Node
 
 __all__ = [
@@ -30,8 +32,10 @@ __all__ = [
     "PACK_KIND_MASK",
     "PACK_PAYLOAD_MAX",
     "FlatTrees",
+    "FlatSlab",
     "PackedPrograms",
     "flatten_trees",
+    "flatten_trees_plain",
     "unflatten_tree",
     "pack_programs",
     "unpack_programs",
@@ -181,15 +185,41 @@ def slice_nodes(flat: FlatTrees, n: int) -> FlatTrees:
     )
 
 
+def _srcore(n_trees: int, dtype, max_nodes: int):
+    """The srcore module where the C path applies (the JAX package's rule: a
+    non-empty f32 batch of at most ``native.MAX_NODES`` slots, and not
+    ``SR_NO_NATIVE=1``), else None. Builds it at first use."""
+    if n_trees and np.dtype(dtype) == np.float32 and max_nodes <= native.MAX_NODES:
+        return native.get_srcore()
+    return None
+
+
 def flatten_trees(
     trees: list[Node], max_nodes: int, dtype=np.float32
 ) -> FlatTrees:
     """Flatten host trees into one padded postorder batch (numpy; the caller
-    device_puts / donates). Trees longer than max_nodes are a bug upstream —
-    constraint checking caps sizes before anything is flattened.
+    uploads it). Trees longer than max_nodes are a bug upstream —
+    constraint checking caps sizes before anything is flattened; one raises
+    ValueError.
 
-    Pure-Python flatten path (the JAX package's optional native srcore
-    speed-up is not ported)."""
+    An f32 batch goes through the C extension srcore (``native/``), every
+    other through ``flatten_trees_plain``; both give the same arrays."""
+    core = _srcore(len(trees), dtype, max_nodes)
+    if core is None:
+        return flatten_trees_plain(trees, max_nodes, dtype)
+    P = len(trees)
+    out = [np.empty((P, max_nodes), np.int32) for _ in range(5)]
+    val = np.empty((P, max_nodes), np.float32)
+    length = np.empty((P,), np.int32)
+    core.flatten_batch(trees, *out, val, length)
+    return FlatTrees(*out, val, length)
+
+
+def flatten_trees_plain(
+    trees: list[Node], max_nodes: int, dtype=np.float32
+) -> FlatTrees:
+    """``flatten_trees`` in Python: the path of every dtype but f32, and the
+    plain version the C path is held to."""
     P = len(trees)
     kind = np.zeros((P, max_nodes), dtype=np.int32)
     op = np.zeros((P, max_nodes), dtype=np.int32)
@@ -227,6 +257,71 @@ def flatten_trees(
         length[p] = len(post)
 
     return FlatTrees(kind, op, lhs, rhs, feat, val, length)
+
+
+class FlatSlab:
+    """A persistent batch of trees in B1's packed layout
+    (``ops/interp_cuda.pack_programs_fused``), the JAX package's ``FlatSlab``
+    without its 128-lane rows.
+
+    Owns ``ints`` int32 [capacity, 4N+1] (code | lhs | rhs | feat | length
+    per tree, where code = 0 const, 1 var, 2+op unary, 2+n_unary+op binary)
+    and ``vals`` [capacity, N]. A caller re-flattens only the members that
+    changed (``set_tree``), so the host's cost follows the mutations, not
+    the population. ``interp_cuda.make_packed_loss_fn`` scores its rows with
+    no packing. ``set_trees`` takes srcore under ``flatten_trees``' rule."""
+
+    def __init__(self, capacity: int, n_slots: int, opset, dtype=np.float32):
+        self.capacity = capacity
+        self.n_slots = n_slots
+        self.opset = opset
+        self.ints = np.zeros((capacity, 4 * n_slots + 1), np.int32)
+        self.vals = np.zeros((capacity, n_slots), dtype)
+        self._una_off = 2
+        self._bin_off = 2 + opset.n_unary
+
+    def set_tree(self, i: int, tree: Node) -> None:
+        """Write ``tree`` into row ``i`` (Python)."""
+        N = self.n_slots
+        row = self.ints[i]
+        vrow = self.vals[i]
+        row[:] = 0
+        vrow[:] = 0
+        post = tree.postorder()
+        if len(post) > N:
+            raise ValueError(f"tree has {len(post)} nodes > n_slots={N}")
+        slot_of = {}
+        for s, n in enumerate(post):
+            slot_of[id(n)] = s
+            if n.degree == 0:
+                if n.is_const:
+                    vrow[s] = n.val
+                else:
+                    row[s] = 1
+                    row[3 * N + s] = n.feat
+            elif n.degree == 1:
+                row[s] = self._una_off + n.op
+                row[N + s] = slot_of[id(n.l)]
+            else:
+                row[s] = self._bin_off + n.op
+                row[N + s] = slot_of[id(n.l)]
+                row[2 * N + s] = slot_of[id(n.r)]
+        row[4 * N] = len(post)
+
+    def set_trees(self, trees: list[Node], start: int = 0) -> None:
+        """Write ``trees`` into rows ``start``, ``start + 1``, ...; IndexError
+        past the capacity."""
+        if start < 0 or start + len(trees) > self.capacity:
+            raise IndexError(
+                f"slab write [{start}, {start + len(trees)}) exceeds "
+                f"capacity {self.capacity}"
+            )
+        core = _srcore(len(trees), self.vals.dtype, self.n_slots)
+        if core is not None:
+            core.slab_fill(trees, self.ints, self.vals, start, self.n_slots, self._bin_off)
+            return
+        for k, t in enumerate(trees):
+            self.set_tree(start + k, t)
 
 
 class PackedPrograms(NamedTuple):

@@ -103,6 +103,7 @@ __all__ = [
     "pack_programs_fused",
     "unpack_programs_fused",
     "loss_kernel_eligible",
+    "make_packed_loss_fn",
     "over_lanes",
     "build",
     "build_all",
@@ -844,6 +845,35 @@ def fused_loss(prog, vals, X, y, w, opset: OperatorSet, loss_elem, table=None) -
 
 
 fused_loss.launches = 0
+
+
+def make_packed_loss_fn(X, y, weights, opset: OperatorSet, loss_elem, n_slots: int,
+                        device="cuda"):
+    """B1 on ``ops/flat.FlatSlab`` rows: the counterpart of the JAX
+    package's ``make_packed_loss_fn`` (``interp_pallas.py:632``), with no
+    packing per call.
+
+    Uploads X [F, R], y [R], ``weights`` [R] (or None) and the operator
+    table to ``device`` once, and returns ``fn(ints [P, 4*n_slots+1] int32,
+    vals [P, n_slots] f32) -> losses [P]``, which runs ``fused_loss`` on
+    the rows as they are (numpy rows are copied to the device). A CPU
+    device takes B1's plain version; a CUDA device launches the kernel or
+    raises. Any P."""
+    dev = torch.device(device)
+
+    def put(a, dtype):
+        return None if a is None else torch.as_tensor(a, dtype=dtype).to(dev).contiguous()
+
+    Xd, yd, wd = put(X, torch.float32), put(y, torch.float32), put(weights, torch.float32)
+    table = optab_tensor(opset, dev)
+
+    def fn(ints, vals) -> torch.Tensor:
+        prog, v = put(ints, torch.int32), put(vals, torch.float32)
+        if prog.shape[1] != 4 * n_slots + 1 or v.shape[1] != n_slots:
+            raise ValueError(f"packed rows must be [P, {4 * n_slots + 1}] and [P, {n_slots}]")
+        return fused_loss(prog, v, Xd, yd, wd, opset, loss_elem, table)
+
+    return fn
 
 
 def fused_loss_grad(prog, vals, X, y, w, opset: OperatorSet, loss_elem, table=None):

@@ -431,8 +431,8 @@ def _search_one_output(
 
 
 #: reference parallelism names -> scheduler (``parallelism`` resolution,
-#: SymbolicRegression.jl/src/SymbolicRegression.jl:465-488). The async
-#: scheduler is not ported and raises in Options.
+#: SymbolicRegression.jl/src/SymbolicRegression.jl:465-488); "async" is
+#: the island scheduler of ``parallel/islands.py``.
 _PARALLELISM_TO_SCHEDULER = {
     "serial": "lockstep",
     "multithreading": "async",
