@@ -50,7 +50,9 @@ JAX or of the JAX package. Phases, each of which raises on failure:
    its gradient calls, the first iteration's evolve leg run with host syncs
    made errors, its const-opt leg under the sync census (torch's sync debug
    mode "warn"; every sync located at its line in the port, which must
-   carry an SRL003 finding of the lint), every leg timed between
+   carry an SRL003 finding of the lint; the engine's own count of the leg's
+   syncs, ``engine_stats["host_syncs"]``'s g_tol and Armijo sites, must
+   equal the census's), every leg timed between
    synchronizations and the last iteration's legs traced with
    torch.profiler (kernel time by name, the device's idle share);
 6. the README quick start through ``SRRegressor`` on the card, under the
@@ -1513,9 +1515,11 @@ def sync_census(found):
             torch.cuda.set_sync_debug_mode(0)
 
 
-def _census_report(tag, syncs, srl003):
+def _census_report(tag, syncs, srl003, engine_counts):
     """Phase 5's sync census line for one engine run; fails on a sync at a
-    line the lint does not flag SRL003."""
+    line the lint does not flag SRL003, and where the engine's own count of
+    the leg's syncs (``engine_counts``: the leg's additions to
+    ``engine_stats["host_syncs"]``, by site) differs from the census's."""
     import collections
 
     where = collections.Counter(port for _, port in syncs)
@@ -1523,15 +1527,21 @@ def _census_report(tag, syncs, srl003):
     text = ", ".join(f"{os.path.relpath(f, os.path.realpath(PORT_DIR))}:{ln} ({n})"
                      for (f, ln), n in sorted(where.items(), key=lambda kv: str(kv[0])))
     unflagged = [p for p in where if p is None or p not in srl003]
+    counted = engine_counts.get("g_tol", 0) + engine_counts.get("armijo", 0)
     print(f"sync census, config3 engine ({tag}), iteration 1: const_opt {len(syncs)} syncs at "
           f"{text or 'no line'}, "
           + ("every one flagged SRL003" if not unflagged else "NOT ALL flagged SRL003")
           + f" (the warning's own frame was the caller's line for {own} of {len(syncs)}); "
+          f"the engine's host_syncs for the leg {counted} (g_tol "
+          f"{engine_counts.get('g_tol', 0)}, armijo {engine_counts.get('armijo', 0)}); "
           "evolve 0 (under sync debug mode \"error\")", flush=True)
     if unflagged:
         _fail("sync census: a sync at a line the lint does not flag SRL003: " + ", ".join(
             "no frame of the port on the stack" if p is None else f"{p[0]}:{p[1]}"
             for p in unflagged))
+    if counted != len(syncs):
+        _fail(f"sync census: the engine counted {counted} syncs in the leg, the census "
+              f"{len(syncs)}")
 
 
 def engine_path(device, lockstep=None, block=True, iterations=ENGINE_ITERATIONS,
@@ -1547,7 +1557,9 @@ def engine_path(device, lockstep=None, block=True, iterations=ENGINE_ITERATIONS,
     (1 - device time / wall; the engine runs one stream, so its kernels do
     not overlap). With ``census`` (``lint_port``'s SRL003 lines) the first
     const-opt leg runs under ``sync_census``, and each of its syncs must lie
-    on a line the lint flags. Returns the launches of B1-B4 in the run, and
+    on a line the lint flags; the engine's own count of the leg's syncs
+    (its search's ``SpanRecord``, kept through ``device_search.SpanRecord``)
+    must equal the census's. Returns the launches of B1-B4 in the run, and
     the ms per cycle, evals/s and each leg's host ms per iteration.
     ``lockstep``: phase 4's numbers, printed beside the engine's."""
     import numpy as np
@@ -1569,7 +1581,19 @@ def engine_path(device, lockstep=None, block=True, iterations=ENGINE_ITERATIONS,
     walls = {}
     traces = {}
     syncs = []
+    engine_counts = {}
+    records = []
     on_card = device.type == "cuda"
+
+    class KeptRecord(ds.SpanRecord):
+        """The search's span record, kept so the census leg can read the
+        engine's own sync counts."""
+
+        __slots__ = ()
+
+        def __init__(self, enabled=False):
+            super().__init__(enabled)
+            records.append(self)
 
     def leg_wrap(name):
         seen[name] = nth = seen.get(name, 0) + 1
@@ -1590,12 +1614,16 @@ def engine_path(device, lockstep=None, block=True, iterations=ENGINE_ITERATIONS,
                     torch.cuda.set_sync_debug_mode("error")
                 if counted:
                     checked.append(name)
+                    before = dict(records[-1].syncs)
                 try:
                     with sync_census(syncs) if counted else contextlib.nullcontext():
                         yield
                 finally:
                     if no_sync:
                         torch.cuda.set_sync_debug_mode(0)
+                if counted:
+                    engine_counts.update({k: v - before.get(k, 0)
+                                          for k, v in records[-1].syncs.items()})
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             walls.setdefault(name, []).append(wall)
@@ -1603,8 +1631,8 @@ def engine_path(device, lockstep=None, block=True, iterations=ENGINE_ITERATIONS,
                 traces[name] = (wall, prof)
         return timed()
 
-    saved = ds._DISPATCH_HOOK, ds._LEG_WRAP
-    ds._DISPATCH_HOOK, ds._LEG_WRAP = legs.append, leg_wrap
+    saved = ds._DISPATCH_HOOK, ds._LEG_WRAP, ds.SpanRecord
+    ds._DISPATCH_HOOK, ds._LEG_WRAP, ds.SpanRecord = legs.append, leg_wrap, KeptRecord
     try:
         with engine_block_env(block):
             zero_launches()
@@ -1613,7 +1641,7 @@ def engine_path(device, lockstep=None, block=True, iterations=ENGINE_ITERATIONS,
             wall = time.perf_counter() - t0
             counts = read_launches()
     finally:
-        ds._DISPATCH_HOOK, ds._LEG_WRAP = saved
+        ds._DISPATCH_HOOK, ds._LEG_WRAP, ds.SpanRecord = saved
     b1, b2, b3 = counts[:3]
     st = res.engine_stats
     leg_name = "block" if block else "event leg"
@@ -1626,7 +1654,7 @@ def engine_path(device, lockstep=None, block=True, iterations=ENGINE_ITERATIONS,
     if on_card and census is not None:
         if "const_opt" not in checked:
             _fail("the const-opt leg ran without the sync census")
-        _census_report(leg_name, syncs, census)
+        _census_report(leg_name, syncs, census, engine_counts)
     if b1 != st["score_calls"] or b1 == 0:
         _fail(f"{b1} B1 launches for {st['score_calls']} engine scoring calls")
     if b2 != st["grad_calls"] or b2 == 0:

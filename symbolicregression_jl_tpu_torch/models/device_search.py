@@ -62,13 +62,34 @@ each leg where the leg timer sits ("evolve", "const_opt", "finalize") and
 around the parts of the readback leg ("readback_pack", "readback_d2h",
 "decode_hof", "simplify", "migrate") and the snapshot ("checkpoint"); each
 stage ends with a fence, which the disabled profiler never makes, and the
-summary is ``SearchResult.engine_profile``. ``use_recorder=True`` sets
-``record_events``: the legs queue their event logs on the context, the
-readback leg copies them to the host and replays them into the recorder
-(models/device_recorder.py), then records the populations. Either one
-forces the synchronous readback. A dataset with units sets ``units_check``:
-every loss the engine compares carries the dimensional penalty, added after
-the kernel's loss. ``optimizer_algorithm="NelderMead"`` runs the batched
+summary is ``SearchResult.engine_profile``.
+
+Spans and host-sync counts (``utils.profiling.SpanRecord``, one per search,
+carried by every shard's ``EvoContext``): under ``profile=True``, or when a
+torch profiler records at the call's start, the search records spans, each
+a host wall and a count in ``engine_stats["spans"]`` and, under a profiler,
+a range ``leg:<name>`` on the device trace's clock. The spans are each leg
+("evolve", "const_opt", "finalize", "readback", "exchange"); inside the
+const-opt leg, gapless sub-spans "const_opt/prepare", then
+"const_opt/step" (the host's enqueue between two stop tests) and
+"const_opt/sync" (the host blocked in a stop test) in turn, then
+"const_opt/finish"; the call's "prelude" (entry to the first iteration's
+legs; sub-spans "prelude/lane" and "prelude/initial_scoring") and "tail"
+(loop exit to the return; "tail/drain", "tail/decode_populations",
+"tail/hof"). ``setup_seconds`` is the prelude's wall, read whether or not
+the spans are on. A span never fences or syncs, so the frontier is the same
+with spans on and off; off, each costs an attribute load and the shared
+no-op context. ``engine_stats["host_syncs"]`` counts, always, the
+deliberate host syncs by site: "g_tol" (the convergence gate), "armijo"
+(the line search's stop) and "readback" (a wait for the packed readback's
+copy); a fleet's are the fleet's, every lane waiting at the same syncs.
+
+``use_recorder=True`` sets ``record_events``: the legs queue their event
+logs on the context, the readback leg copies them to the host and replays
+them into the recorder (models/device_recorder.py), then records the
+populations. It forces the synchronous readback, as ``profile`` does. A
+dataset with units sets ``units_check``: every loss the engine compares
+carries the dimensional penalty, added after the kernel's loss. ``optimizer_algorithm="NelderMead"`` runs the batched
 simplex of ops/constant_opt.py over the engine scorer (B1 only).
 
 The fleet (``fleet_search``, ``FleetLaneSpec``; the JAX package's
@@ -111,11 +132,14 @@ never written in place: a fleet stacks copies of it), and the kernels'
 operator table, which each scorer looks up once (``scorer.cached_optab``).
 Searches of one process may run at once (serve workers,
 ``parallel_outputs``): each has its own state, generator and tensors, but
-the kernels' launch counters, the test seams ``_DISPATCH_HOOK`` and
-``_LEG_WRAP`` and the synchronizations of the leg timer and profiler are
-process-wide, so under concurrent searches the counters and the hook's
-calls sum over all of them and a leg's times include the other searches'
-queued work.
+the kernels' launch counters, the test seams ``_DISPATCH_HOOK``,
+``_LEG_WRAP`` and ``_STATE_HOOK`` and the synchronizations of the leg timer
+and profiler are process-wide, so under concurrent searches the counters
+and the hooks' calls sum over all of them and a leg's times include the
+other searches' queued work. The spans and host-sync counts are per search
+and never mix; a torch profiler's ranges are process-wide, and under a
+profiler that records from a call's start the call's legs are ranges
+whether or not ``_LEG_WRAP`` opens its own.
 """
 
 from __future__ import annotations
@@ -171,7 +195,7 @@ from ..ops.scoring import objective_loss, objective_loss_plain
 from ..ops.treeops import Tree
 from ..options import Options
 from ..serve.program_cache import global_program_cache, oom_site
-from ..utils.profiling import NULL_PROFILER, StageProfiler
+from ..utils.profiling import NULL_PROFILER, SpanRecord, StageProfiler
 from .hall_of_fame import HallOfFame
 from .pop_member import PopMember
 from .population import Population
@@ -782,6 +806,10 @@ def make_fleet_const_opt_fn(options: Options, cfg: EvoConfig, scorer: EngineScor
         )
 
     def const_opt(states, datas, ctxs, lanes, axis=None) -> list:
+        # the leg's spans tile it: prepare, then step and sync in turn from
+        # the BFGS's start to its end, then finish
+        tiles = ctxs[0].record.tiles()
+        tiles.to("const_opt/prepare")
         L = len(states)
         pres = [prepare(st, d, ctx) for st, d, ctx in zip(states, datas, ctxs)]
         if L == 1:
@@ -802,6 +830,7 @@ def make_fleet_const_opt_fn(options: Options, cfg: EvoConfig, scorer: EngineScor
             f, g = scorer.packed_loss_grad(prog_b, v.contiguous(), X, y, w)
             return f, torch.where(mask_b, g, 0.0)
 
+        tiles.to("const_opt/step")
         if neldermead:
             # restart 0 starts at val0: under batching its loss is the
             # member's loss on this batch
@@ -809,12 +838,16 @@ def make_fleet_const_opt_fn(options: Options, cfg: EvoConfig, scorer: EngineScor
             x, f = _neldermead(_PackedObjective(scorer, prog_b, X, y, w), x, mask_b, iters,
                                g_tol)
         else:
-            x, f, f0 = _bfgs_lockstep(x, mask_b, vloss, vgrad, iters, g_tol, lanes=L)
-        return [
+            x, f, f0 = _bfgs_lockstep(x, mask_b, vloss, vgrad, iters, g_tol, lanes=L,
+                                      tiles=tiles)
+        tiles.to("const_opt/finish")
+        out = [
             finish(st, d, ctx, pre, x[l * B:(l + 1) * B], f[l * B:(l + 1) * B],
                    None if f0 is None else f0[l * B:(l + 1) * B], axis=axis)
             for l, (st, d, ctx, pre) in enumerate(zip(states, datas, ctxs, pres))
         ]
+        tiles.close()
+        return out
 
     return const_opt
 
@@ -828,12 +861,19 @@ def _lane_bmm(a, b, lanes: int):
     return torch.cat([torch.bmm(u, v) for u, v in zip(a.chunk(lanes), b.chunk(lanes))])
 
 
-def _bfgs_lockstep(x, mask_b, vloss, vgrad, iters: int, g_tol: float, lanes: int = 1):
+def _bfgs_lockstep(x, mask_b, vloss, vgrad, iters: int, g_tol: float, lanes: int = 1,
+                   tiles=None):
     """BFGS over every instance of the batch in lockstep (the JAX package's
     ``_make_const_opt_fn_pallas`` loop): Armijo backtracking (c1 = 1e-4,
     halving, at most 12 steps) that syncs once per step to stop when every
     instance is satisfied, and the g_tol gate, which syncs once per
     iteration and not at all when it is 0. Returns (x, f, f at the start).
+
+    ``tiles``: the leg's gapless spans (``SpanRecord.tiles``; default a
+    record of its own), at ``const_opt/step`` on entry. Each stop test is a
+    wait, counted at its site ("g_tol", "armijo") and, with spans on, the
+    span ``const_opt/sync``; the host's enqueue between two stop tests is a
+    ``const_opt/step``.
 
     ``lanes``: the batch is that many searches' instances, lane-major (a
     fleet). The g_tol gate then holds lane by lane: a lane whose own max
@@ -844,6 +884,8 @@ def _bfgs_lockstep(x, mask_b, vloss, vgrad, iters: int, g_tol: float, lanes: int
     its ``alpha`` and ``f_new`` through ``torch.where``, so the halvings a
     fleetmate still needs change nothing for it, and a frozen lane counts as
     satisfied."""
+    if tiles is None:
+        tiles = SpanRecord().tiles()
     B, N = x.shape
     eye = torch.eye(N, dtype=x.dtype, device=x.device).expand(B, N, N)
     f, g = vgrad(x)
@@ -855,7 +897,7 @@ def _bfgs_lockstep(x, mask_b, vloss, vgrad, iters: int, g_tol: float, lanes: int
             conv = g.abs().reshape(lanes, -1).amax(1) < g_tol
             frozen = conv if frozen is None else frozen | conv
             # under a mesh the other shards run while this one waits
-            with mesh_mod.host_wait():
+            with tiles.wait("g_tol", "const_opt/sync"), mesh_mod.host_wait():
                 # srl: disable=SRL003 -- the g_tol gate; ROADMAP A, const-opt leg without host syncs
                 if bool(frozen.all()):
                     break
@@ -875,7 +917,7 @@ def _bfgs_lockstep(x, mask_b, vloss, vgrad, iters: int, g_tol: float, lanes: int
             armijo = f_new <= f + 1e-4 * alpha * gtd
             if fz is not None:
                 armijo = armijo | fz
-            with mesh_mod.host_wait():
+            with tiles.wait("armijo", "const_opt/sync"), mesh_mod.host_wait():
                 # srl: disable=SRL003 -- the Armijo stop; ROADMAP A, const-opt leg without host syncs
                 if bool(armijo.all()):
                     break
@@ -934,14 +976,15 @@ class _LegTimer:
     recorded around it on each of ``devices``' current streams (the longest
     card counts; summed once, at the end of the search); with a profiler,
     the leg is also its stage of the same name, fenced at its end
-    (``stage=False`` for a leg whose parts are stages of their own)."""
+    (``stage=False`` for a leg whose parts are stages of their own); with
+    the search's spans on (``record``), the leg is its span ``<name>``."""
 
-    def __init__(self, devices, prof: StageProfiler = NULL_PROFILER):
+    def __init__(self, devices, record: SpanRecord, prof: StageProfiler = NULL_PROFILER):
         devices = [torch.device(d) for d in (devices if isinstance(devices, (list, tuple))
                                               else [devices])]
         self.devices = [d for d in dict.fromkeys(devices) if d.type == "cuda"]
-        self.cuda = bool(self.devices)
         self.prof = prof
+        self.record = record
         self.host: dict = {}
         self.events: dict = {}
 
@@ -958,7 +1001,8 @@ class _LegTimer:
                 start.record(torch.cuda.current_stream(d))
                 marks.append((d, start, end))
             t0 = time.perf_counter()
-            with self.prof.stage(name) if stage else contextlib.nullcontext():
+            with self.record.span(name), (
+                    self.prof.stage(name) if stage else contextlib.nullcontext()):
                 yield
                 if stage:
                     self.prof.fence()
@@ -969,7 +1013,7 @@ class _LegTimer:
                 self.events.setdefault(name, []).append([(s_, e) for _, s_, e in marks])
 
     def device_seconds(self) -> dict:
-        if not self.cuda:
+        if not self.devices:
             return {}
         for d in self.devices:
             torch.cuda.synchronize(d)
@@ -1011,17 +1055,25 @@ def _decode_readback(buf: np.ndarray, cfg: EvoConfig):
 class _Readback:
     """Start the copy of a packed tensor into pinned host memory without
     blocking (two buffers, used in turn) and hand out a materializer that
-    waits for that copy's CUDA event."""
+    waits for that copy's CUDA event; each materializer's call is a host
+    sync, counted in ``record`` at the site "readback"."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, record: SpanRecord):
         self.cuda = device.type == "cuda"
+        self.record = record
         self.bufs: list = []
         self.turn = 0
 
     def start(self, rb: torch.Tensor) -> Callable[[], np.ndarray]:
+        count = self.record.count_sync
         if not self.cuda:
             host = rb.numpy().copy()
-            return lambda: host
+
+            def fetch_host() -> np.ndarray:
+                count("readback")
+                return host
+
+            return fetch_host
         if len(self.bufs) < 2:
             self.bufs.append(torch.empty(rb.shape, dtype=rb.dtype, pin_memory=True))
         host = self.bufs[self.turn % len(self.bufs)]
@@ -1031,6 +1083,7 @@ class _Readback:
         done.record(torch.cuda.current_stream(rb.device))
 
         def fetch() -> np.ndarray:
+            count("readback")
             done.synchronize()
             return host.numpy().copy()
 
@@ -1313,14 +1366,20 @@ class _EngineLane:
     shard's islands); ``states`` is one EvoState per shard
     (``ops.evolve.shard_evo_state``). ``cfg`` and ``ecfg`` stay global: the
     host decodes the global arrays in island order. ``data``, ``scorer``
-    and ``ctx`` are shard 0's."""
+    and ``ctx`` are shard 0's.
+
+    ``record``: the search's spans and host-sync counts (``SpanRecord``),
+    which every shard's context carries; the initial scoring is its span
+    ``prelude/initial_scoring``."""
 
     def __init__(self, dataset: Dataset, options: Options, niterations: int,
                  rng: np.random.Generator, init_trees=None, fleet: bool = False,
-                 islands: int | None = None, local_migration: bool = True, mesh=None):
+                 islands: int | None = None, local_migration: bool = True, mesh=None,
+                 record: SpanRecord | None = None):
         if mesh is None:
             mesh = mesh_mod.make_mesh(1, 1, devices=engine_devices(options)[:1])
         self.dataset, self.options, self.mesh = dataset, options, mesh
+        self.record = SpanRecord() if record is None else record
         device = self.device = mesh.devices[0, 0]
         I = options.populations if islands is None else islands
         P = options.population_size
@@ -1374,7 +1433,8 @@ class _EngineLane:
                 bgen = torch.Generator(device=d)
                 bgen.manual_seed(_shard_seed(seed, i, 1 + j))
             self.ctxs.append(EvoContext(self.ecfg_local, d, gen, self.scorers[k].losses,
-                                        batch_rows=batch_rows, batch_gen=bgen))
+                                        batch_rows=batch_rows, batch_gen=bgen,
+                                        record=self.record))
         self.ctx = self.ctxs[0]
         # the collectives of each leg ({leg: {axis: counts}})
         self.collectives: dict = {}
@@ -1388,7 +1448,8 @@ class _EngineLane:
         ones)."""
         ecfg, vdt = self.ecfg, self.vdt
         self.bflat = flatten_trees(trees, self.options.max_nodes, dtype=self.eng_dt)
-        losses0 = self.score_call(_flat_to_tree(self.bflat, self.device, vdt))
+        with self.record.span("prelude/initial_scoring"):
+            losses0 = self.score_call(_flat_to_tree(self.bflat, self.device, vdt))
         state = init_state(self.bflat, losses0, ecfg, self.device)
         comp = _complexity_members(state, ecfg, self.ctx).to(vdt)
         state = state._replace(score=_score_of(state.loss, comp, self.cfg))  # real baseline
@@ -1576,6 +1637,10 @@ def device_search_one_output(
     from ..utils.recorder import Recorder
     from ..utils.stdin_reader import StdinReader
 
+    # the call's prelude, from here to the first iteration's legs: its wall
+    # is ``setup_seconds`` whether or not the spans are on
+    record = SpanRecord.for_search(options.profile)
+    prelude = record.span("prelude", timed=True).begin()
     _reject_out_of_slice(options)
     cache_stats0 = PROGRAM_CACHE.stats() if options.profile else None
     # world identity: the process group's size and rank, or the elastic
@@ -1593,7 +1658,6 @@ def device_search_one_output(
     own_recorder = recorder is None
     if own_recorder:
         recorder = Recorder(options)
-    t_setup = time.perf_counter()
     I, P = options.populations, options.population_size
     if multi_host:
         # even split required: the per-iteration allgather needs identical
@@ -1629,8 +1693,9 @@ def device_search_one_output(
     # cross-process pools (injected once per iteration below) subsume the
     # in-program migration: the pool is then GLOBAL across all processes'
     # islands, as the reference's head-mediated migration
-    lane = _EngineLane(dataset, options, niterations, rng, init_trees, islands=I,
-                       local_migration=not multi_host, mesh=mesh)
+    with record.span("prelude/lane"):
+        lane = _EngineLane(dataset, options, niterations, rng, init_trees, islands=I,
+                           local_migration=not multi_host, mesh=mesh, record=record)
     device, eng_dt, vdt = lane.device, lane.eng_dt, lane.vdt
     cfg, ecfg, data, ctx = lane.cfg, lane.ecfg, lane.data, lane.ctx
     use_kernel, score_call, bflat, states = (
@@ -1665,12 +1730,13 @@ def device_search_one_output(
         # src/SymbolicRegression.jl:727-744)
         saved_members = [m.copy() for m in saved_state.hall_of_fame.members if m is not None]
         if saved_members:
-            sflat = flatten_trees([m.tree for m in saved_members], N, dtype=eng_dt)
-            slosses = np.asarray(score_call(_flat_to_tree(sflat, device, vdt)).cpu())
-            for m, loss in zip(saved_members, slosses):
-                m.loss = float(loss)
-                m.score = float(_score_of(m.loss, float(m.get_complexity(options)), cfg))
-                hof.update(m, options)
+            with record.span("prelude/initial_scoring"):
+                sflat = flatten_trees([m.tree for m in saved_members], N, dtype=eng_dt)
+                slosses = np.asarray(score_call(_flat_to_tree(sflat, device, vdt)).cpu())
+                for m, loss in zip(saved_members, slosses):
+                    m.loss = float(loss)
+                    m.score = float(_score_of(m.loss, float(m.get_complexity(options)), cfg))
+                    hof.update(m, options)
 
     # the pipelined readback, unless lineage replay (which consumes each
     # iteration's logs in lockstep) or the profiler (whose fences serialize
@@ -1688,8 +1754,8 @@ def device_search_one_output(
         stdin_reader = StdinReader()
     reporter = ProgressReporter(niterations, options, use_bar=bool(options.progress),
                                 verbosity=verbosity)
-    timer = _LegTimer(mesh.device_list(), prof)
-    readback = _Readback(device)
+    timer = _LegTimer(mesh.device_list(), record, prof)
+    readback = _Readback(device, record)
     base_evals = float(getattr(saved_state, "num_evals", 0.0) or 0.0) if saved_state else 0.0
     num_evals = base_evals
     device_evals = 0.0
@@ -1739,8 +1805,8 @@ def device_search_one_output(
 
             from ..utils.checkpoint import CheckpointError, load_checkpoint_bytes
 
-            record, shard = grp.join()
-            it_start = int(record.get("iteration", 0))
+            joined, shard = grp.join()
+            it_start = int(joined.get("iteration", 0))
             cur_it[0] = it_start
             if shard is not None:
                 try:
@@ -1840,7 +1906,7 @@ def device_search_one_output(
             prof.fence()
         simplify_inject(members)
 
-    setup_seconds = time.perf_counter() - t_setup
+    setup_seconds = prelude.end()
     for it in range(it_start, niterations):
         # simulated preemption (fault-injection harness): one call per
         # iteration, before its legs
@@ -1965,18 +2031,21 @@ def device_search_one_output(
             stop_reason = _STOP_CODES[int(stop_code)]
             break
 
-    if multi_host:
-        if async_rb:
-            # drain the pipeline: every process reaches here on the same
-            # iteration (lockstep stop), so the last gather stays uniform
-            with timer.leg("exchange", stage=False):
-                gathered = grp.flush()
-                note_lost_peers()
-                if gathered is not None:
-                    consume_gathered(gathered)
-    elif pending is not None:
-        # drain the pipeline: the last iteration's readback is in flight
-        consume(pending())
+    # the call's tail, from the loop's exit to the return
+    tail = record.span("tail").begin()
+    with record.span("tail/drain"):
+        if multi_host:
+            if async_rb:
+                # drain the pipeline: every process reaches here on the same
+                # iteration (lockstep stop), so the last gather stays uniform
+                with timer.leg("exchange", stage=False):
+                    gathered = grp.flush()
+                    note_lost_peers()
+                    if gathered is not None:
+                        consume_gathered(gathered)
+        elif pending is not None:
+            # drain the pipeline: the last iteration's readback is in flight
+            consume(pending())
     num_evals = base_evals + device_evals + host_evals
     iteration_seconds = time.time() - start_time
     if own_stdin:
@@ -1984,8 +2053,10 @@ def device_search_one_output(
 
     # final population readback: folds the last constant optimization's
     # improvements (absent from the frontier readbacks) into the hall of fame
-    pops, final_slots, (kind, opa, lhs, rhs, feat, val, length, loss, _) = (
-        _decode_state_populations(unshard_evo_state(states, mesh), I, P, cfg, options))
+    with record.span("tail/decode_populations"):
+        pops, final_slots, (kind, opa, lhs, rhs, feat, val, length, loss, _) = (
+            _decode_state_populations(unshard_evo_state(states, mesh), I, P, cfg, options))
+    fold = record.span("tail/hof").begin()
     if not multi_host:
         for pop in pops:
             hof.update_many(pop.members, options)
@@ -2016,6 +2087,7 @@ def device_search_one_output(
             flds = [np.asarray(g[2 + j][pi]) for j in range(6)]
             for m in _bs_to_members(bl, np.isfinite(bl), bn, flds, cfg, options):
                 hof.update(m, options)
+    fold.end()
     if grp is not None:
         # stop the heartbeat thread and drop this rank's beat: the group is
         # per-search state, nothing survives into the next equation_search
@@ -2038,6 +2110,7 @@ def device_search_one_output(
         "device_seconds": timer.device_seconds(),
         "checkpoint_seconds": checkpoint_seconds,
         "nan_flooded_islands": flooded_islands,
+        "host_syncs": dict(record.syncs),
     }
     if mesh.size > 1:
         result.engine_stats["mesh"] = {
@@ -2057,6 +2130,9 @@ def device_search_one_output(
         result.engine_profile = prof.summary()
     if own_recorder:
         recorder.dump()
+    tail.end()
+    if record.enabled:
+        result.engine_stats["spans"] = record.summary()
     return result
 
 
@@ -2164,7 +2240,8 @@ class _FleetLane(_EngineLane):
     dataset, padded to the fleet's row count where it is shorter, plus the
     loop's bookkeeping (hall of fame, evaluation counts, stop conditions)."""
 
-    def __init__(self, idx: int, spec: FleetLaneSpec, n_bucket: int, force_weights: bool):
+    def __init__(self, idx: int, spec: FleetLaneSpec, n_bucket: int, force_weights: bool,
+                 record: SpanRecord | None = None):
         from ..ops.scoring import pad_rows_np
 
         self.idx, self.spec = idx, spec
@@ -2190,7 +2267,7 @@ class _FleetLane(_EngineLane):
                     f"{I * P} trees (got {len(init_trees)})"
                 )
         super().__init__(Dataset(X, y, weights=w), options, self.nit, rng, init_trees,
-                         fleet=True)
+                         fleet=True, record=record)
         self.block_mode = _block_mode(self.ecfg, self.device, self.use_kernel, self.dataset.n,
                                       objective=options.loss_function_jit is not None)
         self.async_rb = options.async_readback is not False and not options.profile
@@ -2380,15 +2457,17 @@ def fleet_search(
     if lane_bucket is not None and int(lane_bucket) < 1:
         raise ValueError(f"lane_bucket must be >= 1 (got {lane_bucket})")
     t_setup = time.perf_counter()
-    cache_stats0 = (PROGRAM_CACHE.stats() if any(s.options.profile for s in specs)
-                    else None)
+    profile = any(s.options.profile for s in specs)
+    cache_stats0 = PROGRAM_CACHE.stats() if profile else None
+    # the fleet's spans and host syncs: every lane waits at the same syncs
+    record = SpanRecord.for_search(profile)
 
     ns = [np.asarray(s.y).shape[0] for s in specs]
     n_bucket = max(ns)
     # mixed row counts (or mixed weight presence) force explicit weights on
     # EVERY lane, so that the lanes' data stack
     force_weights = any(s.weights is not None for s in specs) or any(n < n_bucket for n in ns)
-    lanes = [_FleetLane(i, s, n_bucket, force_weights) for i, s in enumerate(specs)]
+    lanes = [_FleetLane(i, s, n_bucket, force_weights, record) for i, s in enumerate(specs)]
     lead = lanes[0]
     ecfg, options = lead.ecfg, lead.options
     for lane in lanes[1:]:
@@ -2419,10 +2498,9 @@ def fleet_search(
     block_fn = _make_fleet_block_fn(lead.block_mode, options, ecfg, stacked)
     frac_hof = float(options.fraction_replaced_hof)
     async_rb = lead.async_rb
-    prof = (StageProfiler(device=device) if any(ln.options.profile for ln in lanes)
-            else NULL_PROFILER)
-    timer = _LegTimer(device, prof)
-    readback = _Readback(device)
+    prof = StageProfiler(device=device) if profile else NULL_PROFILER
+    timer = _LegTimer(device, record, prof)
+    readback = _Readback(device, record)
     active = [lane.nit > 0 for lane in lanes]
     results: list = [None] * L
     pending = None  # (fetch, the lanes it holds): the pipelined carry
@@ -2569,6 +2647,9 @@ def fleet_search(
         summary = prof.summary()
     for result in results:
         result.engine_stats["fleet"].update(fleet_stats)
+        result.engine_stats["host_syncs"] = dict(record.syncs)
+        if record.enabled:
+            result.engine_stats["spans"] = record.summary()
         if summary is not None:
             result.engine_profile = summary
     return results

@@ -63,6 +63,7 @@ from .treeops import (
     tree_depth,
     _randint,
 )
+from ..utils.profiling import SpanRecord
 
 __all__ = [
     "EvoConfig",
@@ -200,11 +201,16 @@ class EvoContext:
     ``cfg.record_events``,
     ``logs`` collects the legs' event logs as ``(kind, tensors)`` entries,
     kind one of "iteration", "migration" and "tuning", in the order the
-    legs make them, until the engine loop takes them (``take_logs``)."""
+    legs make them, until the engine loop takes them (``take_logs``).
+    ``record``: the search's spans and host-sync counts
+    (``utils.profiling.SpanRecord``; every shard of a search, and every lane
+    of a fleet, shares its search's)."""
 
     def __init__(self, cfg: EvoConfig, device, gen: torch.Generator, score_rows: Callable,
-                 batch_rows: int = 0, batch_gen: torch.Generator | None = None):
+                 batch_rows: int = 0, batch_gen: torch.Generator | None = None,
+                 record: SpanRecord | None = None):
         self.cfg = cfg
+        self.record = SpanRecord() if record is None else record
         self.device = torch.device(device)
         self.gen = gen
         # the minibatch row draws' generator: ``gen`` itself, except on a

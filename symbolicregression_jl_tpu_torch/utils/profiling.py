@@ -24,6 +24,24 @@ Design constraints:
 - **Ring buffer.** Per-iteration stage walls land in a bounded deque so a
   long search cannot grow host memory; ``summary()`` aggregates whatever
   the window holds (mean/p50/p90 per stage + fraction of iteration wall).
+
+Spans and host-sync counts (``SpanRecord``, one per search). A span is a
+named stretch of host code: each one adds its host wall and a count to the
+search's record, and while a torch profiler records it also opens a
+profiler range ``leg:<name>``, so the span stands on kineto's clock, the
+clock of the device trace, and a trace reader can lay each idle gap on the
+card to the innermost span over it. Names with a ``/`` are sub-spans
+(``const_opt/step`` inside the leg ``const_opt``). The record is on when
+``Options.profile`` is, or when a torch profiler records at the search's
+start; a span then reads the clock twice and, under a profiler, opens and
+closes one range. A span never fences and never adds a sync. Off, ``span()``
+returns the shared no-op context and reads no clock. ``tiles()`` gives
+spans that follow one another with no gap (one clock reading ends one and
+starts the next), so that sub-spans cover their parent whole.
+
+The host-sync counts are always on: a plain integer add at each deliberate
+sync (``SpanRecord.count_sync``, by site), per search, so concurrent
+searches never mix their counts.
 """
 
 from __future__ import annotations
@@ -33,7 +51,7 @@ from collections import deque
 
 import torch
 
-__all__ = ["StageProfiler", "NULL_PROFILER"]
+__all__ = ["StageProfiler", "NULL_PROFILER", "SpanRecord", "profiler_recording"]
 
 
 class _NullCtx:
@@ -47,6 +65,12 @@ class _NullCtx:
 
     def __exit__(self, *exc):
         return False
+
+    def begin(self):
+        return self
+
+    def end(self) -> float:
+        return 0.0
 
 
 _NULL_CTX = _NullCtx()
@@ -216,3 +240,154 @@ class StageProfiler:
 
 
 NULL_PROFILER = StageProfiler(enabled=False, capacity=1)
+
+
+# -- spans and host-sync counts ---------------------------------------------
+
+# the profiler range a span opens: ``record_function``'s event, through the
+# C++ range at about a tenth of its cost
+_RANGE = torch._C._profiler._RecordFunctionFast
+
+
+def profiler_recording() -> bool:
+    """Whether a torch profiler is recording in this process."""
+    return torch._C._autograd._profiler_enabled()
+
+
+def _open_range(name: str):
+    rng = _RANGE(f"leg:{name}")
+    rng.__enter__()
+    return rng
+
+
+class _Span:
+    """One span: ``begin``/``end`` (or a ``with`` block). ``seconds`` is its
+    last wall."""
+
+    __slots__ = ("_rec", "_name", "_t0", "_rng", "seconds")
+
+    def __init__(self, rec: "SpanRecord", name: str):
+        self._rec = rec
+        self._name = name
+        self._rng = None
+        self.seconds = 0.0
+
+    def begin(self):
+        if self._rec.enabled and profiler_recording():
+            self._rng = _open_range(self._name)
+        self._t0 = time.perf_counter()
+        return self
+
+    def end(self) -> float:
+        self.seconds = time.perf_counter() - self._t0
+        if self._rng is not None:
+            self._rng.__exit__(None, None, None)
+            self._rng = None
+        if self._rec.enabled:
+            self._rec.add(self._name, self.seconds)
+        return self.seconds
+
+    def __enter__(self):
+        return self.begin()
+
+    def __exit__(self, *exc):
+        self.end()
+        return False
+
+
+class _Tiles:
+    """Spans that follow one another on one thread with no gap: ``to(name)``
+    ends the open span and starts ``name`` at the same clock reading,
+    ``close()`` ends the last. ``wait(site, name)`` is a ``with`` block
+    around a deliberate host sync: it counts the sync at ``site`` (always),
+    and with spans on the wait is the span ``name``, after which the span
+    that was open goes on (as a new span of its name)."""
+
+    __slots__ = ("_rec", "_on", "_name", "_t0", "_rng", "_wait", "_resume")
+
+    def __init__(self, rec: "SpanRecord"):
+        self._rec = rec
+        self._on = rec.enabled
+        self._name = self._rng = None
+
+    def _switch(self, name):
+        now = time.perf_counter()
+        # the next range opens before the last one closes: no instant
+        # between two tiles lies outside both on the profiler's clock
+        rng = _open_range(name) if name is not None and profiler_recording() else None
+        if self._rng is not None:
+            self._rng.__exit__(None, None, None)
+        self._rng = rng
+        if self._name is not None:
+            self._rec.add(self._name, now - self._t0)
+        self._name, self._t0 = name, now
+
+    def to(self, name: str) -> None:
+        if self._on:
+            self._switch(name)
+
+    def close(self) -> None:
+        if self._on:
+            self._switch(None)
+
+    def wait(self, site: str, name: str):
+        self._rec.count_sync(site)
+        if not self._on:
+            return _NULL_CTX
+        self._wait = name
+        return self
+
+    def __enter__(self):
+        self._resume = self._name
+        self._switch(self._wait)
+        return self
+
+    def __exit__(self, *exc):
+        self._switch(self._resume)
+        return False
+
+
+class SpanRecord:
+    """One search's spans and host-sync counts.
+
+    ``spans``: name -> [count, host seconds], filled only when ``enabled``;
+    ``syncs``: site -> count, always. ``for_search(profile)`` is on where
+    ``Options.profile`` is or a torch profiler records at the search's
+    start. ``span(name)`` is a ``with`` block (the shared no-op context when
+    off; ``timed=True`` gives a span that reads the clock even when off, for
+    a wall the search reports either way); ``tiles()`` gives gapless spans
+    (``_Tiles``)."""
+
+    __slots__ = ("enabled", "spans", "syncs")
+
+    def __init__(self, enabled: bool = False):
+        self.enabled = enabled
+        self.spans: dict = {}
+        self.syncs: dict = {}
+
+    @classmethod
+    def for_search(cls, profile: bool) -> "SpanRecord":
+        return cls(bool(profile) or profiler_recording())
+
+    def span(self, name: str, timed: bool = False):
+        if not (self.enabled or timed):
+            return _NULL_CTX
+        return _Span(self, name)
+
+    def tiles(self) -> _Tiles:
+        return _Tiles(self)
+
+    def count_sync(self, site: str) -> None:
+        self.syncs[site] = self.syncs.get(site, 0) + 1
+
+    def add(self, name: str, seconds: float) -> None:
+        acc = self.spans.get(name)
+        if acc is None:
+            self.spans[name] = [1, seconds]
+        else:
+            acc[0] += 1
+            acc[1] += seconds
+
+    def summary(self) -> dict:
+        """name -> {"count", "seconds"} of every span entered."""
+        return {name: {"count": n, "seconds": s} for name, (n, s) in self.spans.items()}

@@ -76,6 +76,32 @@ def test_null_profiler_is_inert(monkeypatch):
     assert tprof.StageProfiler(device="cpu").fence(x) is x
 
 
+def test_null_spans_are_inert(monkeypatch):
+    """Spans off (no ``profile``, no torch profiler): a span is the shared
+    no-op context, reads no clock and opens no profiler range; the host-sync
+    counts are kept all the same."""
+    def no_clock(*a, **k):
+        raise AssertionError("a span that is off read the clock or opened a range")
+
+    rec = tprof.SpanRecord.for_search(False)
+    assert not rec.enabled and not tprof.profiler_recording()
+    monkeypatch.setattr(time, "perf_counter", no_clock)
+    monkeypatch.setattr(tprof, "_RANGE", no_clock)
+    monkeypatch.setattr(torch.profiler, "record_function", no_clock)
+    with rec.span("evolve") as ctx:
+        pass
+    assert ctx is tprof.NULL_PROFILER.stage("evolve")  # the one shared no-op context
+    assert rec.span("prelude/lane").begin().end() == 0.0
+    tiles = rec.tiles()
+    tiles.to("const_opt/prepare")
+    for site in ("g_tol", "armijo", "armijo"):
+        with tiles.wait(site, "const_opt/sync"):
+            tiles.to("const_opt/step")
+    tiles.close()
+    assert rec.spans == {} and rec.summary() == {}
+    assert rec.syncs == {"g_tol": 1, "armijo": 2}
+
+
 def _search(**kw):
     rng = np.random.default_rng(0)
     X = rng.normal(size=(2, 100)).astype(np.float32)
