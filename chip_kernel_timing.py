@@ -50,6 +50,19 @@ checkout's kernel build directory there: the libraries are named by the
 hash of their sources and flags, so checkouts with the same kernel sources
 build once between them.
 
+``--line-search`` instead checks and times the const-opt leg's line search
+on the card: B1 on config3's shape with the 13 trial steps of 4,200
+instances in one launch on 13 step lanes against 13 launches, bit for bit,
+both timed in turns (``chip_smoke.line_search_launch_check``), then the
+config3 engine with its first const-opt leg under the sync census
+(``chip_smoke.engine_path``), which must find no sync. ``--const-opt``
+times the quick start's const-opt legs of the checkout at ``--root``
+(``chip_smoke.quick_start_const_opt``); run it in turns as above.
+``--line-search-hist SEED`` runs one window of the benchmark's
+``config3.search`` cell (``port_bench.harness.measure``, ``--seconds``,
+default 51) and prints the engine's ``line_search`` counts: how many
+instances accepted each step.
+
 Needs a CUDA card and ``nvcc``.
 """
 
@@ -81,6 +94,13 @@ def main() -> int:
                     help="time the config3 event leg and the units event leg")
     ap.add_argument("--build-dir", default=None,
                     help="the kernel build directory (shared between checkouts)")
+    ap.add_argument("--line-search", action="store_true",
+                    help="check and time the line search's one B1 launch; the sync census")
+    ap.add_argument("--const-opt", action="store_true",
+                    help="time the quick start's const-opt legs")
+    ap.add_argument("--line-search-hist", type=int, default=None, metavar="SEED",
+                    help="the line_search counts of one config3.search window")
+    ap.add_argument("--seconds", type=float, default=51.0)
     args = ap.parse_args()
     import torch
 
@@ -110,6 +130,22 @@ def main() -> int:
         from pathlib import Path
 
         interp_cuda.BUILD_DIR = Path(os.path.abspath(args.build_dir))
+    if args.line_search:
+        interp_cuda.build_all()
+        out = chip_smoke.line_search_launch_check(device)
+        chip_smoke.engine_path(device, None, block=True, census=chip_smoke.lint_port())
+        print(json.dumps({"label": args.label, "card": smi, "line_search": out}), flush=True)
+        return 0
+    if args.const_opt:
+        interp_cuda.build_all()
+        out = chip_smoke.quick_start_const_opt(device)
+        print(json.dumps({"label": args.label, "card": smi, "const_opt": out}), flush=True)
+        return 0
+    if args.line_search_hist is not None:
+        out = line_search_hist(args.line_search_hist, args.seconds)
+        print(json.dumps({"label": args.label, "card": smi, "line_search_hist": out}),
+              flush=True)
+        return 0
     if args.legs:
         interp_cuda.build_all()
         out = legs(chip_smoke, device)
@@ -144,6 +180,28 @@ def measure(chip_smoke, device) -> dict:
                    for (P, R), t in b2.items()},
             "b3": {k: b3[k] for k in ("ms", "ms_per_cycle", "sweep")},
             "b4": {k: b4[k] for k in rate + ("device_ms", "entry_ms")}}
+
+
+def line_search_hist(seed: int, seconds: float) -> dict:
+    """One window of the benchmark's ``config3.search`` cell, as the
+    benchmark runs it untraced, and what the engine counted of its line
+    searches; the run's ``correct`` as the benchmark judges it."""
+    sys.path.insert(1, HERE)
+    from port_bench import harness
+
+    cell = harness.load_cell("config3.search")
+    run, X, y = harness.measure(cell, seed, seconds, False, "cuda", time.perf_counter())
+    correct = harness.judge(cell, run, X, y, seed)[0]
+    ls = run.result.engine_stats["line_search"]
+    hist = ls["accepted_at"]
+    n = sum(hist)
+    print(f"config3.search seed {seed}: {run.iterations} iterations in {run.call_s:.3f} s "
+          f"({1e3 * run.call_s / max(run.iterations, 1):.2f} ms an iteration), correct "
+          f"{correct}; line searches {ls['searches']} ({ls['wide']} wide), {n} instances, "
+          "accepted at k = 0..12, frozen: " + ", ".join(
+              f"{h} ({h / max(n, 1):.2%})" for h in hist), flush=True)
+    return {"seed": seed, "iterations": run.iterations, "call_s": run.call_s,
+            "correct": bool(correct), **ls}
 
 
 #: the (threads, RPT) launch shapes ``--shapes`` times for B2 and B4

@@ -19,6 +19,9 @@ JAX or of the JAX package. Phases, each of which raises on failure:
    operator, and for every built-in real loss; timings with CUDA events at
    the lockstep scoring shape (1024 programs) and the device engine's
    constant-optimization shape (4,200), with slot evaluations per second;
+   the const-opt leg's line search at that shape, its 13 trial steps in one
+   launch on 13 step lanes, bit for bit the 13 launches it replaces, both
+   timed in turns (``line_search_launch_check``);
 3. kernel check of B2, the fused loss+gradient kernel
    (``fused_loss_grad``), the same way, at the device engine's
    constant-optimization shape (4,200 instances x 10,000 rows), where two
@@ -49,10 +52,10 @@ JAX or of the JAX package. Phases, each of which raises on failure:
    counted against the engine's scoring calls and every B2 launch against
    its gradient calls, the first iteration's evolve leg run with host syncs
    made errors, its const-opt leg under the sync census (torch's sync debug
-   mode "warn"; every sync located at its line in the port, which must
-   carry an SRL003 finding of the lint; the engine's own count of the leg's
-   syncs, ``engine_stats["host_syncs"]``'s g_tol and Armijo sites, must
-   equal the census's), every leg timed between
+   mode "warn": the leg must make no sync, and the engine must count none
+   in ``engine_stats["host_syncs"]``; a sync would be located at its line in
+   the port, which must carry an SRL003 finding of the lint), every leg
+   timed between
    synchronizations and the last iteration's legs traced with
    torch.profiler (kernel time by name, the device's idle share);
 6. the README quick start through ``SRRegressor`` on the card, under the
@@ -1516,10 +1519,11 @@ def sync_census(found):
 
 
 def _census_report(tag, syncs, srl003, engine_counts):
-    """Phase 5's sync census line for one engine run; fails on a sync at a
-    line the lint does not flag SRL003, and where the engine's own count of
-    the leg's syncs (``engine_counts``: the leg's additions to
-    ``engine_stats["host_syncs"]``, by site) differs from the census's."""
+    """Phase 5's sync census line for one engine run; fails on any sync in
+    the const-opt leg (its line search and g_tol gate are decided on the
+    device), on a sync at a line the lint does not flag SRL003, and where
+    the engine counted a sync of its own in the leg (``engine_counts``: the
+    leg's additions to ``engine_stats["host_syncs"]``, by site)."""
     import collections
 
     where = collections.Counter(port for _, port in syncs)
@@ -1527,21 +1531,21 @@ def _census_report(tag, syncs, srl003, engine_counts):
     text = ", ".join(f"{os.path.relpath(f, os.path.realpath(PORT_DIR))}:{ln} ({n})"
                      for (f, ln), n in sorted(where.items(), key=lambda kv: str(kv[0])))
     unflagged = [p for p in where if p is None or p not in srl003]
-    counted = engine_counts.get("g_tol", 0) + engine_counts.get("armijo", 0)
+    counted = sum(engine_counts.values())
     print(f"sync census, config3 engine ({tag}), iteration 1: const_opt {len(syncs)} syncs at "
-          f"{text or 'no line'}, "
-          + ("every one flagged SRL003" if not unflagged else "NOT ALL flagged SRL003")
+          f"{text or 'no line'}"
+          + ("" if not syncs else ", every one flagged SRL003" if not unflagged
+             else ", NOT ALL flagged SRL003")
           + f" (the warning's own frame was the caller's line for {own} of {len(syncs)}); "
-          f"the engine's host_syncs for the leg {counted} (g_tol "
-          f"{engine_counts.get('g_tol', 0)}, armijo {engine_counts.get('armijo', 0)}); "
+          f"the engine's host_syncs for the leg {counted} ({dict(engine_counts)}); "
           "evolve 0 (under sync debug mode \"error\")", flush=True)
     if unflagged:
         _fail("sync census: a sync at a line the lint does not flag SRL003: " + ", ".join(
             "no frame of the port on the stack" if p is None else f"{p[0]}:{p[1]}"
             for p in unflagged))
-    if counted != len(syncs):
-        _fail(f"sync census: the engine counted {counted} syncs in the leg, the census "
-              f"{len(syncs)}")
+    if syncs or counted:
+        _fail(f"sync census: the const-opt leg synchronized: {len(syncs)} syncs in the census, "
+              f"{counted} counted by the engine")
 
 
 def engine_path(device, lockstep=None, block=True, iterations=ENGINE_ITERATIONS,
@@ -1556,10 +1560,9 @@ def engine_path(device, lockstep=None, block=True, iterations=ENGINE_ITERATIONS,
     of their kernels by name and the device's idle share inside the leg
     (1 - device time / wall; the engine runs one stream, so its kernels do
     not overlap). With ``census`` (``lint_port``'s SRL003 lines) the first
-    const-opt leg runs under ``sync_census``, and each of its syncs must lie
-    on a line the lint flags; the engine's own count of the leg's syncs
-    (its search's ``SpanRecord``, kept through ``device_search.SpanRecord``)
-    must equal the census's. Returns the launches of B1-B4 in the run, and
+    const-opt leg runs under ``sync_census`` and must make no sync, nor
+    count one in its search's ``SpanRecord`` (kept through
+    ``device_search.SpanRecord``). Returns the launches of B1-B4 in the run, and
     the ms per cycle, evals/s and each leg's host ms per iteration.
     ``lockstep``: phase 4's numbers, printed beside the engine's."""
     import numpy as np
@@ -2464,6 +2467,114 @@ def fleet_kernel_check(device, lanes=FLEET_CHECK_LANES, P_lane=4200, islands=100
                      "max_tol_ratio": getattr(errs[name], "ratio", 0.0),
                      "ms_l1": a, f"ms_l{L4}": b,
                      "bound_ms_l1": b1, f"bound_ms_l{L4}": b4}
+    return out
+
+
+def line_search_launch_check(device, P=4200, rounds=5):
+    """The const-opt leg's line search as it launches B1 (``chip_kernel_timing.py
+    --line-search``): the 13 trial steps of ``P`` instances at config3's
+    shape (10,000 rows, config3's operators and ``n_slots`` at maxsize 30)
+    in ONE launch on a lane axis of 13 (the programs and rows repeated once
+    a step; P / lanes = P, each instance's solo launch shape) against 13
+    launches of P programs, bit for bit, unweighted and weighted; then both
+    timed in turns (wide, 13, 13, wide, ...) ``rounds`` times, each as
+    ``time_ms`` and ``device_time_ms`` take it. Timing launches are not
+    counted."""
+    import torch
+
+    from symbolicregression_jl_tpu_torch import Options
+    from symbolicregression_jl_tpu_torch.models.device_search import LINE_STEPS
+    from symbolicregression_jl_tpu_torch.ops import losses as L
+    from symbolicregression_jl_tpu_torch.ops.interp_cuda import (
+        fused_loss, loss_geometry, optab_tensor,
+    )
+
+    opts = Options(maxsize=30, binary_operators=["+", "-", "/", "*"],
+                   unary_operators=["exp", "abs"], device=str(device))
+    opset, N = opts.operators, opts.max_nodes
+    Xn, yn = config3_data()
+    X, y = torch.from_numpy(Xn).to(device), torch.from_numpy(yn).to(device)
+    gen = torch.Generator(device=device).manual_seed(22)
+    w = torch.rand(y.shape, generator=gen, device=device) + 0.5
+    prog_np, vals_np = random_programs(opset, P, N, CONFIG3_FEATURES, seed=22)
+    prog = torch.from_numpy(prog_np).to(device)
+    x = torch.from_numpy(vals_np).to(device)
+    d = torch.randn(x.shape, generator=gen, device=device)
+    steps = torch.full((LINE_STEPS,), 0.5, device=device).cumprod(0) * 2
+    trial = x + steps[:, None, None] * d
+    tab = optab_tensor(opset, device)
+    l2 = L.L2DistLoss
+    prog_w = prog.repeat(LINE_STEPS, 1)
+    V = trial.reshape(-1, N)
+    Xw = X[None].repeat(LINE_STEPS, 1, 1)
+    yw, ww = y[None].repeat(LINE_STEPS, 1), w[None].repeat(LINE_STEPS, 1)
+    saved = fused_loss.launches
+
+    def wide(weighted=False):
+        return fused_loss(prog_w, V, Xw, yw, ww if weighted else None, opset, l2,
+                          tab).reshape(LINE_STEPS, P)
+
+    def calls(weighted=False):
+        return torch.stack([fused_loss(prog, trial[k], X, y, w if weighted else None, opset, l2,
+                                       tab) for k in range(LINE_STEPS)])
+
+    for weighted in (False, True):
+        got, want = wide(weighted), calls(weighted)
+        _same_bits(f"line search, B1 on 13 step lanes ({'weighted' if weighted else 'unweighted'})",
+                   got, want)
+    finite = int(torch.isfinite(got).sum())
+    times = {"wide": [], "calls": [], "wide_device": [], "calls_device": []}
+    for r in range(rounds):
+        for name in (("wide", "calls") if r % 2 == 0 else ("calls", "wide")):
+            fn = wide if name == "wide" else calls
+            times[name].append(time_ms(fn))
+            times[name + "_device"].append(device_time_ms(fn))
+    fused_loss.launches = saved
+    med = {k: statistics.median(v) for k, v in times.items()}
+    geo_lane, geo_flat = loss_geometry(P, N, CONFIG3_ROWS), loss_geometry(LINE_STEPS * P, N,
+                                                                           CONFIG3_ROWS)
+    print(f"line search, B1 at config3's shape ({P} instances x {LINE_STEPS} steps, "
+          f"{CONFIG3_ROWS} rows, N={N}): one launch on {LINE_STEPS} step lanes equals "
+          f"{LINE_STEPS} launches bit for bit, unweighted and weighted ({finite} of "
+          f"{LINE_STEPS * P} losses finite); geometry per lane {geo_lane} (a flat launch of "
+          f"{LINE_STEPS * P} would take {geo_flat}); medians over {rounds} rounds in turns: one "
+          f"launch {med['wide']:.4f} ms (device {med['wide_device']:.4f}), {LINE_STEPS} "
+          f"launches {med['calls']:.4f} ms (device {med['calls_device']:.4f})", flush=True)
+    return {"P": P, "N": N, "rounds": rounds, "times": times, "median": med,
+            "geometry_lane": list(geo_lane), "geometry_flat": list(geo_flat)}
+
+
+def quick_start_const_opt(device, niterations=10, seed=0):
+    """The README quick start's problem on the device engine (200 rows x 2,
+    the package's defaults otherwise), each const-opt leg timed on the host
+    clock between two synchronizations (``_leg_timer``): the path where a
+    line search that stopped at the first satisfied step did the least
+    work. Returns the leg walls (ms), B1 and B2 launches, the engine's
+    ``line_search`` counts (where the package keeps them) and a digest of
+    the frontier, which two versions of one search must share."""
+    import hashlib
+
+    import numpy as np
+
+    from symbolicregression_jl_tpu_torch import Options, equation_search
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(2, 200)).astype(np.float32)
+    y = (2 * np.cos(X[1]) + X[0] ** 2 - 2).astype(np.float32)
+    options = Options(binary_operators=["+", "-", "*"], unary_operators=["cos"], seed=seed,
+                      save_to_file=False, progress=False, device=str(device),
+                      scheduler="device")
+    res, counts, walls, _ = _timed_run(
+        lambda: equation_search(X, y, options=options, niterations=niterations, verbosity=0),
+        niterations + 1)
+    legs = [w * 1e3 for w in walls["const_opt"]]
+    digest = hashlib.sha256(repr(_frontier(res)).encode()).hexdigest()[:16]
+    out = {"leg_ms": legs, "median_ms": statistics.median(legs[1:]), "B1": counts[0],
+           "B2": counts[1], "line_search": res.engine_stats.get("line_search"),
+           "frontier": digest}
+    print(f"quick start, device engine, {niterations} iterations: const-opt leg median "
+          f"{out['median_ms']:.3f} ms (first {legs[0]:.3f}), B1 {counts[0]}, B2 {counts[1]} "
+          f"launches, line_search {out['line_search']}, frontier {digest}", flush=True)
     return out
 
 
@@ -6448,6 +6559,7 @@ def main() -> int:
                 print(f"    {line.strip()}", flush=True)
 
     b1 = kernel_check(device)
+    line_search_launch_check(device)
     b2 = grad_kernel_check(device)
     operator_isolation(device)
     b3 = block_kernel_check(device)

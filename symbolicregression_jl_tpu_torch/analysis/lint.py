@@ -2,8 +2,8 @@
 
 Counterpart of ``symbolicregression_jl_tpu/analysis/lint.py`` with a rule
 set for eager PyTorch on a CUDA card. It guards the invariants the port's
-engine depends on and that otherwise only a run on the card checks: the
-evolve leg makes no host sync and the const-opt leg only its known ones;
+engine depends on and that otherwise only a run on the card checks: neither
+the evolve leg nor the const-opt leg makes a host sync;
 every random draw comes from an explicit ``torch.Generator``; compiled or
 uploaded results are cached through ``serve.program_cache.ProgramCache``
 under keys that name every ``Options`` field they depend on; and no hot

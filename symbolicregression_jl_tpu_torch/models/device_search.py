@@ -14,9 +14,10 @@ batched BFGS over K members x S restarts), "finalize" (under batching only)
 and "readback" (one packed tensor). Where the JAX package compiles the
 chain into one program, the port runs it eagerly: the evolve leg makes no
 host sync (no ``.item()``, no boolean-mask indexing, no Python branch on a
-tensor), so the host only enqueues work. Constant optimization syncs at
-most once per line-search step and once per BFGS iteration, to stop where
-the JAX package's ``while_loop``s stop.
+tensor), so the host only enqueues work. Constant optimization makes no
+host sync either: its line search scores all 13 trial steps at once and its
+stop tests (the JAX package's ``while_loop`` conditions) are decided per
+instance on the device (``_bfgs_lockstep``).
 
 Kernels: on f32 with built-in operators and a built-in real loss
 (``loss_kernel_eligible``), every scoring call goes through B1
@@ -70,9 +71,8 @@ torch profiler records at the call's start, the search records spans, each
 a host wall and a count in ``engine_stats["spans"]`` and, under a profiler,
 a range ``leg:<name>`` on the device trace's clock. The spans are each leg
 ("evolve", "const_opt", "finalize", "readback", "exchange"); inside the
-const-opt leg, gapless sub-spans "const_opt/prepare", then
-"const_opt/step" (the host's enqueue between two stop tests) and
-"const_opt/sync" (the host blocked in a stop test) in turn, then
+const-opt leg, gapless sub-spans "const_opt/prepare", then one
+"const_opt/step" per BFGS iteration (the host's enqueue of it), then
 "const_opt/finish"; the call's "prelude" (entry to the first iteration's
 legs; sub-spans "prelude/lane" and "prelude/initial_scoring") and "tail"
 (loop exit to the return; "tail/drain", "tail/decode_populations",
@@ -80,9 +80,11 @@ legs; sub-spans "prelude/lane" and "prelude/initial_scoring") and "tail"
 the spans are on. A span never fences or syncs, so the frontier is the same
 with spans on and off; off, each costs an attribute load and the shared
 no-op context. ``engine_stats["host_syncs"]`` counts, always, the
-deliberate host syncs by site: "g_tol" (the convergence gate), "armijo"
-(the line search's stop) and "readback" (a wait for the packed readback's
-copy); a fleet's are the fleet's, every lane waiting at the same syncs.
+deliberate host syncs by site: "readback" (a wait for the packed readback's
+copy) is the only one; a fleet's are the fleet's, every lane waiting at the
+same syncs. ``engine_stats["line_search"]`` counts the const-opt leg's line
+searches and, read once at the call's tail, the step each instance accepted
+(``LineSearchStats``).
 
 ``use_recorder=True`` sets ``record_events``: the legs queue their event
 logs on the context, the readback leg copies them to the host and replays
@@ -502,7 +504,8 @@ class EngineScorer:
     ``options.device``; ``cached_optab``). Otherwise the plain versions
     (``plain_losses``), on the engine dtype. ``score_calls`` counts loss
     calls (one B1 launch each on the card), ``grad_calls`` gradient calls
-    (one B2 launch each on the card).
+    (one B2 launch each on the card); ``line_search`` the constant
+    optimization's line searches (``LineSearchStats``).
 
     Under a full objective (``options.loss_function_jit``; ``use_kernel``
     then means ``preds_kernel_eligible``) a loss call is B4 and the
@@ -531,6 +534,7 @@ class EngineScorer:
         self.rows_axis = rows_axis
         self.score_calls = 0
         self.grad_calls = 0
+        self.line_search = LineSearchStats()
 
     def losses(self, batch: Tree, X, y, w) -> torch.Tensor:
         return self.packed_losses(*pack_batch(batch, self.opset), X, y, w)
@@ -723,10 +727,10 @@ def make_const_opt_fn(options: Options, cfg: EvoConfig, scorer: EngineScorer,
 
     Semantics as the JAX package's, including its documented deviation
     (BFGS for every tree, where the reference uses Newton for one-constant
-    trees). The backtracking loop syncs once per step to stop when every
-    instance satisfies Armijo (the JAX ``while_loop``'s condition); the
-    convergence gate (``optimizer_g_tol``) syncs once per BFGS iteration, and
-    not at all when the gate is 0. Under batching the whole BFGS runs on one
+    trees). The line search scores its 13 trial steps in one B1 launch and
+    picks each instance's step on the device, and the convergence gate
+    (``optimizer_g_tol``) freezes on the device: no host sync
+    (``_bfgs_lockstep``). Under batching the whole BFGS runs on one
     fresh row draw, accepts batch against batch and counts evaluations
     fractionally. Returns ``(state, data, axis=None) -> state``: the
     one-lane case of ``make_fleet_const_opt_fn``. ``axis``: the island axis
@@ -743,7 +747,8 @@ def make_fleet_const_opt_fn(options: Options, cfg: EvoConfig, scorer: EngineScor
     ctxs, lanes) -> states``. Each lane picks its members and draws its
     jitters on its own generator, as its solo run; the L·K·S instances of
     all lanes then run ONE lockstep BFGS (or simplex), each B1 or B2 launch
-    on the lane axis (lane l's instances on lane l's data); each lane accepts
+    on the lane axis (lane l's instances on lane l's data; a line search's
+    one B1 launch on 13 x L lanes, a trial step and a lane each); each lane accepts
     and scatters its own results. ``stacked(lanes)`` gives those lanes'
     ScoreData stacked on a leading lane axis; one lane uses its own data
     unstacked, which is the solo's launch. Each lane's results are its solo
@@ -805,9 +810,31 @@ def make_fleet_const_opt_fn(options: Options, cfg: EvoConfig, scorer: EngineScor
             n_ev, norm=data.norm, base_loss=base, ctx=ctx, axis=axis,
         )
 
+    # the line search's 13 trial steps as one B1 launch on a lane axis of
+    # 13 x L (step-major, then lane): each lane's instances keep their solo
+    # launch shape (P / lanes = B), so their bits. A rows axis (its combine
+    # would sum 13 copies' weights) and a full objective (B4 takes no lane
+    # axis) score the trials in 13 calls instead.
+    wide = scorer.rows_axis is None and scorer.objective is None
+
+    def wide_trials(prog_b, X, y, w):
+        """``vtrials`` of ``_bfgs_lockstep`` over the lanes' rows: their
+        programs and rows repeated once per step, built once a leg."""
+        if X.dim() == 2:  # one lane, unstacked
+            X, y, w = X[None], y[None], None if w is None else w[None]
+        Xw, yw = X.repeat(LINE_STEPS, 1, 1), y.repeat(LINE_STEPS, 1)
+        ww = None if w is None else w.repeat(LINE_STEPS, 1)
+        prog_w = prog_b.repeat(LINE_STEPS, 1)
+
+        def vtrials(V):
+            return scorer.packed_losses(prog_w, V.reshape(-1, V.shape[-1]), Xw, yw, ww).reshape(
+                LINE_STEPS, -1)
+
+        return vtrials
+
     def const_opt(states, datas, ctxs, lanes, axis=None) -> list:
-        # the leg's spans tile it: prepare, then step and sync in turn from
-        # the BFGS's start to its end, then finish
+        # the leg's spans tile it: prepare, then one step per BFGS
+        # iteration, then finish
         tiles = ctxs[0].record.tiles()
         tiles.to("const_opt/prepare")
         L = len(states)
@@ -838,8 +865,10 @@ def make_fleet_const_opt_fn(options: Options, cfg: EvoConfig, scorer: EngineScor
             x, f = _neldermead(_PackedObjective(scorer, prog_b, X, y, w), x, mask_b, iters,
                                g_tol)
         else:
-            x, f, f0 = _bfgs_lockstep(x, mask_b, vloss, vgrad, iters, g_tol, lanes=L,
-                                      tiles=tiles)
+            x, f, f0 = _bfgs_lockstep(
+                x, mask_b, vloss, vgrad, iters, g_tol, lanes=L, tiles=tiles,
+                vtrials=wide_trials(prog_b, X, y, w) if wide else None,
+                stats=scorer.line_search)
         tiles.to("const_opt/finish")
         out = [
             finish(st, d, ctx, pre, x[l * B:(l + 1) * B], f[l * B:(l + 1) * B],
@@ -861,68 +890,107 @@ def _lane_bmm(a, b, lanes: int):
     return torch.cat([torch.bmm(u, v) for u, v in zip(a.chunk(lanes), b.chunk(lanes))])
 
 
+#: the line search's trial steps: alpha = 0.5**k for k = 0..12 (Armijo
+#: backtracking with c1 = 1e-4, at most 12 halvings)
+LINE_STEPS = 13
+
+
+class LineSearchStats:
+    """How a search's line searches went (``engine_stats["line_search"]``):
+    ``searches`` run, how many scored their 13 trial steps in one loss call
+    (``wide``) or in 13 calls in a row (``fallback``: a rows axis or a full
+    objective), and ``hist``, on the device, the count of instances by the
+    step each accepted: bins ``k* = 0..12``, then one for instances a
+    frozen lane held (the g_tol gate). Nothing is read back until
+    ``summary``, at the call's tail."""
+
+    def __init__(self):
+        self.searches = self.wide = 0
+        self.hist = None
+
+    def add(self, k, wide: bool) -> None:
+        """One line search's accepted steps ``k`` [B] (int64, frozen = 13)."""
+        if self.hist is None:
+            self.hist = torch.zeros((LINE_STEPS + 1,), dtype=torch.int64, device=k.device)
+        self.hist.index_add_(0, k, torch.ones_like(k))
+        self.searches += 1
+        self.wide += int(wide)
+
+    @staticmethod
+    def summary(stats: list) -> dict:
+        """The counts of ``stats`` (one per shard) summed: one host read."""
+        hist = np.zeros(LINE_STEPS + 1, np.int64)
+        for st in stats:
+            if st.hist is not None:
+                hist += st.hist.cpu().numpy()
+        searches = sum(st.searches for st in stats)
+        wide = sum(st.wide for st in stats)
+        return {"searches": searches, "wide": wide, "fallback": searches - wide,
+                "accepted_at": hist.tolist()}
+
+
 def _bfgs_lockstep(x, mask_b, vloss, vgrad, iters: int, g_tol: float, lanes: int = 1,
-                   tiles=None):
+                   tiles=None, vtrials=None, stats: LineSearchStats | None = None):
     """BFGS over every instance of the batch in lockstep (the JAX package's
-    ``_make_const_opt_fn_pallas`` loop): Armijo backtracking (c1 = 1e-4,
-    halving, at most 12 steps) that syncs once per step to stop when every
-    instance is satisfied, and the g_tol gate, which syncs once per
-    iteration and not at all when it is 0. Returns (x, f, f at the start).
+    ``_make_const_opt_fn_pallas`` loop), with no host sync: Armijo
+    backtracking (c1 = 1e-4, halving, at most 12 steps) and the g_tol gate
+    both decided on the device. Returns (x, f, f at the start).
+
+    The line search scores all 13 trial points ``x + 0.5**k d`` (k = 0..12)
+    at once and takes, per instance, the first k in 0..11 whose Armijo test
+    holds, else 12: what halving until every instance is satisfied leaves,
+    bit for bit (a halving is exact, and ``1.0 * d == d``). ``vtrials(V
+    [13, B, N]) -> [13, B]`` scores them (one wide loss call); without it,
+    13 calls of ``vloss`` in a row. ``stats`` (``LineSearchStats``) counts
+    each search and its accepted steps, on the device.
 
     ``tiles``: the leg's gapless spans (``SpanRecord.tiles``; default a
-    record of its own), at ``const_opt/step`` on entry. Each stop test is a
-    wait, counted at its site ("g_tol", "armijo") and, with spans on, the
-    span ``const_opt/sync``; the host's enqueue between two stop tests is a
-    ``const_opt/step``.
+    record of its own), at ``const_opt/step`` on entry: each BFGS
+    iteration's enqueue is one ``const_opt/step`` (the first also holds the
+    starting gradient).
 
     ``lanes``: the batch is that many searches' instances, lane-major (a
-    fleet). The g_tol gate then holds lane by lane: a lane whose own max
-    |g| is under ``g_tol`` freezes (its x, f and g stay as they are, which is
-    what its solo run's ``break`` leaves) while the others go on, and the
-    loop ends when every lane is frozen, still at one sync per iteration.
-    The Armijo stop stays fleet-wide: an instance already satisfied keeps
-    its ``alpha`` and ``f_new`` through ``torch.where``, so the halvings a
-    fleetmate still needs change nothing for it, and a frozen lane counts as
-    satisfied."""
+    fleet; one for a solo run). The g_tol gate holds lane by lane: a lane
+    whose own max |g| is under ``g_tol`` freezes (its x, f, g and H stay as
+    they are, which is what a ``break`` there would leave, and its line
+    search counts as satisfied at once) while the others go on; every
+    iteration is enqueued."""
     if tiles is None:
         tiles = SpanRecord().tiles()
     B, N = x.shape
     eye = torch.eye(N, dtype=x.dtype, device=x.device).expand(B, N, N)
+    # 0.5**k, k = 0..12, exact, made on the device (an upload of a host
+    # list would wait for the stream)
+    steps = torch.full((LINE_STEPS,), 0.5, dtype=x.dtype, device=x.device).cumprod(0) * 2
     f, g = vgrad(x)
     f0 = f
     H = eye
     frozen = fz = None
-    for _ in range(iters):
+    for it in range(iters):
+        if it:
+            tiles.to("const_opt/step")
         if g_tol > 0:
             conv = g.abs().reshape(lanes, -1).amax(1) < g_tol
             frozen = conv if frozen is None else frozen | conv
-            # under a mesh the other shards run while this one waits
-            with tiles.wait("g_tol", "const_opt/sync"), mesh_mod.host_wait():
-                # srl: disable=SRL003 -- the g_tol gate; ROADMAP A, const-opt leg without host syncs
-                if bool(frozen.all()):
-                    break
-            if lanes > 1:
-                fz = torch.repeat_interleave(frozen, B // lanes)
+            fz = torch.repeat_interleave(frozen, B // lanes)
         d = -_lane_bmm(H, g[:, :, None], lanes)[:, :, 0]
         d = torch.where(mask_b, d, 0.0)
         gtd = (g * d).sum(-1)
         bad = gtd >= 0
         d = torch.where(bad[:, None], -g, d)
         gtd = torch.where(bad, -(g * g).sum(-1), gtd)
-        # Armijo backtracking (c1 = 1e-4, halving, <= 12 steps);
-        # satisfied instances keep their step and value
-        alpha = torch.ones((B,), dtype=x.dtype, device=x.device)
-        f_new = vloss(x + d)
-        for _ in range(12):
-            armijo = f_new <= f + 1e-4 * alpha * gtd
-            if fz is not None:
-                armijo = armijo | fz
-            with tiles.wait("armijo", "const_opt/sync"), mesh_mod.host_wait():
-                # srl: disable=SRL003 -- the Armijo stop; ROADMAP A, const-opt leg without host syncs
-                if bool(armijo.all()):
-                    break
-            alpha = torch.where(armijo, alpha, alpha * 0.5)
-            f_new = torch.where(armijo, f_new, vloss(x + alpha[:, None] * d))
+        # every trial step at once: [13, B, N] points, [13, B] losses
+        trial = x + steps[:, None, None] * d
+        F = torch.stack([vloss(v) for v in trial]) if vtrials is None else vtrials(trial)
+        armijo = F[:-1] <= f + 1e-4 * steps[:-1, None] * gtd
+        if fz is not None:
+            armijo = armijo | fz
+        # the first step that holds (the count of leading misses), else 12
+        k = (~armijo).to(torch.int64).cumprod(0).sum(0)
+        alpha = steps.gather(0, k)
+        f_new = F.gather(0, k[None])[0]
+        if stats is not None:
+            stats.add(k if fz is None else torch.where(fz, LINE_STEPS, k), vtrials is not None)
         ok = torch.isfinite(f_new) & (f_new < f)
         if fz is not None:
             # a frozen lane keeps x (so s = 0 and H stays), f and g
@@ -2111,6 +2179,7 @@ def device_search_one_output(
         "checkpoint_seconds": checkpoint_seconds,
         "nan_flooded_islands": flooded_islands,
         "host_syncs": dict(record.syncs),
+        "line_search": LineSearchStats.summary([sc.line_search for sc in lane.scorers]),
     }
     if mesh.size > 1:
         result.engine_stats["mesh"] = {
@@ -2635,6 +2704,7 @@ def fleet_search(
         if verbosity > 0:
             print(f"[fleet iter {it + 1}] lanes={L} live={sum(active)}")
 
+    line_search = LineSearchStats.summary([scorer.line_search])
     fleet_stats = {
         "score_calls": scorer.score_calls,
         "grad_calls": scorer.grad_calls,
@@ -2648,6 +2718,7 @@ def fleet_search(
     for result in results:
         result.engine_stats["fleet"].update(fleet_stats)
         result.engine_stats["host_syncs"] = dict(record.syncs)
+        result.engine_stats["line_search"] = dict(line_search)
         if record.enabled:
             result.engine_stats["spans"] = record.summary()
         if summary is not None:

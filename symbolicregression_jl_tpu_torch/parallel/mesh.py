@@ -25,8 +25,7 @@ shard that raises aborts every barrier of the mesh, so each shard raises
 and none hangs, and ``shard_map`` re-raises the first error. The shards'
 host work is Python and torch dispatch under one GIL, so one shard thread
 runs at a time, from one collective to the next, handing over at the
-barrier or while it waits for its device (``host_wait``); the cards run
-every shard's queued work at once.
+barrier; the cards run every shard's queued work at once.
 
 The transport of a group is chosen from its device names, never by
 probing: distinct CUDA cards gather with ``torch.cuda.nccl.all_gather`` (one
@@ -59,8 +58,7 @@ import torch
 __all__ = [
     "Mesh", "Sharding", "make_mesh", "population_sharding", "data_sharding", "local_devices",
     "indexed_device", "shard_map", "Shard", "Axis", "MeshAborted", "intra_host_pool_merge",
-    "collective_stats", "reset_collective_stats", "mesh_axis", "device_scope", "host_wait",
-    "warm_up",
+    "collective_stats", "reset_collective_stats", "mesh_axis", "device_scope", "warm_up",
 ]
 
 AXES = ("pop", "rows")
@@ -194,22 +192,6 @@ class _Turns:
         finally:
             if held:
                 self.enter()
-
-
-_CURRENT = threading.local()
-
-
-@contextlib.contextmanager
-def host_wait():
-    """Around a host synchronization in a shard (the constant
-    optimization's stop tests): the other shards run while this one waits
-    for its device. Nothing outside ``shard_map``."""
-    turns = getattr(_CURRENT, "turns", None)
-    if turns is None:
-        yield
-        return
-    with turns.paused():
-        yield
 
 
 class _Group:
@@ -397,7 +379,6 @@ def shard_map(f, mesh: Mesh, per_shard_args, shards=None) -> list:
 
     def run(n: int) -> None:
         sh = Shard(mesh, shards[n], running)
-        _CURRENT.turns = turns
         turns.enter()
         try:
             with device_scope(sh.device):
@@ -408,7 +389,6 @@ def shard_map(f, mesh: Mesh, per_shard_args, shards=None) -> list:
                 g.barrier.abort()
         finally:
             turns.leave()
-            _CURRENT.turns = None
 
     threads = [threading.Thread(target=run, args=(n,), name=f"shard-{shards[n]}", daemon=True)
                for n in range(len(shards))]

@@ -298,12 +298,9 @@ class _Span:
 class _Tiles:
     """Spans that follow one another on one thread with no gap: ``to(name)``
     ends the open span and starts ``name`` at the same clock reading,
-    ``close()`` ends the last. ``wait(site, name)`` is a ``with`` block
-    around a deliberate host sync: it counts the sync at ``site`` (always),
-    and with spans on the wait is the span ``name``, after which the span
-    that was open goes on (as a new span of its name)."""
+    ``close()`` ends the last."""
 
-    __slots__ = ("_rec", "_on", "_name", "_t0", "_rng", "_wait", "_resume")
+    __slots__ = ("_rec", "_on", "_name", "_t0", "_rng")
 
     def __init__(self, rec: "SpanRecord"):
         self._rec = rec
@@ -329,22 +326,6 @@ class _Tiles:
     def close(self) -> None:
         if self._on:
             self._switch(None)
-
-    def wait(self, site: str, name: str):
-        self._rec.count_sync(site)
-        if not self._on:
-            return _NULL_CTX
-        self._wait = name
-        return self
-
-    def __enter__(self):
-        self._resume = self._name
-        self._switch(self._wait)
-        return self
-
-    def __exit__(self, *exc):
-        self._switch(self._resume)
-        return False
 
 
 class SpanRecord:

@@ -21,7 +21,7 @@
   bands.
 - ``fleet_migrate_from_pool`` leaves a lane with ``apply=False`` and its
   generator untouched; the lockstep BFGS freezes lane by lane at
-  ``optimizer_g_tol``, and its fleet-wide Armijo stop changes no lane.
+  ``optimizer_g_tol``, and its fleet-wide line search changes no lane.
 - ``multitarget_search`` equals per-target solo runs at ``seed + t`` and
   raises the JAX package's validation errors.
 """
@@ -569,10 +569,10 @@ def _objective(a, b, c):
 @pytest.mark.parametrize("g_tol", [0.0, 1e-8], ids=["armijo", "g_tol"])
 def test_bfgs_across_lanes_equals_each_lane_alone(g_tol):
     """Lane 0: quadratics, one instance already at its minimum (with g_tol
-    the lane's max |g| is then 0 and it freezes at once, where its solo run
-    breaks); lane 1: quartics far from theirs, which need many Armijo
-    halvings that lane 0's solo run never makes. One BFGS over both lanes
-    gives each lane its solo result bit for bit."""
+    the lane's max |g| is then 0 and it freezes at once, as its solo run
+    does); lane 1: quartics far from theirs, which accept late Armijo steps
+    that lane 0 never needs. One BFGS over both lanes gives each lane its
+    solo result bit for bit."""
     N, B = 3, 4
     rng = np.random.default_rng(0)
     c = torch.from_numpy(rng.normal(size=(2 * B, N)))
